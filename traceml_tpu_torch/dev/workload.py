@@ -1,0 +1,93 @@
+"""The main-path workload of the on-card runs, and their kernel timer.
+
+The full-width DecoderLM of the repo's own TPU lane (``bench.py:206-210``:
+vocab 16384, hidden 1024, 12 layers, 16 heads over 8 kv heads, bf16) with
+random weights made from a numpy seed in the flax params layout and
+loaded through ``params_from_jax``, plus host token batches from a seed.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List
+
+import numpy as np
+import torch
+
+from traceml_tpu_torch.models.convert import params_from_jax
+from traceml_tpu_torch.models.transformer import DecoderLM, ModelConfig
+
+BATCH, SEQ = 8, 1024
+
+
+def full_width_config() -> ModelConfig:
+    return ModelConfig(vocab_size=16384, hidden=1024, n_layers=12, n_heads=16,
+                       n_kv_heads=8, max_seq_len=SEQ, dtype=torch.bfloat16)
+
+
+def random_flax_params(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
+    """A flax-layout DecoderLM params tree of numpy arrays, from a seed:
+    kernels normal with std 1/sqrt(fan_in), embedding normal, scales ones."""
+    rng = np.random.default_rng(seed)
+
+    def dense(d_in: int, d_out: int) -> Dict[str, np.ndarray]:
+        w = rng.standard_normal((d_in, d_out), dtype=np.float32)
+        return {"kernel": w * np.float32(1.0 / np.sqrt(d_in))}
+
+    def ones(n: int) -> Dict[str, np.ndarray]:
+        return {"scale": np.ones((n,), np.float32)}
+
+    hd = cfg.head_dim
+    params: Dict[str, Any] = {
+        "embed": {"embedding": rng.standard_normal((cfg.vocab_size, cfg.hidden), dtype=np.float32)}
+    }
+    for i in range(cfg.n_layers):
+        params[f"layer_{i}"] = {
+            "attn_norm": ones(cfg.hidden),
+            "attn": {
+                "wq": dense(cfg.hidden, cfg.n_heads * hd),
+                "wk": dense(cfg.hidden, cfg.n_kv_heads * hd),
+                "wv": dense(cfg.hidden, cfg.n_kv_heads * hd),
+                "wo": dense(cfg.n_heads * hd, cfg.hidden),
+            },
+            "mlp_norm": ones(cfg.hidden),
+            "mlp": {
+                "w_gate": dense(cfg.hidden, cfg.ffn_hidden),
+                "w_up": dense(cfg.hidden, cfg.ffn_hidden),
+                "w_down": dense(cfg.ffn_hidden, cfg.hidden),
+            },
+        }
+    params["final_norm"] = ones(cfg.hidden)
+    params["lm_head"] = dense(cfg.hidden, cfg.vocab_size)
+    return params
+
+
+def build_model(cfg: ModelConfig, seed: int, device: Any = "cuda") -> DecoderLM:
+    model = DecoderLM(cfg, device=device)
+    model.load_state_dict(params_from_jax(random_flax_params(cfg, seed)))
+    return model.eval()
+
+
+def host_batches(cfg: ModelConfig, seed: int, n: int = 4) -> List[torch.Tensor]:
+    """``n`` (BATCH, SEQ) int64 token batches in pinned host memory, so
+    that ``.to("cuda", non_blocking=True)`` copies asynchronously."""
+    rng = np.random.default_rng(seed)
+    return [
+        torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int64)).pin_memory()
+        for _ in range(n)
+    ]
+
+
+def cuda_ms(fn: Callable[[], Any], iters: int) -> float:
+    """Mean device time of one call of ``fn``, from CUDA events around
+    ``iters`` calls after three warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
