@@ -4,11 +4,19 @@
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 1. Builds every CUDA kernel of the port from ``traceml_tpu_torch/csrc``.
+   It prints what ``ptxas`` says of each instantiation: registers,
+   shared memory, spills and warnings.
 2. Kernel phase: each kernel against its plain PyTorch version on the
-   card (bf16 at the main-path shape and at head_dim 128, f32 at small
-   shapes), then the kernel, the plain version and the library call
+   card (bf16 at the main-path shape, at head_dim 128, at S=4096, with
+   more (batch, head) pairs than SMs, at S=1088 with a ragged last tile
+   and with q scaled by 8; f32 at small shapes), by ``allclose`` and by
+   two checks that scale with the output (``traceml_tpu_torch/dev/
+   attention_check.py``); planted faults at the main-path shape and at
+   S=4096 must fail the same checks.  Then the
+   kernel, the plain version and the library call
    (``scaled_dot_product_attention``, timed only as a yardstick) timed
-   with CUDA events, beside the card's bound for the same work.
+   with CUDA events, beside the card's bound for the same work, with the
+   achieved TFLOP/s and the kernel / library ratio of the same call.
 3. Main path: the full-width DecoderLM (``traceml_tpu_torch/dev/
    workload.py``: vocab 16384, hidden 1024, 12 layers, 16 heads over 8
    kv heads, bf16; random weights from a numpy seed, loaded through
@@ -38,9 +46,9 @@ BATCH, SEQ = 8, 1024  # as traceml_tpu_torch.dev.workload
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
-BF16_TOL = 3e-2  # as tests/models/test_pallas_attention.py uses for bf16
-F32_TOL = 1e-4
 LOGITS_REL_TOL = 5e-2  # kernel vs plain attention through 12 bf16 layers
+# shapes at which planted faults are put through the kernel's checks
+PLANT_AT = ((BATCH, SEQ, 16, 64), (1, 4096, 4, 64), (1, 4096, 4, 128))
 
 
 def log(tag: str, msg: str) -> None:
@@ -77,31 +85,47 @@ def qkv(shape, dtype, gen):
 
 
 def kernel_phase() -> dict:
+    from traceml_tpu_torch.dev.attention_check import compare, planted_faults
     from traceml_tpu_torch.dev.workload import cuda_ms
     from traceml_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # (shape, dtype, q scale), each held to attention_check.TOLERANCES.
+    # S=1088 leaves a ragged last 128-row tile in the bf16 kernel; 9 x 16
+    # (batch, head) pairs are more than the card's 132 SMs; q x 8 makes
+    # the online rescale work.
     checks = [
-        ((BATCH, SEQ, 16, 64), torch.bfloat16, BF16_TOL),  # the main path's shape
-        ((2, 1024, 8, 128), torch.bfloat16, BF16_TOL),
-        ((1, 512, 4, 64), torch.float32, F32_TOL),
-        ((1, 256, 2, 128), torch.float32, F32_TOL),
+        ((BATCH, SEQ, 16, 64), torch.bfloat16, 1.0),  # the main path's shape
+        ((2, 1024, 8, 128), torch.bfloat16, 1.0),
+        ((1, 4096, 4, 64), torch.bfloat16, 1.0),
+        ((1, 4096, 4, 128), torch.bfloat16, 1.0),
+        ((9, 1024, 16, 64), torch.bfloat16, 1.0),
+        ((2, 1088, 8, 64), torch.bfloat16, 1.0),
+        ((2, 1088, 8, 128), torch.bfloat16, 1.0),
+        ((2, 1024, 8, 64), torch.bfloat16, 8.0),
+        ((2, 1088, 8, 128), torch.bfloat16, 8.0),
+        ((1, 512, 4, 64), torch.float32, 1.0),
+        ((1, 256, 2, 128), torch.float32, 1.0),
     ]
     errors = {}
-    for shape, dtype, tol in checks:
+    for shape, dtype, q_scale in checks:
         q, k, v = qkv(shape, dtype, gen)
-        out = flash_attention(q, k, v)
-        ref = flash_attention_plain(q, k, v)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        finite = bool(torch.isfinite(out).all())
-        ok = finite and torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-        log("kernel", json.dumps({"shape": list(shape), "dtype": str(dtype), "max_abs_err": err,
-                                  "tol": tol, "finite": finite, "ok": ok}))
-        check(ok, f"flash_attention disagrees with its plain version at {shape} {dtype}")
-        errors[(shape, dtype)] = err
+        q = (q.float() * q_scale).to(dtype)
+        blk = 128 if shape[1] % 128 == 0 else 64
+        out = flash_attention(q, k, v, blk_q=blk, blk_k=blk)
+        ref = flash_attention_plain(q, k, v, blk, blk)
+        got = compare(out, ref)
+        log("kernel", json.dumps({"shape": list(shape), "dtype": str(dtype), "q_scale": q_scale, **got}))
+        check(got["ok"], f"flash_attention disagrees with its plain version at {shape} {dtype} q x {q_scale}")
+        errors[(shape, dtype, q_scale)] = got["max_abs_err"]
+        if shape in PLANT_AT and q_scale == 1.0:
+            # the same checks on broken kernels' outputs: each must fail
+            for fault, bad in planted_faults(q, k, v).items():
+                caught = compare(bad, ref)
+                log("kernel", "planted " + json.dumps({"shape": list(shape), "fault": fault, **caught}))
+                check(not caught["ok"], f"the checks pass the planted fault {fault} at {shape}")
     for S, blk in ((1000, 128), (96, 32)):
         q, k, v = qkv((1, S, 2, 64), torch.bfloat16, gen)
         try:
@@ -120,10 +144,20 @@ def kernel_phase() -> dict:
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20
     )
     kernel_ms_2 = cuda_ms(lambda: flash_attention(q, k, v), 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):  # the host's cost of one call: checks, tensor maps, launch
+        flash_attention(q, k, v)
+    wrapper_host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
     bound_ms, bound_by = attention_bound_ms(shape, dtype)
+    B, S, H, D = shape
+    causal_flops = 4 * B * H * D * (S * (S + 1) // 2)
     timing = {"shape": list(shape), "dtype": "bfloat16", "ms": kernel_ms, "ms_repeat": kernel_ms_2,
               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by}
+              "bound_by": bound_by, "tflops": causal_flops / (kernel_ms * 1e-3) / 1e12,
+              "library_tflops": causal_flops / (library_ms * 1e-3) / 1e12,
+              "kernel_over_library": kernel_ms / library_ms, "wrapper_host_us": wrapper_host_us}
     log("kernel", "timing " + json.dumps(timing))
     return {
         "name": "flash_attention_fwd",
@@ -131,7 +165,7 @@ def kernel_phase() -> dict:
         "source": "traceml_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "traceml_tpu/ops/pallas_attention.py:72",
         "launches": None,  # filled from the main path's run
-        "max_abs_err": errors[(shape, dtype)],
+        "max_abs_err": errors[(shape, dtype, 1.0)],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -283,10 +317,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(_build.kernel_sources())
     log("build", f"{len(_build.kernel_sources())} source(s) built in {time.perf_counter() - t0:.2f} s")
-    for name, text in _build.build_log.items():
+    for name, text in _build.build_log.items():  # ptxas -v: each instantiation, then its use
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(word in line for word in ("entry function", "registers", "spill", "smem", "arning")):
                 log("build", f"{name}: {line.strip()}")
+    from traceml_tpu_torch.ops.flash_attention import kernel_smem_bytes
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for head_dim in (64, 128):
+            log("build", f"flash_attention_fwd {dtype} D={head_dim}: dynamic shared memory "
+                         f"{kernel_smem_bytes(dtype, head_dim)} bytes per block")
 
     t0 = time.perf_counter()
     kernel = kernel_phase()

@@ -7,16 +7,21 @@
    ``wrap_step_fn``), in turns untraced, traced, traced, untraced; wall
    time per step on the host clock, each run ending in a synchronize.
 2. Where the device time goes: ``torch.profiler`` over a few traced
-   steps, CUDA kernel time by kernel name.
+   steps, CUDA kernel time by kernel name, and its share of the same
+   steps' wall time.  Beside it, the host's side of a step: the time to
+   enqueue one untraced forward on an idle card.  The larger of the two
+   sets the step's pace.
 3. Attention across sequence lengths: the flash kernel, the einsum
    reference and ``scaled_dot_product_attention`` (a yardstick only) at
-   B·S = 8192 tokens, 16 heads of 64, bf16, timed with CUDA events.
+   B·S = 8192 tokens and a width of 1024 (16 heads of 64, the main path's,
+   and 8 heads of 128), bf16, timed with CUDA events.
 
 Prints one JSON line per measurement.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import statistics
@@ -63,10 +68,31 @@ def _traced_ms(model, batches, steps: int) -> float:
 
 
 _GROUPS = (
-    ("flash_attention_fwd", re.compile(r"flash_fwd_kernel")),
+    ("flash_attention_fwd", re.compile(r"flash_fwd_(wgmma|simt)_kernel")),
     ("gemm", re.compile(r"gemm|gemv|cutlass|nvjet|xmma|cublas", re.I)),
     ("elementwise_and_reductions", re.compile(r"elementwise|reduce|vectorized|softmax|index|cat|copy|fill", re.I)),
 )
+
+
+def _host_enqueue_ms(model, batches, steps: int) -> list:
+    """Host time to enqueue each of ``steps`` untraced forwards, each on an
+    idle card (synchronized before and after), so the launch queue never
+    fills and the time is the host's alone."""
+    times = []
+    with torch.inference_mode():
+        for i in range(steps):
+            tokens = batches[i % len(batches)].to("cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(tokens)
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    return times
+
+
+def kernel_group(kernel_name: str) -> str:
+    """The group of a CUDA kernel's profiler name; unmatched names are "other"."""
+    return next((name for name, rx in _GROUPS if rx.search(kernel_name)), "other")
 
 
 def _kernel_breakdown(prof) -> dict:
@@ -79,8 +105,7 @@ def _kernel_breakdown(prof) -> dict:
     groups = {name: 0.0 for name, _ in _GROUPS}
     groups["other"] = 0.0
     for key, ms, _ in kernels:
-        group = next((name for name, rx in _GROUPS if rx.search(key)), "other")
-        groups[group] += ms
+        groups[kernel_group(key)] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:15]
     return {
         "device_ms_per_step": total / PROFILED_STEPS,
@@ -131,18 +156,34 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _traced_ms(model, batches, PROFILED_STEPS)
+        profiled_ms = _traced_ms(model, batches, PROFILED_STEPS)
     breakdown = _kernel_breakdown(prof)
     print("[profile] " + json.dumps(breakdown), flush=True)
 
+    enqueue = _host_enqueue_ms(model, batches, 20)
+    host_ms = statistics.median(enqueue)
+    device_ms = breakdown["device_ms_per_step"]
+    pace = {
+        "host_enqueue_ms_median": host_ms,
+        "host_enqueue_ms_min": min(enqueue),
+        "device_kernel_ms_per_step": device_ms,
+        # kernel time and wall time of the same profiled steps
+        "profiled_wall_ms_per_step": profiled_ms,
+        "device_busy_share_profiled": device_ms / profiled_ms,
+        "paced_by": "host" if host_ms > device_ms else "device",
+    }
+    print("[pace] " + json.dumps(pace), flush=True)
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for S in (256, 512, 1024, 2048, 4096):
-        shape = (8192 // S, S, 16, 64)
+    for (H, D), S in itertools.product(((16, 64), (8, 128)), (256, 512, 1024, 2048, 4096)):
+        shape = (8192 // S, S, H, D)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), 20)
         row = {
             "shape": list(shape),
-            "kernel_ms": cuda_ms(lambda: flash_attention(q, k, v), 20),
+            "kernel_ms": kernel_ms,
+            "kernel_tflops": 4 * shape[0] * H * D * (S * (S + 1) // 2) / (kernel_ms * 1e-3) / 1e12,
             "reference_ms": cuda_ms(lambda: causal_attention_reference(q, k, v), 20),
             "sdpa_ms": cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20

@@ -79,12 +79,15 @@ def host_batches(cfg: ModelConfig, seed: int, n: int = 4) -> List[torch.Tensor]:
 
 def cuda_ms(fn: Callable[[], Any], iters: int) -> float:
     """Mean device time of one call of ``fn``, from CUDA events around
-    ``iters`` calls after three warm-up calls."""
+    ``iters`` calls after three warm-up calls.  The card first spins for
+    about 10 ms, so the host has queued the calls before the start event
+    runs and their launch cost on the host stays out of the time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # cycles: ~10 ms at the H100's ~2 GHz
     start.record()
     for _ in range(iters):
         fn()

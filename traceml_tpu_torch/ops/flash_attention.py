@@ -6,6 +6,8 @@ softmax(Q Kᵀ / √D) V under a causal mask in the same layout.
 
 * On CUDA tensors it launches ``csrc/flash_attention_fwd.cu`` (built by
   ``ops/_build.py`` at first use) or raises: there is no other path.
+  bf16 runs on the tensor cores (``wgmma``, K/V streamed by TMA through
+  an ``mbarrier`` ring); f32 runs on the CUDA cores.
 * On CPU tensors it runs :func:`flash_attention_plain`, the same blocked
   online softmax written in plain PyTorch with f32 math.
 
@@ -24,7 +26,9 @@ from traceml_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 KERNEL = "flash_attention_fwd"
-KERNEL_TILE = 64  # query rows per block and key rows per tile in the kernel
+#: S must be a multiple of this; the bf16 kernel masks a ragged last
+#: 128-row tile (S = 64 * odd) itself
+KERNEL_SEQ_MULTIPLE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
@@ -86,7 +90,15 @@ def _load_kernel() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def kernel_smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
+    """Dynamic shared memory of one block of the kernel, in bytes (builds
+    the kernel library if it is not built yet)."""
+    return _load_kernel().flash_attention_smem_bytes(_DTYPE_CODES[dtype], head_dim)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -104,8 +116,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16, not {q.dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, not {D}")
-    if S % KERNEL_TILE:
-        raise ValueError(f"flash_attention kernel needs S divisible by {KERNEL_TILE}, got {S}")
+    if S % KERNEL_SEQ_MULTIPLE:
+        raise ValueError(
+            f"flash_attention kernel needs S divisible by {KERNEL_SEQ_MULTIPLE}, got {S}"
+        )
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
     lib = _load_kernel()
@@ -138,7 +152,8 @@ def flash_attention(
 
     ``blk_q``/``blk_k`` are clamped to S and must divide it (``ValueError``
     otherwise), as in the JAX wrapper; they set the plain version's blocks.
-    The kernel tiles by ``KERNEL_TILE`` rows whatever they are.
+    The kernel tiles by its own blocks whatever they are: 128 query rows
+    by 128-key tiles in bf16, 64 by 64 in f32 (``csrc/flash_attention_fwd.cu``).
     """
     S = q.shape[1]
     blk_q, blk_k = _check_blocks(S, blk_q, blk_k)
