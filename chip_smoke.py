@@ -25,6 +25,26 @@
    ``trace_step`` and ``wrap_step_fn``, and its rows give a verdict.
 4. Injected fault: the same loop with a host input delay of about 3× the
    measured compute must give INPUT_BOUND.
+5. Run phase: the product's entry point, ``python -m traceml_tpu_torch run
+   --mode summary traceml_tpu_torch/dev/forward_script.py``, twice as a
+   subprocess: healthy with the sender ticking every 0.1 s (ten times the
+   default rate, so it ships about a dozen batches while the loop runs),
+   then with the same input delay at the default 1 s tick.  The launcher
+   spawns the aggregator and one rank; the rank runs the same full-width
+   forward loop through the kernel and ships its rows over TCP; the
+   aggregator stores them in SQLite and writes ``final_summary.json``.
+   Gates: the summary's step-time section on the device clock with at
+   least 50 steps, its step-memory section with a positive peak, one
+   ``step_time_samples`` row per traced step, the manifest ``completed``
+   with telemetry ``ok``, no dropped rows or decode errors, 12 × 60 flash
+   launches in the rank, COMPUTE_BOUND healthy and INPUT_BOUND with the
+   delay (in the summary and on the launcher's stdout).  Reported: the
+   step device times under ``run`` (median, mean, p90, max) against the
+   in-process loop's, which runs no sender; the sender's busy ticks, its
+   collect and encode cost per busy tick, its flush cost per timed send
+   and its codec, the aggregator's finalization
+   time and each call's wall time.  The sessions are kept under
+   ``traceml_logs/chip_smoke/``.
 
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -33,10 +53,15 @@ Any failed check exits non-zero.  The last line of standard output is
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
+import sqlite3
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import torch
@@ -49,6 +74,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off th
 LOGITS_REL_TOL = 5e-2  # kernel vs plain attention through 12 bf16 layers
 # shapes at which planted faults are put through the kernel's checks
 PLANT_AT = ((BATCH, SEQ, 16, 64), (1, 4096, 4, 64), (1, 4096, 4, 128))
+REPO = Path(__file__).resolve().parent
+RUN_DIR = REPO / "traceml_logs" / "chip_smoke"  # the launcher's default logs dir
+RUN_TIMEOUT_S = 420
 
 
 def log(tag: str, msg: str) -> None:
@@ -180,7 +208,7 @@ def traced_loop(model, batches, steps: int, delay_s: float) -> dict:
     import traceml_tpu_torch as tm
     from traceml_tpu_torch.ops.flash_attention import flash_attention
     from traceml_tpu_torch.runtime.lifecycle import get_active_runtime
-    from traceml_tpu_torch.runtime.runtime import RuntimeSettings
+    from traceml_tpu_torch.runtime.settings import TraceMLSettings
 
     def host_batches():
         for i in range(steps):
@@ -192,7 +220,7 @@ def traced_loop(model, batches, steps: int, delay_s: float) -> dict:
         with torch.inference_mode():
             return model(tokens)
 
-    tm.start_runtime(RuntimeSettings(sampler_interval_sec=0.5))
+    tm.start_runtime(TraceMLSettings(sampler_interval_sec=0.5))
     rt = get_active_runtime()
     step = tm.wrap_step_fn(forward)
     torch.cuda.synchronize()
@@ -218,6 +246,14 @@ def traced_loop(model, batches, steps: int, delay_s: float) -> dict:
     }
 
 
+def spread(vals) -> dict:
+    """Median, mean, p90 and max: a stall on a few steps moves the tail
+    and the mean where it leaves the median."""
+    vals = sorted(vals)
+    return {"median": statistics.median(vals), "mean": statistics.fmean(vals),
+            "p90": vals[min(len(vals) - 1, int(0.9 * len(vals)))], "max": vals[-1]}
+
+
 def phase_medians(rows, name) -> dict:
     from traceml_tpu_torch.utils import timing as T
 
@@ -230,9 +266,10 @@ def phase_medians(rows, name) -> dict:
     }
 
 
-def main_path_phase() -> int:
+def main_path_phase() -> dict:
     """The traced main path and the injected fault; returns the kernel's
-    launches in the main path's run."""
+    launches in the main path's run, the layer count and the medians the
+    run phase is held against."""
     import traceml_tpu_torch as tm
     from traceml_tpu_torch.dev.workload import build_model, full_width_config, host_batches
     from traceml_tpu_torch.diagnostics.step_time.api import diagnose_rank_rows
@@ -277,7 +314,7 @@ def main_path_phase() -> int:
           f"flash launches {run['launches']} != {cfg.n_layers} x {STEPS}")
     check(len(rows) == STEPS, f"{len(rows)} step rows for {STEPS} steps")
     check(all(r["clock"] == "device" for r in rows), "a step row is not on the device clock")
-    for key in (T.COMPUTE_TIME, T.H2D_TIME):
+    for key in (T.STEP_TIME, T.COMPUTE_TIME, T.H2D_TIME):
         vals = [r["events"].get(key, {}).get("device_ms") for r in rows]
         check(all(v is not None and v > 0 for v in vals), f"{key} device_ms missing or not positive")
     check(bool(mem) and all(m["step_peak_bytes"] > 0 for m in mem), "no positive step-memory rows")
@@ -299,7 +336,134 @@ def main_path_phase() -> int:
     log("fault", f"input delay {delay_s * 1e3:.3f} ms (3x compute median); phase medians " + json.dumps(fault_phases))
     log("fault", f"verdict: {fault_verdict.kind} ({fault_verdict.severity}): {fault_verdict.summary}")
     check(fault_verdict.kind == "INPUT_BOUND", f"injected input delay gave {fault_verdict.kind}, not INPUT_BOUND")
-    return run["launches"]
+    return {"launches": run["launches"], "n_layers": cfg.n_layers, "delay_ms": delay_s * 1e3,
+            "step_ms": spread(r["events"][T.STEP_TIME]["device_ms"] for r in rows)}
+
+
+def launch_run(name: str, delay_ms: float, interval_s: float) -> dict:
+    """One ``python -m traceml_tpu_torch run`` call; returns its session's
+    artifacts, the launcher's output and the call's wall time."""
+    logs = RUN_DIR / name
+    shutil.rmtree(logs, ignore_errors=True)
+    argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
+            "--logs-dir", str(logs), "--run-name", name, "--sampler-interval", repr(interval_s),
+            str(REPO / "traceml_tpu_torch" / "dev" / "forward_script.py"),
+            "--", "--steps", str(STEPS), "--delay-ms", repr(delay_ms)]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=RUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        # SIGTERM lets the launcher stop its rank and aggregator first
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        raise CheckFailed(f"run {name} did not end within {RUN_TIMEOUT_S} s; stderr tail:\n{err[-3000:]}")
+    wall_s = time.perf_counter() - t0
+    (RUN_DIR / f"{name}.stdout.txt").write_text(out)
+    (RUN_DIR / f"{name}.stderr.txt").write_text(err)
+    check(proc.returncode == 0, f"run {name} exited {proc.returncode}; stderr tail:\n{err[-3000:]}")
+    sessions = [p for p in logs.iterdir() if p.is_dir()]
+    check(len(sessions) == 1, f"run {name}: {len(sessions)} session dirs")
+    session = sessions[0]
+
+    def read(fname):
+        path = session / fname
+        check(path.exists(), f"run {name}: {fname} missing")
+        return json.loads(path.read_text())
+
+    conn = sqlite3.connect(session / "telemetry.sqlite")
+    try:
+        rows = conn.execute("SELECT step, clock, events_json FROM step_time_samples ORDER BY step").fetchall()
+    finally:
+        conn.close()
+    return {"summary": read("final_summary.json"), "manifest": read("manifest.json"),
+            "ingest": read("ingest_stats.json"), "rows": rows, "stdout": out, "wall_s": wall_s}
+
+
+def check_run(name: str, run: dict, n_layers: int, verdict: str) -> dict:
+    """The run phase's gates on one call; returns its reported numbers."""
+    from traceml_tpu_torch.utils import timing as T
+
+    summary, manifest, ingest = run["summary"], run["manifest"], run["ingest"]
+    st, sm = summary["sections"]["step_time"], summary["sections"]["step_memory"]
+    check(st["status"] == "OK", f"run {name}: step_time section {st['status']}")
+    check(st["global"]["clock"] == "device", f"run {name}: step_time clock {st['global']['clock']}")
+    check(st["global"]["n_steps"] >= 50, f"run {name}: {st['global']['n_steps']} steps in the window")
+    check(sm["status"] == "OK" and sm["global"]["rollup"]["max_peak_bytes"] > 0,
+          f"run {name}: no positive step-memory peak")
+    check((manifest["status"], manifest["telemetry_status"]) == ("completed", "ok"),
+          f"run {name}: manifest {manifest['status']}/{manifest['telemetry_status']}")
+    producer = (ingest.get("producers") or {}).get("0") or {}
+    drops = {"rows_dropped": ingest["rows_dropped"], "decode_errors": ingest["decode_errors"],
+             "corrupt_frame_drops": sum(ingest["corrupt_frame_drops"].values()),
+             "unknown_domain_drops": sum(ingest["unknown_domain_drops"].values()),
+             "batches_dropped": (producer.get("transport") or {}).get("batches_dropped")}
+    check(drops == {k: 0 for k in drops}, f"run {name}: telemetry dropped {drops}")
+    check(ingest["finished_ranks"] == [0], f"run {name}: finished ranks {ingest['finished_ranks']}")
+    steps = [r[0] for r in run["rows"]]
+    check(steps == list(range(1, STEPS + 1)), f"run {name}: step_time_samples hold steps {steps[:3]}..., "
+                                              f"{len(steps)} rows for {STEPS} steps")
+    launch_lines = [l for l in run["stdout"].splitlines() if l.startswith("flash_attention.launches ")]
+    launches = int(launch_lines[-1].split()[1]) if launch_lines else None
+    check(launches == n_layers * STEPS, f"run {name}: rank reports {launches} flash launches, "
+                                        f"not {n_layers} x {STEPS}")
+    kind = summary["primary_diagnosis"]["kind"]
+    log("run", f"{name}: verdict {kind} ({summary['primary_diagnosis']['severity']}): "
+               f"{summary['primary_diagnosis'].get('summary')}")
+    check(kind == verdict, f"run {name}: final_summary.json says {kind}, not {verdict}")
+    verdict_lines = [l for l in run["stdout"].splitlines() if "VERDICT" in l]
+    check(any(verdict in l for l in verdict_lines), f"run {name}: launcher stdout verdict {verdict_lines}")
+    device = [json.loads(r[2])[T.STEP_TIME]["device_ms"] for r in run["rows"]]
+    check(all(r[1] == "device" for r in run["rows"]) and all(v is not None for v in device),
+          f"run {name}: a stored step row is not on the device clock")
+    # collect and encode cover every busy tick, the final one too; the
+    # final batch carries these stats, so its send is in neither flush_us
+    # nor flushes
+    busy = producer["ticks"] - producer["idle_ticks"]
+    samplers = producer["samplers"].values()
+    cost = {
+        "busy_ticks": busy,
+        "collect_ms_per_busy_tick": sum(s["collect_us"] for s in samplers) / busy / 1e3,
+        "encode_ms_per_busy_tick": sum(s["encode_us"] for s in samplers) / busy / 1e3,
+        "flushes": producer["flushes"],
+        "flush_ms_per_send": producer["flush_us"] / producer["flushes"] / 1e3 if producer["flushes"] else None,
+    }
+    return {
+        "verdict": kind,
+        "step_device_ms": spread(device),
+        "step_ms_summary": st["global"]["phases"]["step_time"]["median_ms"],
+        "steady_state_ms": (st["global"].get("steady_state") or {}).get("median_ms"),
+        "max_peak_bytes": sm["global"]["rollup"]["max_peak_bytes"],
+        "flash_launches": launches,
+        "producer": {"codec": producer["codec"], "ticks": producer["ticks"],
+                     "idle_ticks": producer["idle_ticks"], **cost,
+                     "bytes": sum(s["bytes"] for s in samplers)},
+        "envelopes_ingested": ingest["envelopes_ingested"],
+        "finalize_s": manifest.get("finalize_sec"),
+        "wall_s": run["wall_s"],
+    }
+
+
+def run_phase(main: dict) -> None:
+    """``python -m traceml_tpu_torch run`` on the card, healthy with a fast
+    sender tick and with the main path's input delay at the default tick,
+    held to the gates of ``check_run``."""
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    for name, delay_ms, interval_s, verdict in (("healthy", 0.0, 0.1, "COMPUTE_BOUND"),
+                                                ("input_delay", main["delay_ms"], 1.0, "INPUT_BOUND")):
+        got = check_run(name, launch_run(name, delay_ms, interval_s), main["n_layers"], verdict)
+        log("run", f"{name} (delay {delay_ms:.3f} ms, sender tick {interval_s} s) " + json.dumps(got))
+        if name == "healthy":
+            run_ms, ref_ms = got["step_device_ms"], main["step_ms"]
+            log("run", "step device ms under run (stored rows) vs in-process (no sender): " + ", ".join(
+                f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms)
+                + f"; {got['producer']['busy_ticks']} busy sender ticks")
 
 
 def main() -> int:
@@ -332,8 +496,13 @@ def main() -> int:
     kernel = kernel_phase()
     log("time", f"kernel phase {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    kernel["launches"] = main_path_phase()
+    main_path = main_path_phase()
+    kernel["launches"] = main_path["launches"]
+    torch.cuda.empty_cache()  # the rank processes below hold their own model
     log("time", f"main path and fault phases {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    run_phase(main_path)
+    log("time", f"run phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

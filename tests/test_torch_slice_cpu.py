@@ -56,7 +56,7 @@ def _port_rows(delay_s):
     import traceml_tpu_torch as tm
     from traceml_tpu_torch.models.transformer import DecoderLM, ModelConfig
     from traceml_tpu_torch.runtime.lifecycle import get_active_runtime
-    from traceml_tpu_torch.runtime.runtime import RuntimeSettings
+    from traceml_tpu_torch.runtime.settings import TraceMLSettings
     from traceml_tpu_torch.sdk.state import reset_state_for_tests
 
     cfg = ModelConfig.tiny()
@@ -64,7 +64,7 @@ def _port_rows(delay_s):
     model = DecoderLM(cfg, device="cpu").eval()
     reset_state_for_tests()
     tm.init(mode="auto", device="cpu")
-    tm.start_runtime(RuntimeSettings(sampler_interval_sec=0.05))
+    tm.start_runtime(TraceMLSettings(sampler_interval_sec=0.05))
     rt = get_active_runtime()
     try:
         def forward(tokens):

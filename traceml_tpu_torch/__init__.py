@@ -3,7 +3,10 @@
 Wraps a PyTorch loop on an NVIDIA GPU: ``trace_step`` splits each step
 into phases (input wait, h2d, compute, residual) timed against CUDA
 events, per-step memory comes from the CUDA caching allocator, and the
-rank's rows turn into a step-time verdict (INPUT_BOUND, COMPUTE_BOUND, …).
+rows turn into a step-time verdict (INPUT_BOUND, COMPUTE_BOUND, …).
+``python -m traceml_tpu_torch run --mode summary script.py`` runs a
+script under tracing: the ranks ship their rows over TCP to an
+aggregator, which stores them in SQLite and writes ``final_summary.json``.
 
 The JAX package ``traceml_tpu`` is the reference; this package imports
 neither it nor JAX.  The public API is a lazy facade, so importing the

@@ -1,14 +1,15 @@
 """Sampler base.
 
 Counterpart of ``traceml_tpu/samplers/base_sampler.py``.  Every sampler
-owns a bounded in-memory :class:`Database`; the runtime tick calls
-``sample()`` (errors logged, never raised).  There is no sender yet: the
-rows stay in the rank's database.
+owns a bounded in-memory :class:`Database` and the incremental sender
+over it; the runtime tick calls ``sample()`` (errors logged, never
+raised) and the publisher ships what ``sender`` collects.
 """
 
 from __future__ import annotations
 
 from traceml_tpu_torch.database import Database
+from traceml_tpu_torch.database.database_sender import DBIncrementalSender
 from traceml_tpu_torch.utils.error_log import get_error_log
 
 
@@ -17,6 +18,7 @@ class BaseSampler:
 
     def __init__(self) -> None:
         self.db = Database()
+        self.sender = DBIncrementalSender(self.name, self.db)
         self.sample_errors = 0
 
     def sample(self) -> None:

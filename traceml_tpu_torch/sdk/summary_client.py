@@ -1,7 +1,7 @@
 """Worker-side live metrics.
 
 Counterpart of ``live_metrics`` in ``traceml_tpu/sdk/summary_client.py``
-(the final-summary client comes with the aggregator in a later slice).
+(the final-summary request comes with the aggregator's summary service).
 """
 
 from __future__ import annotations
