@@ -17,34 +17,52 @@
    (``scaled_dot_product_attention``, timed only as a yardstick) timed
    with CUDA events, beside the card's bound for the same work, with the
    achieved TFLOP/s and the kernel / library ratio of the same call.
-3. Main path: the full-width DecoderLM (``traceml_tpu_torch/dev/
+3. Forward path: the full-width DecoderLM (``traceml_tpu_torch/dev/
    workload.py``: vocab 16384, hidden 1024, 12 layers, 16 heads over 8
-   kv heads, bf16; random weights from a numpy seed, loaded through
-   ``params_from_jax``) runs a traced forward loop
-   at B=8, S=1024 through ``init``, the runtime, ``wrap_dataloader``,
-   ``trace_step`` and ``wrap_step_fn``, and its rows give a verdict.
-4. Injected fault: the same loop with a host input delay of about 3× the
+   kv heads, bf16 compute, f32 parameters; random weights from a numpy
+   seed, loaded through ``params_from_jax``) runs a traced forward loop
+   at B=8, S=1024 through ``init(mode="auto")``, the runtime,
+   ``wrap_dataloader``, ``trace_step`` and ``wrap_step_fn``, and its rows
+   give a verdict; the forward patch records nothing inside the compute
+   region.  Then the same loop with a host input delay of about 3× the
    measured compute must give INPUT_BOUND.
+4. Train path, the slice's main path: the attention op's dq, dk and dv
+   (kernel forward, plain backward) against autograd through the
+   reference at the main-path shape; the full-width AdamW train step on
+   (8, 1025) tokens through the kernel route against the same step
+   through the plain route (first-step gradients, three losses, each
+   parameter's update after three steps); then a traced train loop in
+   process, timed by ``init(mode="auto")``'s forward, backward and
+   optimizer patches on the device clock, with its gates (12 launches a
+   step, every row on the device clock with forward, backward and
+   optimizer device times, the loss falling, the step's peak memory above
+   parameters + gradients + AdamW state).
 5. Run phase: the product's entry point, ``python -m traceml_tpu_torch run
-   --mode summary traceml_tpu_torch/dev/forward_script.py``, twice as a
-   subprocess: healthy with the sender ticking every 0.1 s (ten times the
-   default rate, so it ships about a dozen batches while the loop runs),
-   then with the same input delay at the default 1 s tick.  The launcher
-   spawns the aggregator and one rank; the rank runs the same full-width
-   forward loop through the kernel and ships its rows over TCP; the
+   --mode summary``, on ``traceml_tpu_torch/dev/forward_script.py`` and
+   on ``traceml_tpu_torch/dev/train_script.py``, each healthy with the
+   sender ticking every 0.1 s (ten times the default rate, so it ships
+   about a dozen batches while the loop runs), then with a host input
+   delay of 3× the in-process step at the default 1 s tick.  The
+   launcher spawns the aggregator and one rank; the rank runs the
+   full-width loop through the kernel and ships its rows over TCP; the
    aggregator stores them in SQLite and writes ``final_summary.json``.
    Gates: the summary's step-time section on the device clock with at
    least 50 steps, its step-memory section with a positive peak, one
    ``step_time_samples`` row per traced step, the manifest ``completed``
    with telemetry ``ok``, no dropped rows or decode errors, 12 × 60 flash
-   launches in the rank, COMPUTE_BOUND healthy and INPUT_BOUND with the
-   delay (in the summary and on the launcher's stdout).  Reported: the
-   step device times under ``run`` (median, mean, p90, max) against the
-   in-process loop's, which runs no sender; the sender's busy ticks, its
-   collect and encode cost per busy tick, its flush cost per timed send
-   and its codec, the aggregator's finalization
-   time and each call's wall time.  The sessions are kept under
-   ``traceml_logs/chip_smoke/``.
+   launches in the rank, and the verdict in the summary and on the
+   launcher's stdout: COMPUTE_BOUND for the healthy forward, the band of
+   the measured MFU for the healthy train run (LOW_MFU below 15%),
+   INPUT_BOUND with the delay.  The train runs also need their stored
+   rows to meet the in-process loop's device-clock gates, the loss
+   falling, and an ``efficiency`` section with the card's peak,
+   ``flops_per_step`` within 2% of the analytic count and an MFU in
+   (0, 1).  Reported: the step device times under ``run`` (median, mean,
+   p90, max) against the in-process loop's, which runs no sender; the
+   sender's busy ticks, its collect and encode cost per busy tick, its
+   flush cost per timed send and its codec, the aggregator's
+   finalization time and each call's wall time.  The sessions are kept
+   under ``traceml_logs/chip_smoke/``.
 
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -53,6 +71,7 @@ Any failed check exits non-zero.  The last line of standard output is
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import signal
@@ -72,6 +91,21 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
 LOGITS_REL_TOL = 5e-2  # kernel vs plain attention through 12 bf16 layers
+COMPARE_STEPS = 3  # train steps held kernel route against plain route
+# the attention op's dq, dk, dv against autograd through the reference:
+# the same products in the same order, so only bf16 rounding can differ
+GRAD_REL_FRO = 5e-3
+# kernel route vs plain route through the full-width bf16 train step (the
+# plain route keeps P in f32, and autograd differentiates its blocked
+# loop where the kernel route recomputes the einsum attention): the loss
+# relative to itself, each gradient and each parameter's update by
+# ‖kernel − plain‖_F / ‖plain‖_F
+# (measured on the H100 at 2e-5, 0.033 and 0.12; the op-level dq, dk and
+# dv above are held to the reference at 5e-3)
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GRAD_REL_FRO = 0.1
+TRAIN_UPDATE_REL_FRO = 0.5
+FLOPS_REL_TOL = 0.02  # estimate_step_flops against the analytic count
 # shapes at which planted faults are put through the kernel's checks
 PLANT_AT = ((BATCH, SEQ, 16, 64), (1, 4096, 4, 64), (1, 4096, 4, 128))
 REPO = Path(__file__).resolve().parent
@@ -202,13 +236,15 @@ def kernel_phase() -> dict:
     }
 
 
-def traced_loop(model, batches, steps: int, delay_s: float) -> dict:
-    """``steps`` traced forward steps under a fresh runtime; returns the
-    runtime's rows, the kernel launches and the loop's wall time."""
+def traced_loop(step, batches, steps: int, delay_s: float) -> dict:
+    """``steps`` traced steps of ``step(tokens)`` under a fresh runtime;
+    returns the runtime's rows, the first and last step's outputs, the
+    kernel launches and the loop's wall time."""
     import traceml_tpu_torch as tm
     from traceml_tpu_torch.ops.flash_attention import flash_attention
     from traceml_tpu_torch.runtime.lifecycle import get_active_runtime
     from traceml_tpu_torch.runtime.settings import TraceMLSettings
+    from traceml_tpu_torch.sdk.state import get_state
 
     def host_batches():
         for i in range(steps):
@@ -216,30 +252,31 @@ def traced_loop(model, batches, steps: int, delay_s: float) -> dict:
                 time.sleep(delay_s)
             yield batches[i % len(batches)]
 
-    def forward(tokens):
-        with torch.inference_mode():
-            return model(tokens)
-
     tm.start_runtime(TraceMLSettings(sampler_interval_sec=0.5))
     rt = get_active_runtime()
-    step = tm.wrap_step_fn(forward)
+    # each loop here stands for a run of its own: its first step's
+    # envelope must not be back-dated to the previous loop's last step
+    get_state().last_step_exit = None
     torch.cuda.synchronize()
     flash_attention.launches = 0
+    first = out = None
     t0 = time.perf_counter()
     for tokens in tm.wrap_dataloader(host_batches(), to_device=True):
         with tm.trace_step():
-            logits = step(tokens)
+            out = step(tokens)
+        if first is None:
+            first = out
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = flash_attention.launches
-    check(tuple(logits.shape) == (BATCH, SEQ, model.cfg.vocab_size), f"logits shape {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), "non-finite logits")
     time.sleep(1.0)  # let one tick sample the finished steps
     live = tm.live_metrics()
     tm.stop_runtime()
     return {
         "rows": rt.sampler("step_time").db.tail("step_time"),
         "memory": rt.sampler("step_memory").db.tail("step_memory"),
+        "first": first,
+        "last": out,
         "launches": launches,
         "wall_s": wall_s,
         "live": live,
@@ -307,9 +344,18 @@ def main_path_phase() -> dict:
             model(tokens.cuda())
     torch.cuda.synchronize()
 
+    def forward(tokens):
+        with torch.inference_mode():
+            return model(tokens)
+
+    # auto mode patches nn.Module.__call__ too; inside wrap_step_fn's
+    # compute region the forward patch records nothing
     tm.init(mode="auto")
-    run = traced_loop(model, batches, STEPS, 0.0)
-    rows, mem = run["rows"], run["memory"]
+    step = tm.wrap_step_fn(forward)
+    run = traced_loop(step, batches, STEPS, 0.0)
+    rows, mem, logits = run["rows"], run["memory"], run["last"]
+    check(tuple(logits.shape) == (BATCH, SEQ, cfg.vocab_size), f"logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
     check(run["launches"] == cfg.n_layers * STEPS,
           f"flash launches {run['launches']} != {cfg.n_layers} x {STEPS}")
     check(len(rows) == STEPS, f"{len(rows)} step rows for {STEPS} steps")
@@ -317,6 +363,8 @@ def main_path_phase() -> dict:
     for key in (T.STEP_TIME, T.COMPUTE_TIME, T.H2D_TIME):
         vals = [r["events"].get(key, {}).get("device_ms") for r in rows]
         check(all(v is not None and v > 0 for v in vals), f"{key} device_ms missing or not positive")
+    check(not any(T.FORWARD_TIME in r["events"] for r in rows),
+          "the forward patch recorded a forward inside wrap_step_fn's compute region")
     check(bool(mem) and all(m["step_peak_bytes"] > 0 for m in mem), "no positive step-memory rows")
     check(all(m["backend"] == "cuda_memory_stats" for m in mem), "step-memory rows not from CUDA")
     verdict = diagnose_rank_rows({0: rows}).diagnosis
@@ -330,7 +378,7 @@ def main_path_phase() -> dict:
 
     compute_ms = phases["COMPUTE_TIME"]["device_ms_median"]
     delay_s = 3.0 * compute_ms / 1000.0
-    fault = traced_loop(model, batches, STEPS, delay_s)
+    fault = traced_loop(step, batches, STEPS, delay_s)
     fault_verdict = diagnose_rank_rows({0: fault["rows"]}).diagnosis
     fault_phases = {name: phase_medians(fault["rows"], name) for name in ("STEP_TIME", "COMPUTE_TIME", "DATALOADER_NEXT")}
     log("fault", f"input delay {delay_s * 1e3:.3f} ms (3x compute median); phase medians " + json.dumps(fault_phases))
@@ -340,14 +388,165 @@ def main_path_phase() -> dict:
             "step_ms": spread(r["events"][T.STEP_TIME]["device_ms"] for r in rows)}
 
 
-def launch_run(name: str, delay_ms: float, interval_s: float) -> dict:
-    """One ``python -m traceml_tpu_torch run`` call; returns its session's
-    artifacts, the launcher's output and the call's wall time."""
+def analytic_train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 x the matmul parameters x the
+    tokens (forward 2, backward 4), plus causal attention counted over
+    the full S x S products as XLA counts the jnp path, 4·S²·D per head
+    forward and 8·S²·D backward."""
+    hd = cfg.head_dim
+    per_layer = (2 * cfg.hidden * cfg.n_heads * hd + 2 * cfg.hidden * cfg.n_kv_heads * hd
+                 + 3 * cfg.hidden * cfg.ffn_hidden)
+    matmul_params = cfg.n_layers * per_layer + cfg.hidden * cfg.vocab_size
+    attention = 12 * batch * cfg.n_heads * seq * seq * hd * cfg.n_layers
+    return 6.0 * matmul_params * batch * seq + attention
+
+
+def grad_check_phase() -> None:
+    """The attention op's gradient on the card: dq, dk and dv through the
+    kernel's custom op (its backward is the plain recompute) against
+    autograd through ``attention_reference``, at the main-path shape in
+    bf16; and the plain backward's device time per call."""
+    from traceml_tpu_torch.dev.attention_check import scaled_errors
+    from traceml_tpu_torch.dev.workload import cuda_ms
+    from traceml_tpu_torch.ops.attention import attention_reference
+    from traceml_tpu_torch.ops.flash_attention import _flash_attention_backward_op, flash_attention
+
+    shape, dtype = (BATCH, SEQ, 16, 64), torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v, g = qkv(shape, dtype, gen) + qkv(shape, dtype, gen)[:1]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, g)
+    want = torch.autograd.grad(attention_reference(*leaves), leaves, g)
+    errors = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        errors[name] = scaled_errors(a, b)
+        check(bool(torch.isfinite(a).all()) and errors[name]["rel_fro"] <= GRAD_REL_FRO,
+              f"attention {name} disagrees with autograd through the reference: {errors[name]}")
+    backward_ms = cuda_ms(lambda: _flash_attention_backward_op(g, q, k, v), 10)
+    log("grad", json.dumps({"shape": list(shape), "dtype": "bfloat16", "tol_rel_fro": GRAD_REL_FRO,
+                            **errors, "plain_backward_ms": backward_ms}))
+
+
+def check_train_rows(name: str, rows) -> None:
+    """Gates on a train loop's step rows, ``(step, clock, events)`` each:
+    every row on the device clock, with positive device times for
+    forward, backward and optimizer."""
+    from traceml_tpu_torch.utils import timing as T
+
+    for step, clock, events in rows:
+        check(clock == "device", f"{name}: step {step} on the {clock} clock")
+        ms = [(events.get(key) or {}).get("device_ms")
+              for key in (T.FORWARD_TIME, T.BACKWARD_TIME, T.OPTIMIZER_STEP)]
+        check(all(v is not None and v > 0 for v in ms),
+              f"{name}: step {step} forward/backward/optimizer device_ms {ms}")
+
+
+def train_compare_phase(cfg, batches) -> None:
+    """The full-width train step through the kernel route against the
+    same step through the plain route (``flash_attention_plain`` on the
+    card, differentiated by autograd), from the same weights on the same
+    batches: the first step's gradients, the loss of each of
+    ``COMPARE_STEPS`` steps and each parameter's update after them, by
+    checks that scale with the output."""
+    from contextlib import nullcontext
+
+    from traceml_tpu_torch.dev.attention_check import scaled_errors
+    from traceml_tpu_torch.dev.workload import build_train_state
+    from traceml_tpu_torch.models.transformer import loss_fn, make_train_step
+    from traceml_tpu_torch.ops import attention as attention_mod
+    from traceml_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    tokens = [b.cuda() for b in batches[:COMPARE_STEPS]]
+    got = {}
+    for route in ("kernel", "plain"):
+        model, optimizer = build_train_state(cfg, SEED)
+        if route == "kernel":
+            start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        plain = mock.patch.object(attention_mod, "flash_attention", flash_attention_plain)
+        with plain if route == "plain" else nullcontext():
+            loss_fn(model, tokens[0]).backward()
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            step = make_train_step(model, optimizer)
+            losses = [step(t)["loss"].item() for t in tokens]
+        got[route] = {"losses": losses, "grads": grads,
+                      "updates": {n: p.detach() - start[n] for n, p in model.named_parameters()}}
+        del model, optimizer, step
+    k, p = got["kernel"], got["plain"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
+    grad_rel = {n: scaled_errors(k["grads"][n], p["grads"][n])["rel_fro"] for n in p["grads"]}
+    update_rel = {n: (k["updates"][n] - p["updates"][n]).norm().item() / p["updates"][n].norm().item()
+                  for n in p["updates"]}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    worst_update = max(update_rel, key=update_rel.get)
+    log("train", json.dumps({
+        "losses_kernel": k["losses"], "losses_plain": p["losses"], "loss_rel": loss_rel,
+        "grad_rel_fro_max": [worst_grad, grad_rel[worst_grad]],
+        "grad_rel_fro_median": statistics.median(grad_rel.values()),
+        "update_rel_fro_max": [worst_update, update_rel[worst_update]],
+        "update_rel_fro_median": statistics.median(update_rel.values()),
+        "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_fro": TRAIN_GRAD_REL_FRO,
+                "update_rel_fro": TRAIN_UPDATE_REL_FRO}}))
+    check(all(math.isfinite(x) for x in k["losses"]), "non-finite train loss through the kernel")
+    check(max(loss_rel) <= TRAIN_LOSS_REL, f"train loss kernel vs plain: {loss_rel}")
+    check(grad_rel[worst_grad] <= TRAIN_GRAD_REL_FRO,
+          f"gradient of {worst_grad} kernel vs plain: rel_fro {grad_rel[worst_grad]}")
+    check(update_rel[worst_update] <= TRAIN_UPDATE_REL_FRO,
+          f"update of {worst_update} kernel vs plain: rel_fro {update_rel[worst_update]}")
+
+
+def train_path_phase(cfg) -> dict:
+    """The traced full-width train loop in process (the slice's main
+    path): ``init(mode="auto")``'s patches time forward, backward and
+    optimizer on the device clock; returns the kernel's launches and the
+    step's device median."""
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS, build_train_state, host_batches
+    from traceml_tpu_torch.diagnostics.step_time.api import diagnose_rank_rows
+    from traceml_tpu_torch.models.transformer import make_train_step
+    from traceml_tpu_torch.utils import timing as T
+
+    batches = host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)
+    train_compare_phase(cfg, batches)
+    model, optimizer = build_train_state(cfg, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(model, optimizer)
+    step(batches[0].cuda())  # warm-up outside the trace
+    run = traced_loop(step, batches, STEPS, 0.0)
+    rows, mem = run["rows"], run["memory"]
+    first, last = run["first"]["loss"].item(), run["last"]["loss"].item()
+    peak = max((m["step_peak_bytes"] for m in mem), default=0)
+    phases = {name: phase_medians(rows, name)
+              for name in ("STEP_TIME", "FORWARD_TIME", "BACKWARD_TIME", "OPTIMIZER_STEP", "H2D_TIME",
+                           "DATALOADER_NEXT")}
+    verdict = diagnose_rank_rows({0: rows}).diagnosis
+    log("train", f"{STEPS} traced train steps in {run['wall_s']:.4f} s wall; flash launches "
+                 f"{run['launches']}; loss first {first} last {last}; step peak memory {peak} bytes "
+                 f"(params + grads + AdamW state {n_params * 16} bytes)")
+    log("train", "phase medians " + json.dumps(phases))
+    log("train", f"verdict (no FLOPs in process): {verdict.kind} ({verdict.severity}): {verdict.summary}")
+    check(run["launches"] == cfg.n_layers * STEPS,
+          f"train flash launches {run['launches']} != {cfg.n_layers} x {STEPS}")
+    check(len(rows) == STEPS, f"{len(rows)} train step rows for {STEPS} steps")
+    check_train_rows("in-process train loop", [(r["step"], r["clock"], r["events"]) for r in rows])
+    vals = [r["events"].get(T.STEP_TIME, {}).get("device_ms") for r in rows]
+    check(all(v is not None and v > 0 for v in vals), "train step_time device_ms missing or not positive")
+    check(not any(T.COMPUTE_TIME in r["events"] for r in rows), "a compute phase in the train rows")
+    check(math.isfinite(last) and last < first, f"train loss did not fall: first {first}, last {last}")
+    check(peak > n_params * 16, f"train step peak {peak} bytes below params + grads + AdamW state")
+    return {"launches": run["launches"], "n_params": n_params,
+            "step_ms": phases["STEP_TIME"]["device_ms_median"],
+            "step_spread": spread(r["events"][T.STEP_TIME]["device_ms"] for r in rows)}
+
+
+def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py") -> dict:
+    """One ``python -m traceml_tpu_torch run`` call of a ``dev/`` script;
+    returns its session's artifacts, the launcher's output and the call's
+    wall time."""
     logs = RUN_DIR / name
     shutil.rmtree(logs, ignore_errors=True)
     argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
             "--logs-dir", str(logs), "--run-name", name, "--sampler-interval", repr(interval_s),
-            str(REPO / "traceml_tpu_torch" / "dev" / "forward_script.py"),
+            str(REPO / "traceml_tpu_torch" / "dev" / script),
             "--", "--steps", str(STEPS), "--delay-ms", repr(delay_ms)]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     t0 = time.perf_counter()
@@ -386,8 +585,10 @@ def launch_run(name: str, delay_ms: float, interval_s: float) -> dict:
             "ingest": read("ingest_stats.json"), "rows": rows, "stdout": out, "wall_s": wall_s}
 
 
-def check_run(name: str, run: dict, n_layers: int, verdict: str) -> dict:
-    """The run phase's gates on one call; returns its reported numbers."""
+def check_run(name: str, run: dict, n_layers: int, verdict) -> dict:
+    """The run phase's gates on one call; returns its reported numbers.
+    ``verdict`` is the expected primary verdict, or a function of the
+    summary that gives it."""
     from traceml_tpu_torch.utils import timing as T
 
     summary, manifest, ingest = run["summary"], run["manifest"], run["ingest"]
@@ -416,6 +617,8 @@ def check_run(name: str, run: dict, n_layers: int, verdict: str) -> dict:
     kind = summary["primary_diagnosis"]["kind"]
     log("run", f"{name}: verdict {kind} ({summary['primary_diagnosis']['severity']}): "
                f"{summary['primary_diagnosis'].get('summary')}")
+    if callable(verdict):
+        verdict = verdict(summary)
     check(kind == verdict, f"run {name}: final_summary.json says {kind}, not {verdict}")
     verdict_lines = [l for l in run["stdout"].splitlines() if "VERDICT" in l]
     check(any(verdict in l for l in verdict_lines), f"run {name}: launcher stdout verdict {verdict_lines}")
@@ -436,6 +639,7 @@ def check_run(name: str, run: dict, n_layers: int, verdict: str) -> dict:
     }
     return {
         "verdict": kind,
+        "efficiency": st["global"].get("efficiency"),
         "step_device_ms": spread(device),
         "step_ms_summary": st["global"]["phases"]["step_time"]["median_ms"],
         "steady_state_ms": (st["global"].get("steady_state") or {}).get("median_ms"),
@@ -464,6 +668,64 @@ def run_phase(main: dict) -> None:
             log("run", "step device ms under run (stored rows) vs in-process (no sender): " + ", ".join(
                 f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms)
                 + f"; {got['producer']['busy_ticks']} busy sender ticks")
+
+
+def mfu_verdict(summary: dict) -> str:
+    """The healthy train run's verdict by the band of its measured MFU
+    (``diagnostics/step_time/policy.py``): LOW_MFU (warning) below 15%;
+    from 15% to 30% MODERATE_MFU (info) must be among the issues, and the
+    verdict is whichever of it and COMPUTE_BOUND scores higher; at 30% or
+    more, COMPUTE_BOUND."""
+    st = summary["sections"]["step_time"]
+    mfu = st["global"]["efficiency"]["mfu_median"]
+    kinds = [i["kind"] for i in st["issues"]]
+    if mfu < 0.15:
+        return "LOW_MFU"
+    if mfu < 0.30:
+        check("MODERATE_MFU" in kinds, f"MFU {mfu} but no MODERATE_MFU issue: {kinds}")
+        return kinds[0] if kinds[0] in ("MODERATE_MFU", "COMPUTE_BOUND") else "MODERATE_MFU"
+    return "COMPUTE_BOUND"
+
+
+def train_run_phase(cfg, train: dict) -> None:
+    """``python -m traceml_tpu_torch run`` of ``dev/train_script.py``:
+    healthy with a 0.1 s sender tick, and with a host input delay of 3x
+    the in-process train step at the default tick.  The forward run's
+    gates, and: the stored rows held to ``check_train_rows``, the loss
+    falling, an ``efficiency`` section with the
+    card's peak, model FLOPs within ``FLOPS_REL_TOL`` of the analytic
+    count and an MFU in (0, 1), and the verdict of the MFU's band."""
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS
+    from traceml_tpu_torch.utils.chip_specs import peak_flops_for
+
+    analytic = analytic_train_flops(cfg, BATCH, TRAIN_TOKENS - 1)
+    peak = peak_flops_for(torch.cuda.get_device_name(0))
+    check(peak is not None, f"no peak FLOP/s for {torch.cuda.get_device_name(0)}")
+    delay_ms = 3.0 * train["step_ms"]
+    for name, delay, interval_s, verdict in (("train_healthy", 0.0, 0.1, mfu_verdict),
+                                             ("train_input_delay", delay_ms, 1.0, "INPUT_BOUND")):
+        run = launch_run(name, delay, interval_s, script="train_script.py")
+        got = check_run(name, run, cfg.n_layers, verdict)
+        check_train_rows(
+            f"run {name}", [(step, clock, json.loads(ev)) for step, clock, ev in run["rows"]])
+        loss_lines = [l for l in run["stdout"].splitlines() if "loss first" in l]
+        check(bool(loss_lines), f"run {name}: no loss line")
+        words = loss_lines[-1].split()
+        first, last = float(words[words.index("first") + 1]), float(words[words.index("last") + 1])
+        check(last < first, f"run {name}: loss first {first} last {last}")
+        eff = got["efficiency"] or {}
+        flops = eff.get("flops_per_step")
+        check(flops is not None and abs(flops - analytic) / analytic <= FLOPS_REL_TOL,
+              f"run {name}: flops_per_step {flops} vs analytic {analytic}")
+        check(eff.get("peak_tflops") == peak / 1e12, f"run {name}: peak {eff.get('peak_tflops')} TFLOP/s")
+        mfu = eff.get("mfu_median")
+        check(mfu is not None and 0.0 < mfu < 1.0, f"run {name}: MFU {mfu}")
+        log("run", f"{name} (delay {delay:.3f} ms, sender tick {interval_s} s; analytic {analytic:.6e} "
+                   f"FLOPs/step; loss first {first} last {last}) " + json.dumps(got))
+        if name == "train_healthy":
+            run_ms, ref_ms = got["step_device_ms"], train["step_spread"]
+            log("run", "train step device ms under run vs in-process: " + ", ".join(
+                f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms))
 
 
 def main() -> int:
@@ -497,11 +759,21 @@ def main() -> int:
     log("time", f"kernel phase {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     main_path = main_path_phase()
-    kernel["launches"] = main_path["launches"]
     torch.cuda.empty_cache()  # the rank processes below hold their own model
     log("time", f"main path and fault phases {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    grad_check_phase()
+    from traceml_tpu_torch.dev.workload import full_width_config
+
+    cfg = full_width_config()
+    train = train_path_phase(cfg)
+    kernel["launches"] = main_path["launches"] + train["launches"]
+    kernel["launches_by_path"] = {"forward": main_path["launches"], "train": train["launches"]}
+    torch.cuda.empty_cache()
+    log("time", f"train phases {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     run_phase(main_path)
+    train_run_phase(cfg, train)
     log("time", f"run phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)

@@ -11,6 +11,11 @@ kinds exactly, floats to a relative 1e-9 (the JAX report builds its
 window with the columnar engine, the port with the scalar reference,
 which may differ in the last digits).
 
+Then the same with ``model_stats_samples`` rows (the MFU inputs) beside
+compute rows and beside train-shaped rows (forward, backward, optimizer):
+the ``efficiency`` block and every section equal; and the one verdict
+the port gives differently on purpose, LOW_MFU on a patched train step.
+
 The keys the port leaves out this slice are named here: ``history`` and
 ``regressions`` (cross-run baselines and rollup tiers come later),
 ``meta.window_build`` (the columnar engine's counters), and
@@ -23,7 +28,7 @@ import math
 
 import pytest
 
-from tests.test_torch_sqlite import memory_rows, step_rows, wire_payloads, write
+from tests.test_torch_sqlite import memory_rows, model_stats_rows, step_rows, wire_payloads, write
 from traceml_tpu.reporting.final import generate_summary as jax_generate_summary
 from traceml_tpu.runtime.settings import TraceMLSettings as JaxSettings
 from traceml_tpu_torch.aggregator.sqlite_writer import SQLiteWriter
@@ -53,11 +58,14 @@ def assert_same(ours, theirs, path="payload"):
         assert ours == theirs, (path, ours, theirs)
 
 
-def _reports(tmp_path, input_ms, compute_ms, used_frac):
+def _reports(tmp_path, input_ms, compute_ms, used_frac, train=False, model_stats=None, ranks=2):
+    """Both reports on one DB; rank r computes (1 + 0.02 r)× longer, rank
+    1 uses ``used_frac`` of device memory, the others half."""
     db = tmp_path / "telemetry.sqlite"
     payloads = wire_payloads(
-        {0: step_rows(10, 80, input_ms, compute_ms), 1: step_rows(11, 80, input_ms, compute_ms * 1.02)},
-        {0: memory_rows(12, 80, 0.5), 1: memory_rows(13, 80, used_frac)},
+        {r: step_rows(10 + r, 80, input_ms, compute_ms * (1 + 0.02 * r), train=train) for r in range(ranks)},
+        {r: memory_rows(12 + r, 80, used_frac if r == 1 else 0.5) for r in range(ranks)},
+        rank_model_stats=model_stats,
     )
     write(SQLiteWriter(db), normalize_telemetry_envelope, payloads)
     out = {}
@@ -102,3 +110,56 @@ def test_missing_db_gives_a_no_data_summary(tmp_path):
     payload = json.loads((session / "final_summary.json").read_text())
     assert payload["primary_diagnosis"]["kind"] == "INSUFFICIENT_STEP_TIME_DATA"
     assert {s["status"] for s in payload["sections"].values()} == {"NO_DATA"}
+
+
+# model FLOPs per step for an MFU of about 40% and 7% at a ~18.5 ms step
+# on a 989 TFLOP/s peak; the second declaration of rank 0 differs, so the
+# loaders' per-rank median is exercised
+HIGH_MFU = {0: model_stats_rows(7.3e12, n=2) + model_stats_rows(7.4e12), 1: model_stats_rows(7.3e12),
+            2: model_stats_rows(7.3e12)}
+LOW_MFU = {r: model_stats_rows(1.28e12, tokens=8192.0) for r in range(3)}
+NO_PEAK = {0: model_stats_rows(1.28e12, device_kind="cpu", peak=None)}
+
+
+@pytest.mark.parametrize(
+    "train, model_stats, kind",
+    [(True, HIGH_MFU, "COMPUTE_BOUND"), (False, LOW_MFU, "LOW_MFU"), (True, NO_PEAK, "COMPUTE_BOUND")],
+    ids=["train_high_mfu", "compute_low_mfu", "train_no_peak"],
+)
+def test_efficiency_section_matches_the_jax_report(tmp_path, train, model_stats, kind):
+    """Train-shaped rows (forward, backward, optimizer) or compute rows
+    with model_stats rows, on three ranks (with two, the rollup's median
+    rank is a tie that the last bit of each engine's mean decides): the
+    same efficiency block, the same verdict and every section equal."""
+    ours, theirs = _reports(tmp_path, 0.5, 18.0, 0.5, train=train, model_stats=model_stats, ranks=3)
+    assert ours["primary_diagnosis"]["kind"] == kind
+    assert_same(ours["primary_diagnosis"], theirs["primary_diagnosis"], "primary_diagnosis")
+    assert_same(ours["sections"], theirs["sections"], "sections")
+    eff = ours["sections"]["step_time"]["global"]["efficiency"]
+    assert eff["flops_per_step"] > 0 and eff["achieved_tflops_median"] > 0
+    if model_stats is NO_PEAK:
+        assert eff["mfu_median"] is None and eff["peak_tflops"] is None
+    else:
+        assert 0 < eff["mfu_median"] < 1 and eff["peak_tflops"] == 989.0
+    phases = ours["sections"]["step_time"]["global"]["phases"]
+    assert ({"forward", "backward", "optimizer"} <= set(phases)) == train
+    text = (tmp_path / "port" / "s" / "final_summary.txt").read_text()
+    assert "TFLOP/s" in text and ("MFU" in text) == (eff["mfu_median"] is not None)
+
+
+def test_low_mfu_on_a_patched_train_step_is_judged(tmp_path):
+    """The one place the port's diagnosis leaves the JAX package's: the
+    JAX LowMfuRule reads the ``compute`` phase alone, so on a step timed
+    as forward/backward/optimizer it never fires; the port sums those
+    phases as the COMPUTE_BOUND rule does.  Everything else is equal."""
+    ours, theirs = _reports(tmp_path, 0.5, 18.0, 0.5, train=True, model_stats=LOW_MFU, ranks=3)
+    assert ours["primary_diagnosis"]["kind"] == "LOW_MFU"
+    assert ours["primary_diagnosis"]["severity"] == "warning"
+    assert theirs["primary_diagnosis"]["kind"] == "COMPUTE_BOUND"
+    st_ours, st_theirs = ours["sections"]["step_time"], theirs["sections"]["step_time"]
+    assert [i["kind"] for i in st_ours["issues"]] == ["LOW_MFU"] + [i["kind"] for i in st_theirs["issues"]]
+    assert_same(st_ours["issues"][1:], st_theirs["issues"], "issues")
+    for key in set(st_theirs) - {"diagnosis", "issues"}:
+        assert_same(st_ours[key], st_theirs[key], f"step_time.{key}")
+    for key in set(theirs["sections"]) - {"step_time"}:
+        assert_same(ours["sections"][key], theirs["sections"][key], key)

@@ -21,6 +21,9 @@ from traceml_tpu_torch.dev.measure_main_path import kernel_group
         ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8_stage3_warpsize2x2x1_ffma", "gemm"),
         ("void at::native::vectorized_elementwise_kernel<8, at::native::bfloat16_copy_kernel_cuda>",
          "elementwise_and_reductions"),
+        ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::native::(anonymous namespace)"
+         "::TensorListMetadata<2>, at::native::(anonymous namespace)::BinaryOpListAlphaFunctor<float, 2, 2, 0>, "
+         "std::plus<float>, float>", "elementwise_and_reductions"),
         ("void some_unknown_kernel<1>()", "other"),
     ],
 )

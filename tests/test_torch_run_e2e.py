@@ -7,7 +7,11 @@ DecoderLM with ``device="cpu"`` and a 30 ms host input delay; each rank
 ships its rows over TCP, the aggregator stores them in SQLite and writes
 the final summary, which must say INPUT_BOUND, as must the launcher's
 stdout.  ``--disable-traceml`` passes a script through untraced; any mode
-but ``summary`` is refused.
+but ``summary`` is refused.  ``traceml_tpu_torch/dev/train_script.py``
+on the same model under ``run`` (one rank): its rows carry forward,
+backward and optimizer phases from the auto-patches, the summary has an
+``efficiency`` section with the FLOPs its warm-up step counted and no MFU
+(a CPU has no peak), and the 30 ms input delay makes it INPUT_BOUND.
 """
 
 import json
@@ -21,6 +25,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 SCRIPT = REPO / "traceml_tpu_torch" / "dev" / "forward_script.py"
+TRAIN_SCRIPT = REPO / "traceml_tpu_torch" / "dev" / "train_script.py"
 STEPS = 60
 
 
@@ -74,6 +79,42 @@ def test_run_summary_mode_input_bound(tmp_path, nprocs):
     assert "INPUT_BOUND" in proc.stdout
     assert "flash_attention.launches 0" in proc.stdout  # S=64 < the kernel's threshold
     assert not (session / "finalization_warning.json").exists()
+
+
+def test_run_train_script_input_bound(tmp_path):
+    logs = tmp_path / "logs"
+    proc = subprocess.run(
+        [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
+         "--logs-dir", str(logs), "--sampler-interval", "0.25", "--finalize-timeout", "30",
+         str(TRAIN_SCRIPT), "--", "--device", "cpu", "--tiny", "--delay-ms", "30", "--steps", str(STEPS)],
+        env=_env(), capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (session,) = [p for p in logs.iterdir() if p.is_dir()]
+    payload = json.loads((session / "final_summary.json").read_text())
+    assert payload["primary_diagnosis"]["kind"] == "INPUT_BOUND"
+    g = payload["sections"]["step_time"]["global"]
+    assert g["n_steps"] == STEPS
+    assert {"input", "h2d", "forward", "backward", "optimizer"} <= set(g["phases"])
+    assert "compute" not in g["phases"]
+    eff = g["efficiency"]
+    # the tiny model on (2, 65) tokens: 6 x 425,984 matmul parameters x 128
+    # tokens, attention at S=64 through the einsum reference
+    assert eff["flops_per_step"] == 352321536.0 and eff["flops_source"] == "flop_counter"
+    assert eff["device_kind"] == "cpu" and eff["mfu_median"] is None and eff["peak_tflops"] is None
+    manifest = json.loads((session / "manifest.json").read_text())
+    assert (manifest["status"], manifest["telemetry_status"]) == ("completed", "ok")
+    conn = sqlite3.connect(session / "telemetry.sqlite")
+    try:
+        steps = [r[0] for r in conn.execute("SELECT step FROM step_time_samples ORDER BY step")]
+        stats = conn.execute("SELECT flops_per_step, device_kind FROM model_stats_samples").fetchall()
+    finally:
+        conn.close()
+    assert steps == list(range(1, STEPS + 1))
+    assert stats == [(352321536.0, "cpu")]
+    first, last = (float(proc.stdout.split(word)[1].split()[0]) for word in ("loss first", " last "))
+    assert last < first
+    assert "flash_attention.launches 0" in proc.stdout  # S=64 < the kernel's threshold
 
 
 def test_run_disabled_passthrough(tmp_path):

@@ -1,6 +1,7 @@
 """The port's SQLite writer against the JAX package's.
 
-The same step-time and step-memory rows (made from a numpy seed, two
+The same step-time (one rank's with a forward/backward/optimizer split),
+model_stats and step-memory rows (made from a numpy seed, two
 ranks, several envelopes, in both table encodings: the rank sender's
 columnar schema 2 and row-list schema 1) go through the JAX and the port
 ``SQLiteWriter``; the two databases come out with the same columns and
@@ -26,10 +27,15 @@ from traceml_tpu_torch.utils import timing as T
 GiB = 1 << 30
 
 
-def step_rows(seed, n_steps, input_ms, compute_ms, clock="device"):
+# a train step's compute split as the auto-patches time it
+TRAIN_SPLIT = ((T.FORWARD_TIME, 0.2), (T.BACKWARD_TIME, 0.76), (T.OPTIMIZER_STEP, 0.04))
+
+
+def step_rows(seed, n_steps, input_ms, compute_ms, clock="device", train=False):
     """Step-time rows as the sampler forms them: per step, the envelope
     (``step_time``) and the input, h2d and compute phases, with host and
-    device durations around the given means."""
+    device durations around the given means; with ``train`` the compute
+    is split into forward, backward and optimizer phases."""
     rng = np.random.default_rng(seed)
     rows = []
     for step in range(1, n_steps + 1):
@@ -37,10 +43,12 @@ def step_rows(seed, n_steps, input_ms, compute_ms, clock="device"):
         h2d = float(rng.uniform(0.05, 0.2))
         comp = float(compute_ms * rng.uniform(0.95, 1.05))
         dev = clock == "device"
+        phases = TRAIN_SPLIT if train else ((T.COMPUTE_TIME, 1.0),)
         events = {
             T.DATALOADER_NEXT: {"cpu_ms": inp, "device_ms": None, "count": 1},
             T.H2D_TIME: {"cpu_ms": h2d * 0.5, "device_ms": h2d if dev else None, "count": 1},
-            T.COMPUTE_TIME: {"cpu_ms": comp * 0.3, "device_ms": comp if dev else None, "count": 1},
+            **{name: {"cpu_ms": comp * share * 0.3, "device_ms": comp * share if dev else None,
+                      "count": 1} for name, share in phases},
             T.STEP_TIME: {
                 "cpu_ms": inp + h2d + comp + float(rng.uniform(0.1, 0.3)),
                 "device_ms": (h2d + comp) if dev else None,
@@ -70,14 +78,23 @@ def memory_rows(seed, n_steps, used_frac, limit=80 * GiB, every=5):
     return rows
 
 
-def wire_payloads(rank_step_rows, rank_memory_rows, columnar=True, chunk=16):
+def model_stats_rows(flops, device_kind="NVIDIA H100 80GB HBM3", peak=989e12, tokens=None, n=1):
+    """``n`` model_stats rows as the step-time sampler publishes them."""
+    return [{"timestamp": 1.7e9 + i, "flops_per_step": flops, "flops_source": "flop_counter",
+             "device_kind": device_kind, "peak_flops": peak, "device_count": 1,
+             "tokens_per_step": tokens} for i in range(n)]
+
+
+def wire_payloads(rank_step_rows, rank_memory_rows, columnar=True, chunk=16, rank_model_stats=None):
     """Decoded wire payloads carrying the rows, ``chunk`` rows per
-    envelope, in the rank sender's shape (``seq`` monotonic per rank)."""
+    envelope, in the rank sender's shape (``seq`` monotonic per rank);
+    ``model_stats`` rows travel in step_time envelopes."""
     out = []
     seq = {}
     for sampler, table, per_rank in (
         ("step_time", "step_time", rank_step_rows),
         ("step_memory", "step_memory", rank_memory_rows),
+        ("step_time", "model_stats", rank_model_stats or {}),
     ):
         for rank, rows in per_rank.items():
             ident = SenderIdentity(session_id="s", global_rank=rank, local_rank=rank,
@@ -114,15 +131,16 @@ def dump(db, table):
 @pytest.mark.parametrize("columnar", [True, False], ids=["schema2", "schema1"])
 def test_same_rows_give_the_same_tables(tmp_path, columnar):
     payloads = wire_payloads(
-        {0: step_rows(0, 70, 2.0, 18.0), 1: step_rows(1, 70, 2.5, 18.5)},
+        {0: step_rows(0, 70, 2.0, 18.0), 1: step_rows(1, 70, 2.5, 18.5, train=True)},
         {0: memory_rows(2, 70, 0.5), 1: memory_rows(3, 70, 0.6)},
         columnar=columnar,
+        rank_model_stats={0: model_stats_rows(9.0e12, n=2), 1: model_stats_rows(8.0e12, tokens=8192.0)},
     )
     write(JaxWriter(tmp_path / "jax.sqlite"), jax_normalize, payloads)
     port = SQLiteWriter(tmp_path / "port.sqlite")
     write(port, normalize_telemetry_envelope, payloads)
-    assert (port.written, port.dropped) == (140 + 28, 0)
-    for table, n in (("step_time_samples", 140), ("step_memory_samples", 28)):
+    assert (port.written, port.dropped) == (140 + 28 + 3, 0)
+    for table, n in (("step_time_samples", 140), ("step_memory_samples", 28), ("model_stats_samples", 3)):
         cols_j, rows_j = dump(tmp_path / "jax.sqlite", table)
         cols_p, rows_p = dump(tmp_path / "port.sqlite", table)
         assert cols_p == cols_j

@@ -7,6 +7,8 @@ run on the CPU beside the JAX SDK loop, and the rows must share the JAX
 schema, with ``clock: "host"`` on the port's side (no CUDA markers).
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -196,3 +198,40 @@ def test_marker_resolver_stamps_pending_markers_and_stops():
     resolver.stop()
     assert marker.ready_at == at and not marker.late_stamp
     assert thread is not None and not thread.is_alive()
+
+
+@pytest.mark.parametrize("slow_every", [50, 1])
+def test_probe_cost_is_a_windowed_minimum(slow_every):
+    """Poll batches of one marker each, as in a loop with one marker
+    pending: a rare 5 ms poll among 30 µs ones (a poller that lost the
+    GIL) leaves a 20 ms step fully sampled; a runtime whose every poll
+    takes 5 ms backs the stride off."""
+    from traceml_tpu_torch.utils import marker_resolver
+    from traceml_tpu_torch.utils.overhead_governor import get_governor, reset_governor_for_tests
+
+    clock = [0.0]
+    polls = [0]
+
+    class _Probe:
+        def is_ready(self):
+            polls[0] += 1
+            clock[0] += 5e-3 if polls[0] % slow_every == 0 else 30e-6
+            return False
+
+    reset_governor_for_tests(budget=0.01)
+    try:
+        gov = get_governor()
+        marker = torch_timing.DeviceMarker([_Probe()])
+        with mock.patch.object(marker_resolver.time, "perf_counter", lambda: clock[0]):
+            strides = []
+            for i in range(400):
+                marker_resolver._poll_batch([marker])
+                if i % 5 == 4:  # five poll batches a step
+                    gov.observe_step(0.02)
+                    strides.append(gov.marker_stride)
+        if slow_every > 1:
+            assert max(strides) == 1 and gov.probe_cost_ema < 50e-6
+        else:
+            assert strides[-1] > 1 and gov.probe_cost_ema > 1e-3
+    finally:
+        reset_governor_for_tests()

@@ -15,6 +15,19 @@
    reference and ``scaled_dot_product_attention`` (a yardstick only) at
    B·S = 8192 tokens and a width of 1024 (16 heads of 64, the main path's,
    and 8 heads of 128), bf16, timed with CUDA events.
+4. The full-width train step (B=8, 1025 tokens, AdamW): the tracer's
+   overhead (untraced, with no patch installed, against traced under
+   ``init(mode="auto")``'s forward, backward and optimizer patches,
+   ``wrap_dataloader`` and ``trace_step``, in turns), and where its device
+   time goes (``torch.profiler`` over a few traced steps, by kernel group,
+   and the device time of the kernels launched under the plain attention
+   backward, ``traceml_tpu_torch::flash_attention_backward``).
+5. The overhead governor: three traced forward loops and three traced
+   train loops, reading the governor after each step (the steps whose
+   device markers it skipped, its stride and probe-cost EMA).
+
+Each untraced run first removes the auto-patches, each traced run
+installs them, so the untraced runs pay nothing of the tracer.
 
 Prints one JSON line per measurement.
 """
@@ -37,6 +50,9 @@ SEED = 0
 
 
 def _untraced_ms(model, batches, steps: int) -> float:
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+
+    shutdown_patches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -53,6 +69,7 @@ def _traced_ms(model, batches, steps: int) -> float:
         with torch.inference_mode():
             return model(tokens)
 
+    tm.init(mode="auto")
     tm.start_runtime()
     step = tm.wrap_step_fn(forward)
     source = (batches[i % len(batches)] for i in range(steps))
@@ -70,7 +87,8 @@ def _traced_ms(model, batches, steps: int) -> float:
 _GROUPS = (
     ("flash_attention_fwd", re.compile(r"flash_fwd_(wgmma|simt)_kernel")),
     ("gemm", re.compile(r"gemm|gemv|cutlass|nvjet|xmma|cublas", re.I)),
-    ("elementwise_and_reductions", re.compile(r"elementwise|reduce|vectorized|softmax|index|cat|copy|fill", re.I)),
+    ("elementwise_and_reductions",
+     re.compile(r"elementwise|reduce|vectorized|softmax|index|cat|copy|fill|multi_tensor", re.I)),
 )
 
 
@@ -78,6 +96,9 @@ def _host_enqueue_ms(model, batches, steps: int) -> list:
     """Host time to enqueue each of ``steps`` untraced forwards, each on an
     idle card (synchronized before and after), so the launch queue never
     fills and the time is the host's alone."""
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+
+    shutdown_patches()
     times = []
     with torch.inference_mode():
         for i in range(steps):
@@ -90,6 +111,91 @@ def _host_enqueue_ms(model, batches, steps: int) -> list:
     return times
 
 
+def _untraced_train_ms(step, batches, steps: int) -> float:
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+
+    shutdown_patches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(batches[i % len(batches)].to("cuda", non_blocking=True))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _traced_train_ms(step, batches, steps: int) -> float:
+    import traceml_tpu_torch as tm
+
+    tm.init(mode="auto")
+    tm.start_runtime()
+    source = (batches[i % len(batches)] for i in range(steps))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tokens in tm.wrap_dataloader(source, to_device=True):
+        with tm.trace_step():
+            step(tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    tm.stop_runtime()
+    return ms
+
+
+def _governor_trace(make_step, batches, steps: int) -> dict:
+    """One traced loop of ``make_step()``'s step under ``init(mode="auto")``,
+    reading the overhead governor after each step: which steps it left
+    without device markers, its largest marker stride and probe-cost
+    EMA; and the spread of the poll batches' minimum probe times that
+    fed it (wall clock)."""
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.sdk.state import get_state
+    from traceml_tpu_torch.utils.overhead_governor import get_governor
+
+    tm.init(mode="auto")
+    tm.start_runtime()
+    step = make_step()
+    gov = get_governor()
+    skipped, strides, probes, batch_minima = [], [], [], []
+    feed = gov.observe_probe_min
+
+    def observe_probe_min(best_s: float) -> None:
+        batch_minima.append(best_s)
+        feed(best_s)
+
+    gov.observe_probe_min = observe_probe_min
+    source = (batches[i % len(batches)] for i in range(steps))
+    for i, tokens in enumerate(tm.wrap_dataloader(source, to_device=True)):
+        with tm.trace_step():
+            if not get_state().sample_markers:
+                skipped.append(i + 1)
+            step(tokens)
+        strides.append(gov.marker_stride)
+        probes.append(gov.probe_cost_ema)
+    torch.cuda.synchronize()
+    tm.stop_runtime()
+    del gov.observe_probe_min
+    minima = sorted(batch_minima)
+
+    def pct(q: float) -> float:
+        return minima[min(len(minima) - 1, int(q * len(minima)))] * 1e6
+
+    return {"skipped_steps": skipped, "max_stride": max(strides),
+            "probe_ema_us_median": statistics.median(probes) * 1e6, "probe_ema_us_max": max(probes) * 1e6,
+            "step_ema_ms": gov.step_ema * 1e3, "poll_batches": len(minima),
+            "batch_min_us_p50_p90_p99_max": [pct(0.5), pct(0.9), pct(0.99), minima[-1] * 1e6],
+            "batch_min_over_100us": sum(1 for x in minima if x > 100e-6)}
+
+
+def _overhead(runs) -> dict:
+    untraced = [ms for name, ms in runs if name == "untraced"]
+    traced = [ms for name, ms in runs if name == "traced"]
+    return {
+        "runs_ms_per_step": runs,
+        "untraced_ms": statistics.mean(untraced),
+        "traced_ms": statistics.mean(traced),
+        "overhead_pct": (statistics.mean(traced) / statistics.mean(untraced) - 1.0) * 100.0,
+    }
+
+
 def kernel_group(kernel_name: str) -> str:
     """The group of a CUDA kernel's profiler name; unmatched names are "other"."""
     return next((name for name, rx in _GROUPS if rx.search(kernel_name)), "other")
@@ -99,7 +205,10 @@ def _kernel_breakdown(prof) -> dict:
     kernels = [
         (e.key, e.device_time_total / 1e3, e.count)
         for e in prof.key_averages()
+        # a record_function range (``Optimizer.step#AdamW.step``) shows on
+        # the device timeline too: it spans kernels, it is none
         if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
     ]
     total = sum(ms for _, ms, _ in kernels)
     groups = {name: 0.0 for name, _ in _GROUPS}
@@ -122,7 +231,15 @@ def main() -> int:
         print("measure_main_path: CUDA is not available", file=sys.stderr)
         return 2
     import traceml_tpu_torch as tm
-    from traceml_tpu_torch.dev.workload import build_model, cuda_ms, full_width_config, host_batches
+    from traceml_tpu_torch.dev.workload import (
+        TRAIN_TOKENS,
+        build_model,
+        build_train_state,
+        cuda_ms,
+        full_width_config,
+        host_batches,
+    )
+    from traceml_tpu_torch.models.transformer import make_train_step
     from traceml_tpu_torch.ops.attention import causal_attention_reference
     from traceml_tpu_torch.ops.flash_attention import flash_attention
 
@@ -135,7 +252,6 @@ def main() -> int:
     cfg = full_width_config()
     model = build_model(cfg, SEED)
     batches = host_batches(cfg, SEED + 1)
-    tm.init(mode="auto")
     _untraced_ms(model, batches, 5)  # warm-up: cuBLAS handles, the kernel build
     runs = [
         ("untraced", _untraced_ms(model, batches, STEPS)),
@@ -143,15 +259,7 @@ def main() -> int:
         ("traced", _traced_ms(model, batches, STEPS)),
         ("untraced", _untraced_ms(model, batches, STEPS)),
     ]
-    untraced = [ms for name, ms in runs if name == "untraced"]
-    traced = [ms for name, ms in runs if name == "traced"]
-    overhead = {
-        "runs_ms_per_step": runs,
-        "untraced_ms": statistics.mean(untraced),
-        "traced_ms": statistics.mean(traced),
-        "overhead_pct": (statistics.mean(traced) / statistics.mean(untraced) - 1.0) * 100.0,
-    }
-    print("[overhead] " + json.dumps(overhead), flush=True)
+    print("[overhead] " + json.dumps(_overhead(runs)), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -190,6 +298,38 @@ def main() -> int:
             ),
         }
         print("[attention] " + json.dumps(row), flush=True)
+
+    def forward(tokens):
+        with torch.inference_mode():
+            return model(tokens)
+
+    for _ in range(3):
+        print("[governor] forward " + json.dumps(_governor_trace(lambda: tm.wrap_step_fn(forward), batches, STEPS)),
+              flush=True)
+
+    del model
+    torch.cuda.empty_cache()
+    model, optimizer = build_train_state(cfg, SEED)
+    step = make_train_step(model, optimizer)
+    train_batches = host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)
+    _untraced_train_ms(step, train_batches, 3)  # warm-up
+    runs = [
+        ("untraced", _untraced_train_ms(step, train_batches, STEPS)),
+        ("traced", _traced_train_ms(step, train_batches, STEPS)),
+        ("traced", _traced_train_ms(step, train_batches, STEPS)),
+        ("untraced", _untraced_train_ms(step, train_batches, STEPS)),
+    ]
+    print("[train_overhead] " + json.dumps(_overhead(runs)), flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_ms = _traced_train_ms(step, train_batches, PROFILED_STEPS)
+    breakdown = _kernel_breakdown(prof)
+    backward_ms = sum(e.device_time_total for e in prof.key_averages()
+                      if e.key == "traceml_tpu_torch::flash_attention_backward") / 1e3
+    breakdown["plain_attention_backward_ms_per_step"] = backward_ms / PROFILED_STEPS
+    breakdown["profiled_wall_ms_per_step"] = profiled_ms
+    print("[train_profile] " + json.dumps(breakdown), flush=True)
+    for _ in range(3):
+        print("[governor] train " + json.dumps(_governor_trace(lambda: step, train_batches, STEPS)), flush=True)
     return 0
 
 

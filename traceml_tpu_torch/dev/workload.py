@@ -1,22 +1,25 @@
 """The main-path workload of the on-card runs, and their kernel timer.
 
 The full-width DecoderLM of the repo's own TPU lane (``bench.py:206-210``:
-vocab 16384, hidden 1024, 12 layers, 16 heads over 8 kv heads, bf16) with
-random weights made from a numpy seed in the flax params layout and
-loaded through ``params_from_jax``, plus host token batches from a seed.
+vocab 16384, hidden 1024, 12 layers, 16 heads over 8 kv heads, bf16
+compute, f32 parameters) with random weights made from a numpy seed in
+the flax params layout and loaded through ``params_from_jax``, plus host
+token batches from a seed: (8, 1024) for the forward, (8, 1025) for the
+train step, whose model sees ``tokens[:, :-1]`` at S=1024.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from traceml_tpu_torch.models.convert import params_from_jax
-from traceml_tpu_torch.models.transformer import DecoderLM, ModelConfig
+from traceml_tpu_torch.models.transformer import DecoderLM, ModelConfig, init_train_state
 
 BATCH, SEQ = 8, 1024
+TRAIN_TOKENS = SEQ + 1  # the train step feeds tokens[:, :-1]: S=1024 reaches attention
 
 
 def full_width_config() -> ModelConfig:
@@ -67,14 +70,26 @@ def build_model(cfg: ModelConfig, seed: int, device: Any = "cuda") -> DecoderLM:
     return model.eval()
 
 
-def host_batches(cfg: ModelConfig, seed: int, n: int = 4) -> List[torch.Tensor]:
-    """``n`` (BATCH, SEQ) int64 token batches in pinned host memory, so
-    that ``.to("cuda", non_blocking=True)`` copies asynchronously."""
+def build_train_state(cfg: ModelConfig, seed: int, device: Any = "cuda",
+                      learning_rate: float = 3e-4) -> Tuple[DecoderLM, torch.optim.AdamW]:
+    """``init_train_state``'s model and AdamW, with the weights of
+    :func:`build_model` for the same seed."""
+    model, optimizer = init_train_state(cfg, device=device, learning_rate=learning_rate, seed=seed)
+    model.load_state_dict(params_from_jax(random_flax_params(cfg, seed)))
+    return model, optimizer
+
+
+def host_batches(cfg: ModelConfig, seed: int, n: int = 4, batch: int = BATCH,
+                 seq: int = SEQ, pin: bool = True) -> List[torch.Tensor]:
+    """``n`` (batch, seq) int64 token batches in host memory, pinned by
+    default, so that ``.to("cuda", non_blocking=True)`` copies
+    asynchronously."""
     rng = np.random.default_rng(seed)
-    return [
-        torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int64)).pin_memory()
-        for _ in range(n)
-    ]
+    out = []
+    for _ in range(n):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int64))
+        out.append(tokens.pin_memory() if pin else tokens)
+    return out
 
 
 def cuda_ms(fn: Callable[[], Any], iters: int) -> float:

@@ -2,8 +2,8 @@
 
 Counterpart of ``traceml_tpu/diagnostics/step_time/api.py``: a rank's step
 rows become an aligned window, the rules run over it, and the result's
-``diagnosis`` is the verdict (INPUT_BOUND, COMPUTE_BOUND, …).  MFU and
-topology attribution come in later slices.
+``diagnosis`` is the verdict (INPUT_BOUND, COMPUTE_BOUND, LOW_MFU, …).
+Topology attribution comes in a later slice.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def diagnose_window(
     efficiency: Optional[Mapping[str, Any]] = None,
 ) -> DiagnosticResult:
     """``efficiency`` is the MFU block when model FLOPs are known (feeds
-    the LowMfuRule); this slice passes None."""
+    the LowMfuRule; the final report passes it, live views do not yet)."""
     policy = policy_for(mode)
     if window is None or window.n_steps < policy.min_steps:
         return DiagnosticResult(

@@ -356,20 +356,26 @@ class ResidualHeavyRule:
         ]
 
 
+def _compute_share(window) -> Optional[float]:
+    """The step's share in device compute: the ``compute`` phase of a
+    wrapped step function, or the ``forward``, ``backward`` and
+    ``optimizer`` phases of a patched one, summed.  None without any."""
+    compute_keys = [
+        k for k in ("compute", "forward", "backward", "optimizer")
+        if k in window.phases_present
+    ]
+    if not compute_keys:
+        return None
+    return sum(window.share_of_step(k) or 0.0 for k in compute_keys)
+
+
 class ComputeBoundRule:
     def evaluate(self, ctx: _Ctx) -> List[DiagnosticIssue]:
         if not _enough_data(ctx):
             return []
-        compute_keys = [
-            k for k in ("compute", "forward", "backward", "optimizer")
-            if k in ctx.window.phases_present
-        ]
-        if not compute_keys:
+        share = _compute_share(ctx.window)
+        if share is None:
             return []
-        share = 0.0
-        for k in compute_keys:
-            s = ctx.window.share_of_step(k)
-            share += s or 0.0
         p = ctx.policy
         if share < p.compute_share_info:
             return []
@@ -543,7 +549,10 @@ class LowMfuRule:
         mfu = eff.get("mfu_median")
         if mfu is None or ctx.window.clock != "device":
             return []
-        share = ctx.window.share_of_step("compute")
+        # the JAX rule reads the "compute" phase alone, so it never fires
+        # on a step timed as forward/backward/optimizer; the port reads
+        # the compute share as ComputeBoundRule does
+        share = _compute_share(ctx.window)
         p = ctx.policy
         if share is None or share < p.mfu_compute_gate:
             return []

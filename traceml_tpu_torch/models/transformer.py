@@ -4,9 +4,12 @@ Counterpart of ``traceml_tpu/models/transformer.py``: embedding, then
 n × [RMSNorm → GQA attention with RoPE → RMSNorm → SwiGLU], a final
 RMSNorm and an f32 ``lm_head``.  Numerics follow the flax module:
 
-* linear layers and the embedding compute in ``dtype`` (flax casts its
-  f32 params to ``dtype`` at each call; storing them in ``dtype`` gives
-  the same products);
+* linear and embedding weights are stored in ``param_dtype`` (f32) and
+  cast to ``dtype`` at each call, as flax's ``Dense(dtype=bf16,
+  param_dtype=f32)`` does.  Storing them in bf16 would give the same
+  forward products but not the same training: AdamW's update of
+  ``lr·m̂/√v̂`` (~3e-4) is below half a bf16 ulp of most weights, so a
+  bf16 parameter would lose most of it;
 * RMSNorm scales are f32 and the norm computes in f32, then casts;
 * RoPE is the half-split rotation, computed in f32, cast back;
 * GQA repeats each kv head in place (``repeat_interleave``), as
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +42,7 @@ class ModelConfig:
     max_seq_len: int = 1024
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
 
     @property
     def head_dim(self) -> int:
@@ -86,8 +90,36 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return rotated.to(x.dtype)
 
 
-def _linear(d_in: int, d_out: int, dtype: torch.dtype, device: Any) -> nn.Linear:
-    return nn.Linear(d_in, d_out, bias=False, dtype=dtype, device=device)
+class Dense(nn.Module):
+    """A bias-free linear layer with its weight, (out, in) as in
+    ``nn.Linear``, stored in ``param_dtype``; input and weight are cast
+    to ``dtype`` at each call."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
+                 param_dtype: torch.dtype, device: Any) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty((d_out, d_in), dtype=param_dtype, device=device))
+        nn.init.normal_(self.weight, std=d_in ** -0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class Embed(nn.Module):
+    """Token embedding stored in ``param_dtype``; the gathered rows are
+    cast to ``dtype`` (the same values as flax, which casts the table
+    first, without casting all of it)."""
+
+    def __init__(self, vocab: int, dim: int, dtype: torch.dtype,
+                 param_dtype: torch.dtype, device: Any) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty((vocab, dim), dtype=param_dtype, device=device))
+        nn.init.normal_(self.weight)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.weight).to(self.dtype)
 
 
 class Attention(nn.Module):
@@ -95,10 +127,11 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        self.wq = _linear(cfg.hidden, cfg.n_heads * hd, dtype, device)
-        self.wk = _linear(cfg.hidden, cfg.n_kv_heads * hd, dtype, device)
-        self.wv = _linear(cfg.hidden, cfg.n_kv_heads * hd, dtype, device)
-        self.wo = _linear(cfg.n_heads * hd, cfg.hidden, dtype, device)
+        pd = cfg.param_dtype
+        self.wq = Dense(cfg.hidden, cfg.n_heads * hd, dtype, pd, device)
+        self.wk = Dense(cfg.hidden, cfg.n_kv_heads * hd, dtype, pd, device)
+        self.wv = Dense(cfg.hidden, cfg.n_kv_heads * hd, dtype, pd, device)
+        self.wo = Dense(cfg.n_heads * hd, cfg.hidden, dtype, pd, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -120,9 +153,10 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: Any) -> None:
         super().__init__()
-        self.w_gate = _linear(cfg.hidden, cfg.ffn_hidden, dtype, device)
-        self.w_up = _linear(cfg.hidden, cfg.ffn_hidden, dtype, device)
-        self.w_down = _linear(cfg.ffn_hidden, cfg.hidden, dtype, device)
+        pd = cfg.param_dtype
+        self.w_gate = Dense(cfg.hidden, cfg.ffn_hidden, dtype, pd, device)
+        self.w_up = Dense(cfg.hidden, cfg.ffn_hidden, dtype, pd, device)
+        self.w_down = Dense(cfg.ffn_hidden, cfg.hidden, dtype, pd, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
@@ -152,10 +186,10 @@ class DecoderLM(nn.Module):
         dtype = dtype or cfg.dtype
         self.cfg = cfg
         self.dtype = dtype
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden, dtype=dtype, device=dev)
+        self.embed = Embed(cfg.vocab_size, cfg.hidden, dtype, cfg.param_dtype, dev)
         self.layers = nn.ModuleList(Block(cfg, dtype, dev) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.hidden, dtype=dtype, device=dev)
-        self.lm_head = _linear(cfg.hidden, cfg.vocab_size, torch.float32, dev)
+        self.lm_head = Dense(cfg.hidden, cfg.vocab_size, torch.float32, cfg.param_dtype, dev)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         B, S = tokens.shape
@@ -163,8 +197,7 @@ class DecoderLM(nn.Module):
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         for layer in self.layers:
             x = layer(x, positions)
-        x = self.final_norm(x)
-        return self.lm_head(x.float())
+        return self.lm_head(self.final_norm(x))
 
 
 def loss_fn(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
@@ -174,3 +207,59 @@ def loss_fn(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return nll.mean()
+
+
+# -- training ------------------------------------------------------------
+
+
+def init_train_state(
+    cfg: ModelConfig,
+    *,
+    device: Any = "cuda",
+    learning_rate: float = 3e-4,
+    seed: int = 0,
+) -> Tuple[DecoderLM, torch.optim.AdamW]:
+    """``(model, optimizer)``: a DecoderLM initialised from ``seed`` and
+    AdamW with weight decay 0.01 on every parameter, as the JAX
+    ``init_train_state`` builds with ``optax.adamw(lr, weight_decay=0.01)``.
+
+    Torch's AdamW and optax's compute the same update,
+    ``p ← p − lr·(m̂/(√v̂+ε) + wd·p)`` with the decay read from the
+    parameter before the update and the same bias corrections
+    (``tests/test_torch_train_step.py`` holds the two to it).  The
+    moments and step counts are made here, as ``tx.init(params)`` makes
+    them, so the first step does not allocate 2 × the parameters' bytes.
+    """
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(seed)
+        model = DecoderLM(cfg, device=dev)
+    optimizer = torch.optim.AdamW(
+        model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01
+    )
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            optimizer.state[p] = {
+                # on the host, as torch's own lazy init puts it
+                "step": torch.tensor(0.0),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
+    return model, optimizer
+
+
+def make_train_step(
+    model: DecoderLM, optimizer: torch.optim.Optimizer
+) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The train step ``step(tokens) → {"loss": loss}``: the loss of
+    ``tokens`` (B, S+1), its gradients, one optimizer update, and the
+    gradients freed.  The loss is returned on the device, unsynchronized."""
+
+    def train_step(tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return {"loss": loss.detach()}
+
+    return train_step

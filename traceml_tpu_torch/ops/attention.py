@@ -8,7 +8,12 @@ picks a path with one explicit predicate, :func:`attention_route`:
 * ``"plain"``: the same on a CPU tensor — the kernel's plain version;
 * ``"reference"``: everything else — :func:`attention_reference`.
 
-A failure on the flash path propagates; nothing falls back.
+A failure on the flash path propagates; nothing falls back, under
+autograd either.  The one difference from the JAX dispatcher: under
+``jax.grad`` the Pallas kernel fails and JAX runs the jnp reference, while
+the port's "kernel" route holds under autograd too: the forward launches
+the CUDA kernel and the backward is plain PyTorch
+(``flash_attention_backward``, the gradient of :func:`attention_reference`).
 """
 
 from __future__ import annotations

@@ -11,16 +11,31 @@ softmax(Q Kᵀ / √D) V under a causal mask in the same layout.
 * On CPU tensors it runs :func:`flash_attention_plain`, the same blocked
   online softmax written in plain PyTorch with f32 math.
 
-``flash_attention.launches`` counts kernel launches, so a run can show that
-its main path went through the kernel.
+It is the custom op ``torch.ops.traceml_tpu_torch.flash_attention``, so
+autograd and ``FlopCounterMode`` see it.  Its backward is the op
+``flash_attention_backward``: plain PyTorch that recomputes the masked
+einsum attention of ``ops/attention.py:attention_reference`` from the
+saved q, k and v and returns its gradients dq, dk and dv.  The JAX
+package has no backward kernel either: under ``jax.grad`` its dispatcher
+runs the jnp reference, so its train step differentiates the same
+einsums.  Both ops
+carry a FLOP formula with the count XLA gives the jnp path, the full
+S×S products (not half for the causal mask): 4·B·H·S²·D forward,
+8·B·H·S²·D backward.  The recompute inside the backward is not counted:
+it is not the model's work.
+
+``flash_attention.launches`` counts kernel launches (forward only), so a
+run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from traceml_tpu_torch.ops import _build
 
@@ -141,6 +156,69 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("traceml_tpu_torch::flash_attention", mutates_args=())
+def _flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, blk_q: int, blk_k: int
+) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, blk_q, blk_k)
+    return _launch(q, k, v)
+
+
+@torch.library.custom_op("traceml_tpu_torch::flash_attention_backward", mutates_args=())
+def _flash_attention_backward_op(
+    grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv of causal attention: the probabilities of
+    ``attention_reference`` recomputed from q, k and v, then its gradient
+    step by step, with the reference's casts (scores and softmax in f32,
+    the products in the input dtype).  A custom op's body runs below
+    autograd, so the gradient is written out rather than taken with
+    ``torch.autograd.grad``; ``tests/test_torch_train_step.py`` holds it
+    to autograd through the reference and to ``jax.grad``."""
+    B, S, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    del scores
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs.to(q.dtype), grad_out)
+    dprobs = torch.einsum("bqhd,bkhd->bhqk", grad_out, v).float()
+    # softmax backward; masked entries have p = 0, so their gradient is 0
+    dscores = probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True))
+    del probs, dprobs
+    dscores = (dscores * scale).to(q.dtype)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dscores, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dscores, q)
+    return dq, dk, dv
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    q, k, v, _, _ = inputs
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, grad_out):
+    dq, dk, dv = _flash_attention_backward_op(grad_out, *ctx.saved_tensors)
+    return dq, dk, dv, None, None
+
+
+_flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.traceml_tpu_torch.flash_attention)
+def _forward_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    B, S, H, D = q_shape
+    return 4 * B * H * S * S * D  # Q Kᵀ and P V, 2·S²·D each
+
+
+@register_flop_formula(torch.ops.traceml_tpu_torch.flash_attention_backward)
+def _backward_flops(grad_shape, q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    B, S, H, D = q_shape
+    return 8 * B * H * S * S * D  # dP, dV, dQ and dK, 2·S²·D each
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -154,12 +232,10 @@ def flash_attention(
     otherwise), as in the JAX wrapper; they set the plain version's blocks.
     The kernel tiles by its own blocks whatever they are: 128 query rows
     by 128-key tiles in bf16, 64 by 64 in f32 (``csrc/flash_attention_fwd.cu``).
+    Differentiable: the backward is :func:`_flash_attention_backward_op`.
     """
-    S = q.shape[1]
-    blk_q, blk_k = _check_blocks(S, blk_q, blk_k)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, blk_q, blk_k)
-    return _launch(q, k, v)
+    blk_q, blk_k = _check_blocks(q.shape[1], blk_q, blk_k)
+    return _flash_attention_op(q, k, v, blk_q, blk_k)
 
 
 flash_attention.launches = 0

@@ -23,6 +23,7 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
+from traceml_tpu_torch.analytics.efficiency import build_efficiency
 from traceml_tpu_torch.analytics.trends.core import compute_window_trend
 from traceml_tpu_torch.diagnostics.common import DiagnosticResult
 from traceml_tpu_torch.diagnostics.step_memory.api import diagnose_rank_rows as diagnose_memory
@@ -91,14 +92,25 @@ def _steady_state(window: StepTimeWindow) -> Dict[str, Any]:
     }
 
 
-def _build_step_time_section(rank_rows, mode: str, identities=None):
+def _efficiency_block(model_stats, window: StepTimeWindow, steady) -> Optional[Dict[str, Any]]:
+    """MFU: each rank's achieved model FLOP/s over its device's peak, on
+    the steady-state step medians when there are some (warm-up steps say
+    nothing of sustained efficiency).  The formula is
+    ``analytics/efficiency.py``'s."""
+    per_rank_step = (
+        {int(r): v for r, v in steady["per_rank_median_ms"].items()}
+        if steady
+        else {r: w.averages.get(STEP_KEY) for r, w in window.rank_windows.items()}
+    )
+    return build_efficiency(model_stats, per_rank_step)
+
+
+def _build_step_time_section(rank_rows, mode: str, identities=None, model_stats=None):
     if not rank_rows:
         return _no_data_section("step_time"), None
     window = build_step_time_window(rank_rows, max_steps=REPORT_WINDOW_STEPS)
     steady = _steady_state(window) if window else {}
-    # MFU needs model FLOPs, which come with FLOPs counting in a later
-    # slice: no efficiency block yet
-    efficiency = None
+    efficiency = _efficiency_block(model_stats, window, steady) if window else None
     result = diagnose_window(window, mode=mode, efficiency=efficiency)
     section: Dict[str, Any] = {
         "status": "OK" if window else "NO_DATA",
@@ -251,6 +263,26 @@ def _step_time_card(sec: Dict[str, Any]) -> str:
     if occ is not None:
         header += f" · chip busy {fmt_pct(occ)}"
     out = [header]
+    eff = g.get("efficiency")
+    if eff:
+        bits = []
+        if eff.get("achieved_tflops_median") is not None:
+            flops = eff.get("flops_per_step")
+            bits.append(
+                (f"model: {flops / 1e12:.2f} TFLOP/step → " if flops else "")
+                + f"{eff['achieved_tflops_median']:.1f} TFLOP/s achieved"
+            )
+            if eff.get("mfu_median") is not None:
+                peak = eff.get("peak_tflops")
+                bits.append(
+                    f"= {fmt_pct(eff['mfu_median'])} MFU ({eff.get('device_kind')}"
+                    + (f", peak {peak:.0f} TFLOP/s" if peak else "")
+                    + ")"
+                )
+        if eff.get("tokens_per_sec_median") is not None:
+            bits.append(f"{eff['tokens_per_sec_median']:,.0f} tokens/s")
+        if bits:
+            out.append(" ".join(bits))
     for key, p in phases.items():
         share = p.get("share_of_step")
         skew = p.get("skew_pct")
@@ -384,6 +416,21 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
             if infl is not None and infl > 0.02:
                 line += f"  (warmup inflated the overall median {fmt_pct(infl)})"
             out.append(line)
+        eff = g.get("efficiency")
+        if eff:
+            line = "  "
+            if eff.get("achieved_tflops_median") is not None:
+                flops = eff.get("flops_per_step")
+                line += (
+                    (f"model {flops / 1e12:.2f} TFLOP/step → " if flops else "")
+                    + f"{eff['achieved_tflops_median']:.1f} TFLOP/s"
+                )
+                if eff.get("mfu_median") is not None:
+                    line += f"  MFU {fmt_pct(eff['mfu_median'])}"
+            if eff.get("tokens_per_sec_median") is not None:
+                line += f"  {eff['tokens_per_sec_median']:,.0f} tokens/s"
+            if line.strip():
+                out.append(line)
         for key, p in phases.items():
             if key == STEP_KEY:
                 continue
@@ -460,7 +507,8 @@ def generate_summary(
 
         def run_step_time():
             rows = loaders.load_step_time_rows(db_path, max_steps_per_rank=WINDOW_READ_STEPS, conn=conn)
-            section, results["step_time"] = _build_step_time_section(rows, mode, identities)
+            stats = loaders.load_model_stats(db_path, conn=conn)
+            section, results["step_time"] = _build_step_time_section(rows, mode, identities, stats)
             return section
 
         def run_step_memory():

@@ -81,6 +81,53 @@ def load_step_time_rows(
     return out
 
 
+
+def load_model_stats(
+    db_path: Path,
+    recent_rows: int = 64,
+    conn: Optional[sqlite3.Connection] = None,
+) -> Dict[int, Dict[str, Any]]:
+    """global_rank → FLOPs declaration (the MFU numerator and the device
+    peak taken when it was declared).  ``flops_per_step`` and
+    ``tokens_per_step`` are the medians over the rank's recent
+    declarations (per-step declarations vary with the batch); source,
+    device kind, peak and device count come from the newest row."""
+    import statistics
+
+    out: Dict[int, Dict[str, Any]] = {}
+    per_rank_flops: Dict[int, List[float]] = {}
+    per_rank_tokens: Dict[int, List[float]] = {}
+    with _reading(db_path, conn) as c:
+        if not _table_exists(c, "model_stats_samples"):
+            return out
+        rows = c.execute(
+            "SELECT * FROM (SELECT global_rank, flops_per_step,"
+            " flops_source, device_kind, peak_flops, device_count,"
+            " tokens_per_step, id"
+            " FROM model_stats_samples"
+            f" ORDER BY id DESC LIMIT {int(recent_rows)}) ORDER BY id ASC"
+        ).fetchall()
+    for r in rows:
+        rank = int(r["global_rank"])
+        if r["flops_per_step"]:
+            per_rank_flops.setdefault(rank, []).append(float(r["flops_per_step"]))
+        if r["tokens_per_step"]:
+            per_rank_tokens.setdefault(rank, []).append(float(r["tokens_per_step"]))
+        out[rank] = {  # ascending order → the newest row wins
+            "flops_source": r["flops_source"],
+            "device_kind": r["device_kind"],
+            "peak_flops": r["peak_flops"],
+            "device_count": r["device_count"],
+        }
+    for rank, vals in per_rank_flops.items():
+        out[rank]["flops_per_step"] = statistics.median(vals)
+    for rank, vals in per_rank_tokens.items():
+        out[rank]["tokens_per_step"] = statistics.median(vals)
+    return {
+        r: v for r, v in out.items()
+        if v.get("flops_per_step") or v.get("tokens_per_step")
+    }
+
 def load_step_memory_rows(
     db_path: Path,
     max_rows_per_rank: int = 20000,

@@ -19,6 +19,10 @@ the marker event's own GPU timestamp.
 
 An unresolved step blocks emission (keeps FIFO) until
 ``resolve_timeout_s``; on timeout the step emits host-only.
+
+It also publishes the ``model_stats`` table: one row each time the step's
+FLOPs declaration (``set_step_flops`` / ``estimate_step_flops``) changes,
+with the device's peak FLOP/s, the MFU inputs of the final report.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
+from traceml_tpu_torch.utils.error_log import get_error_log
 from traceml_tpu_torch.utils.timing import (
     GLOBAL_STEP_QUEUE,
     STEP_TIME,
@@ -35,6 +40,7 @@ from traceml_tpu_torch.utils.timing import (
 )
 
 TABLE = "step_time"
+MODEL_STATS_TABLE = "model_stats"
 _RESOLVE_TIMEOUT_S = 10.0
 
 
@@ -126,8 +132,36 @@ class StepTimeSampler(BaseSampler):
         self._pending: List[StepTimeBatch] = []
         self._resolve_timeout = resolve_timeout_s
         self._last_ready: Optional[float] = None  # cross-step device edge
+        self._stats_sent: Optional[tuple] = None
         self.steps_emitted = 0
         self.steps_timed_out = 0
+
+    def _publish_model_stats(self) -> None:
+        """One ``model_stats`` row whenever the declaration changes (keyed
+        on all of it: a device-kind correction with the same FLOPs must
+        still republish)."""
+        try:
+            from traceml_tpu_torch.sdk.state import get_state
+            from traceml_tpu_torch.utils.chip_specs import peak_flops_for
+
+            st = get_state()
+            flops = st.flops_per_step
+            key = (flops, st.flops_source, st.flops_device_kind, st.flops_device_count)
+            if flops is None or key == self._stats_sent:
+                return
+            self._stats_sent = key
+            self.db.add_record(MODEL_STATS_TABLE, {
+                "timestamp": time.time(),
+                "flops_per_step": float(flops),
+                "flops_source": st.flops_source,
+                "device_kind": st.flops_device_kind,
+                "peak_flops": peak_flops_for(st.flops_device_kind),
+                "device_count": st.flops_device_count,
+                # the JAX package's set_step_tokens has no counterpart yet
+                "tokens_per_step": None,
+            })
+        except Exception as exc:  # fail-open: MFU never breaks sampling
+            get_error_log().warning("model_stats publish failed", exc)
 
     def _emit(self, batches: List[StepTimeBatch]) -> None:
         for batch in batches:
@@ -138,6 +172,7 @@ class StepTimeSampler(BaseSampler):
             self.steps_emitted += 1
 
     def _sample(self) -> None:
+        self._publish_model_stats()
         self._pending.extend(GLOBAL_STEP_QUEUE.drain())
         now = time.perf_counter()
         emit_upto = 0
@@ -158,6 +193,7 @@ class StepTimeSampler(BaseSampler):
         stamp leftovers as late and emit."""
         from traceml_tpu_torch.utils.marker_resolver import get_marker_resolver
 
+        self._publish_model_stats()
         deadline = time.monotonic() + 2.0
         while time.monotonic() < deadline:
             self._pending.extend(GLOBAL_STEP_QUEUE.drain())

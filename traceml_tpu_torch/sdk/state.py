@@ -3,8 +3,10 @@
 Counterpart of ``traceml_tpu/sdk/state.py``: the step counter, the per-step
 event buffer, the step-memory tracker and the TLS gates.  The port adds
 the device the trace runs on: ``init(device=...)`` sets it; unset, it is
-CUDA, and resolving it raises when CUDA is absent.  FLOPs and tokens
-(the MFU inputs) come in a later slice.
+CUDA, and resolving it raises when CUDA is absent.  And one TLS gate
+of its own, ``compute_depth``: open while ``wrap_step_fn``'s compute
+region runs, so that an auto-patched forward, backward or optimizer
+region inside it is not recorded a second time.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ from traceml_tpu_torch.utils.timing import (
 class _TLS(threading.local):
     def __init__(self) -> None:
         self.in_step = False
+        self.forward_depth = 0
+        self.backward_depth = 0
+        self.compute_depth = 0
         self.h2d_depth = 0
         self.dataloader_depth = 0
 
@@ -50,6 +55,14 @@ class TraceState:
         # per-step device-marker gate, set by trace_step.__enter__ from
         # the overhead governor; a whole step is either marked or not
         self.sample_markers = True
+        # model FLOPs of one training step (set_step_flops or
+        # estimate_step_flops), the MFU numerator: its source ("manual" or
+        # "flop_counter"), the device whose peak is the denominator and
+        # how many of them the step runs on
+        self.flops_per_step: Optional[float] = None
+        self.flops_source: Optional[str] = None
+        self.flops_device_kind: Optional[str] = None
+        self.flops_device_count: Optional[int] = None
 
     # -- device ----------------------------------------------------------
     @property
@@ -62,6 +75,13 @@ class TraceState:
                     self._device = resolve_device(None)
                 dev = self._device
         return dev
+
+    @property
+    def marker_device(self):
+        """The trace's device if it is resolved already, else None: where
+        a region with no tensor output records its marker.  Never
+        raises (``trace_step`` resolves the device on entry)."""
+        return self._device
 
     def set_device(self, device: Any) -> None:
         with self._lock:
@@ -116,11 +136,13 @@ def get_state() -> TraceState:
 
 def reset_state_for_tests(device: Any = None) -> TraceState:
     """Replace global state (test isolation only), with the overhead
-    governor and the shared queues."""
+    governor and the shared queues, and remove the auto-patches."""
     global _state
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
     from traceml_tpu_torch.utils.overhead_governor import reset_governor_for_tests
     from traceml_tpu_torch.utils.timing import GLOBAL_STEP_MEMORY_QUEUE
 
+    shutdown_patches()
     reset_governor_for_tests()
     GLOBAL_STEP_QUEUE.drain()
     GLOBAL_STEP_MEMORY_QUEUE.drain()

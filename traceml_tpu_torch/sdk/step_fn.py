@@ -5,7 +5,8 @@ function is a ``compute_time`` region.  PyTorch runs eagerly, so there is
 no jit, no compile tracker and no search of the outputs for a handle: the
 device marker is a CUDA event recorded on the device's current stream
 right after the call returns, when all of the call's work is enqueued.
-FLOPs and MFU come in a later slice.
+The model FLOPs of a step come from :func:`estimate_step_flops` or
+``set_step_flops``, not from this wrapper.
 """
 
 from __future__ import annotations
@@ -38,16 +39,23 @@ class WrappedStepFn:
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         st = self._state
         region = timed_region(self._phase, st.current_step, sink=st.buffer.add)
-        with region as tr:
-            out = self._fn(*args, **kwargs)
-            if self.device.type == "cuda" and st.markers_enabled():
-                marker = cuda_marker(self.device)
-                # the step function spans ~the whole step: the resolver
-                # may sleep toward its expected completion.  In-step only:
-                # out-of-step calls queue behind each other, so their
-                # lifetimes measure queue depth, not one step's compute
-                marker.step_end_hint = st.tls.in_step
-                tr.event.marker = marker
+        # the auto-patched forward, backward and optimizer regions inside
+        # stay unrecorded: their work is this region's
+        st.tls.compute_depth += 1
+        try:
+            with region as tr:
+                out = self._fn(*args, **kwargs)
+                if self.device.type == "cuda" and st.markers_enabled():
+                    marker = cuda_marker(self.device)
+                    # the step function spans ~the whole step: the resolver
+                    # may sleep toward its expected completion.  In-step
+                    # only: out-of-step calls queue behind each other, so
+                    # their lifetimes measure queue depth, not one step's
+                    # compute
+                    marker.step_end_hint = st.tls.in_step
+                    tr.event.marker = marker
+        finally:
+            st.tls.compute_depth -= 1
         # envelope hand-off + dispatch-time resolver submission
         publish_region_marker(region.event, st)
         return out

@@ -29,10 +29,12 @@ def _poll_batch(pending: List[DeviceMarker]) -> tuple:
     """Poll a batch of markers and feed the governor ONE probe-cost
     sample: the batch MINIMUM per-poll duration — robust to the polling
     thread being descheduled mid-poll (a starved poller measures its own
-    starvation, not the probe).  No-op polls of already-resolved markers
-    and exception-path polls are excluded from the sample.  Returns
-    (#resolved-by-this-batch, min_probe_dt | None).  Shared by
-    sweep_inline (main thread) and the resolver loop."""
+    starvation, not the probe); the governor takes the least of its last
+    few such minima (``observe_probe_min``), since with one marker
+    pending a batch has one poll to take the minimum of.  No-op polls of
+    already-resolved markers and exception-path polls are excluded from
+    the sample.  Returns (#resolved-by-this-batch, min_probe_dt | None).
+    Shared by sweep_inline (main thread) and the resolver loop."""
     resolved = 0
     best = None
     for m in pending:
@@ -51,7 +53,7 @@ def _poll_batch(pending: List[DeviceMarker]) -> tuple:
     # this is THE signal that detects expensive probes and turns inline
     # sweeping off / stretches the marker stride
     if best is not None:
-        get_governor().observe_probe(best, 1)
+        get_governor().observe_probe_min(best)
     return resolved, best
 
 

@@ -13,12 +13,24 @@ stride so tracer-attributable time stays under a budget (default 1%,
 * inline sweeps (main-thread ``query()`` at step boundaries) are turned
   off when a single probe costs more than ``inline_probe_ceiling``.
 
+The port feeds the probe EMA through ``observe_probe_min``: the least of
+the last ``_PROBE_WINDOW`` poll batches' minima, not each batch's.  On
+an H100 a batch's minimum is 2-4 µs at the median, but about one in a
+hundred is over 100 µs and a few are milliseconds (the poller lost the
+GIL or the driver mid-poll; ``dev/measure_main_path.py``'s governor
+trace).  With one marker pending a batch's minimum is its only poll, so
+one such sample lifted the EMA past 1% of a 20 ms or 130 ms step and the
+governor dropped the device markers of the next steps.  A runtime whose
+every probe is slow still moves the windowed minimum within a step or
+two.
+
 On CUDA a marker's stamp is the event's own GPU timestamp, so the poll
 cadence bounds how soon a row is emitted, not how exact it is.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 
 _DEF_BUDGET = 0.01           # tracer share of wall clock
@@ -37,6 +49,7 @@ _MAX_STRIDE = 256
 # clamped 20 ms sample already drives every knob to full backoff.
 _PROBE_SAMPLE_CEILING = 20e-3
 _MAX_RESOLVER_DELAY = 0.1  # cap: stamp quality must bound EMA poisoning
+_PROBE_WINDOW = 16  # poll batches whose least minimum is one EMA sample
 
 
 def _env_budget() -> float:
@@ -72,6 +85,7 @@ class OverheadGovernor:
         self._tick = 0
         self._stride = 1
         self._obs = 0
+        self._recent_probes: collections.deque = collections.deque(maxlen=_PROBE_WINDOW)
 
     # -- observations (any thread; lock-free on purpose) ---------------
     # EMA updates race benignly under the GIL (a lost update nudges the
@@ -90,6 +104,16 @@ class OverheadGovernor:
             return
         per = min(total_s / n_probes, _PROBE_SAMPLE_CEILING)
         self.probe_cost_ema += _EMA_ALPHA * (per - self.probe_cost_ema)
+
+    def observe_probe_min(self, best_s: float) -> None:
+        """Feed one poll batch's minimum probe duration; the EMA takes the
+        least of the last ``_PROBE_WINDOW`` of them (module docstring).
+        Appends from two threads race benignly, like the EMA's."""
+        if best_s < 0:
+            return
+        recent = self._recent_probes
+        recent.append(best_s)
+        self.observe_probe(min(tuple(recent)), 1)
 
     def observe_marker_lifetime(self, dur_s: float) -> None:
         """Resolution time of a step-end marker (non-late stamps only —

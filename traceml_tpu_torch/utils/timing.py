@@ -228,14 +228,18 @@ class TimeEvent:
         if self.cpu_end is None:
             self.cpu_end = _now()
 
-    def attach_marker(self, outputs: Any) -> None:
+    def attach_marker(self, outputs: Any, device: Any = None) -> None:
         """Attach a device marker after a phase's outputs were enqueued:
         an event on the current stream of the first CUDA tensor found in
-        ``outputs`` (a tensor, or a list, tuple or dict of them)."""
+        ``outputs`` (a tensor, or a list, tuple or dict of them), else on
+        ``device`` when it is a CUDA device — for regions such as
+        ``loss.backward()`` and ``optimizer.step()`` that return no tensor."""
         try:
-            device = _find_cuda_device(outputs)
-            if device is not None:
-                self.marker = cuda_marker(device)
+            found = _find_cuda_device(outputs)
+            if found is None and getattr(device, "type", None) == "cuda":
+                found = device
+            if found is not None:
+                self.marker = cuda_marker(found)
         except Exception as exc:
             get_error_log().warning("attach_marker failed", exc)
 
@@ -368,6 +372,7 @@ class timed_region:
         with timed_region(FORWARD_TIME, step=3, sink=buffer.add) as tr:
             out = forward(...)
             tr.mark(out)        # optional: device-side completion probe
+            tr.mark(None, st.device)  # the same, for a region with no tensor out
     """
 
     __slots__ = ("event", "_sink")
@@ -381,8 +386,10 @@ class timed_region:
         self.event = TimeEvent(name, step)
         self._sink = sink
 
-    def mark(self, outputs: Any) -> Any:
-        self.event.attach_marker(outputs)
+    def mark(self, outputs: Any, device: Any = None) -> Any:
+        """Mark after ``outputs``; ``device`` is where to mark when they
+        hold no CUDA tensor."""
+        self.event.attach_marker(outputs, device)
         return outputs
 
     def __enter__(self) -> "timed_region":
