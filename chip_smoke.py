@@ -36,13 +36,21 @@
    optimizer patches on the device clock, with its gates (12 launches a
    step, every row on the device clock with forward, backward and
    optimizer device times, the loss falling, the step's peak memory above
-   parameters + gradients + AdamW state).
+   parameters + gradients + AdamW state).  The ``lm_head`` (its forward
+   GEMM and both gradient GEMMs at TF32, scoped by ``TF32Dense``) against
+   the IEEE route on the same weights and (8, 1025) tokens: logits within
+   ``LM_HEAD_LOGITS_REL_FRO`` and the loss within ``LM_HEAD_LOSS_REL``,
+   the two routes' GEMM times, and the process's TF32 flag reading the
+   same before and after a train step, from ``False`` and from ``True``.
+   Each in-process loop prints its samplers' cost per tick.
 5. Run phase: the product's entry point, ``python -m traceml_tpu_torch run
    --mode summary``, on ``traceml_tpu_torch/dev/forward_script.py`` and
    on ``traceml_tpu_torch/dev/train_script.py``, each healthy with the
    sender ticking every 0.1 s (ten times the default rate, so it ships
-   about a dozen batches while the loop runs), then with a host input
-   delay of 3× the in-process step at the default 1 s tick.  The
+   about a dozen batches while the loop runs; the healthy forward runs
+   ``RUN_FORWARD_STEPS`` steps, so that the system rules' last 30 samples
+   fall in its loop), then with a host input delay of 3× the in-process
+   step at the default 1 s tick.  The
    launcher spawns the aggregator and one rank; the rank runs the
    full-width loop through the kernel and ships its rows over TCP; the
    aggregator stores them in SQLite and writes ``final_summary.json``.
@@ -57,7 +65,13 @@
    rows to meet the in-process loop's device-clock gates, the loss
    falling, and an ``efficiency`` section with the card's peak,
    ``flops_per_step`` within 2% of the analytic count and an MFU in
-   (0, 1).  Reported: the step device times under ``run`` (median, mean,
+   (0, 1).  Every run's ``system`` and ``process`` sections must be OK,
+   with ``cpu_pct`` on every host row, NVML utilization, temperature and
+   power on every GPU row, ``system_manifest.json`` naming the card and
+   its power limit as ``nvidia-smi`` does, RSS above 0 and the process
+   rows' GPU peak at least the largest step-memory peak; the healthy
+   train run's NVML utilization, as the system rules read it (the mean of
+   the last 30 samples), must be at least ``UTIL_HEALTHY_MIN_PCT``.  Reported: the step device times under ``run`` (median, mean,
    p90, max) against the in-process loop's, which runs no sender; the
    sender's busy ticks, its collect and encode cost per busy tick, its
    flush cost per timed send and its codec, the aggregator's
@@ -106,6 +120,13 @@ TRAIN_LOSS_REL = 1e-3
 TRAIN_GRAD_REL_FRO = 0.1
 TRAIN_UPDATE_REL_FRO = 0.5
 FLOPS_REL_TOL = 0.02  # estimate_step_flops against the analytic count
+# the TF32 lm_head against the IEEE route: TF32 rounds each product's
+# inputs to a 10-bit mantissa (2^-11 relative), and 1024-term f32 sums of
+# such products stay far inside these
+LM_HEAD_LOGITS_REL_FRO = 5e-3
+LM_HEAD_LOSS_REL = 1e-3
+RUN_FORWARD_STEPS = 300  # ~5 s of the healthy forward at the 0.1 s tick
+UTIL_HEALTHY_MIN_PCT = 70.0  # NVML utilization of the healthy train run
 # shapes at which planted faults are put through the kernel's checks
 PLANT_AT = ((BATCH, SEQ, 16, 64), (1, 4096, 4, 64), (1, 4096, 4, 128))
 REPO = Path(__file__).resolve().parent
@@ -239,8 +260,10 @@ def kernel_phase() -> dict:
 def traced_loop(step, batches, steps: int, delay_s: float) -> dict:
     """``steps`` traced steps of ``step(tokens)`` under a fresh runtime;
     returns the runtime's rows, the first and last step's outputs, the
-    kernel launches and the loop's wall time."""
+    kernel launches, the loop's wall time and its samplers' cost per
+    tick."""
     import traceml_tpu_torch as tm
+    from traceml_tpu_torch.dev.workload import sampler_cost_summary, time_samplers
     from traceml_tpu_torch.ops.flash_attention import flash_attention
     from traceml_tpu_torch.runtime.lifecycle import get_active_runtime
     from traceml_tpu_torch.runtime.settings import TraceMLSettings
@@ -254,6 +277,7 @@ def traced_loop(step, batches, steps: int, delay_s: float) -> dict:
 
     tm.start_runtime(TraceMLSettings(sampler_interval_sec=0.5))
     rt = get_active_runtime()
+    costs = time_samplers(rt.samplers)
     # each loop here stands for a run of its own: its first step's
     # envelope must not be back-dated to the previous loop's last step
     get_state().last_step_exit = None
@@ -280,6 +304,7 @@ def traced_loop(step, batches, steps: int, delay_s: float) -> dict:
         "launches": launches,
         "wall_s": wall_s,
         "live": live,
+        "sampler_cost": sampler_cost_summary(costs),
     }
 
 
@@ -375,6 +400,7 @@ def main_path_phase() -> dict:
                  f"(backend {mem[-1]['backend']}, {len(mem)} rows)")
     log("slice", f"verdict: {verdict.kind} ({verdict.severity}): {verdict.summary}")
     log("slice", "live_metrics " + json.dumps(run["live"]))
+    log("slice", "sampler cost per tick (0.5 s tick) " + json.dumps(run["sampler_cost"]))
 
     compute_ms = phases["COMPUTE_TIME"]["device_ms_median"]
     delay_s = 3.0 * compute_ms / 1000.0
@@ -495,6 +521,70 @@ def train_compare_phase(cfg, batches) -> None:
           f"update of {worst_update} kernel vs plain: rel_fro {update_rel[worst_update]}")
 
 
+def lm_head_phase(cfg) -> dict:
+    """The ``lm_head`` at TF32 against the IEEE route (``F.linear`` with the
+    process's flag, which the kernel phase set to IEEE) on the same
+    full-width weights and (8, 1025) tokens: logits and loss, the two
+    routes' forward + gradient GEMM times in turns, and the process's
+    TF32 flag before and after a train step from ``False`` and ``True``."""
+    import torch.nn.functional as F
+
+    from traceml_tpu_torch.dev.attention_check import scaled_errors
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS, build_train_state, cuda_ms, host_batches
+    from traceml_tpu_torch.models.transformer import _TF32Linear, loss_fn, make_train_step
+
+    def flags():
+        return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cuda.matmul.fp32_precision)
+
+    check(flags()[0] is False, f"the kernel phase left TF32 flags {flags()}")
+    model, optimizer = build_train_state(cfg, SEED)
+    tokens = host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)[0].cuda()
+    head = model.lm_head
+    with torch.inference_mode():
+        logits, loss = model(tokens[:, :-1]), loss_fn(model, tokens).item()
+        with mock.patch.object(head, "forward", lambda x: F.linear(x.float(), head.weight)):
+            ieee_logits, ieee_loss = model(tokens[:, :-1]), loss_fn(model, tokens).item()
+    err = scaled_errors(logits, ieee_logits)
+    loss_rel = abs(loss - ieee_loss) / abs(ieee_loss)
+    del logits, ieee_logits
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn((BATCH, SEQ, cfg.hidden), generator=gen, device="cuda", requires_grad=True)
+    g = torch.randn((BATCH, SEQ, cfg.vocab_size), generator=gen, device="cuda")
+    w = head.weight
+
+    def gemms(fn):  # forward GEMM and both gradient GEMMs
+        return lambda: torch.autograd.grad(fn(x, w), (x, w), g)
+
+    tf32, ieee = gemms(_TF32Linear.apply), gemms(F.linear)
+    times = [("ieee", cuda_ms(ieee, 10)), ("tf32", cuda_ms(tf32, 10)),
+             ("tf32", cuda_ms(tf32, 10)), ("ieee", cuda_ms(ieee, 10))]
+    del x, g
+
+    step = make_train_step(model, optimizer)
+    flag_reads = []
+    for setting in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = setting
+        before = flags()
+        step(tokens)
+        torch.cuda.synchronize()
+        flag_reads.append({"set": setting, "before": before, "after": flags()})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del model, optimizer, step
+    out = {"logits": err, "loss_tf32": loss, "loss_ieee": ieee_loss, "loss_rel": loss_rel,
+           "tol": {"logits_rel_fro": LM_HEAD_LOGITS_REL_FRO, "loss_rel": LM_HEAD_LOSS_REL},
+           "gemms_ms_in_turns": times,
+           "tf32_ms": statistics.fmean(t for r, t in times if r == "tf32"),
+           "ieee_ms": statistics.fmean(t for r, t in times if r == "ieee"),
+           "flags": flag_reads}
+    log("lm_head", json.dumps(out))
+    check(err["rel_fro"] <= LM_HEAD_LOGITS_REL_FRO, f"TF32 lm_head logits vs IEEE: {err}")
+    check(loss_rel <= LM_HEAD_LOSS_REL, f"TF32 lm_head loss vs IEEE: {loss} vs {ieee_loss}")
+    for r in flag_reads:
+        check(r["before"] == r["after"], f"a train step changed the TF32 flags: {r}")
+    return out
+
+
 def train_path_phase(cfg) -> dict:
     """The traced full-width train loop in process (the slice's main
     path): ``init(mode="auto")``'s patches time forward, backward and
@@ -524,6 +614,7 @@ def train_path_phase(cfg) -> dict:
                  f"(params + grads + AdamW state {n_params * 16} bytes)")
     log("train", "phase medians " + json.dumps(phases))
     log("train", f"verdict (no FLOPs in process): {verdict.kind} ({verdict.severity}): {verdict.summary}")
+    log("train", "sampler cost per tick (0.5 s tick) " + json.dumps(run["sampler_cost"]))
     check(run["launches"] == cfg.n_layers * STEPS,
           f"train flash launches {run['launches']} != {cfg.n_layers} x {STEPS}")
     check(len(rows) == STEPS, f"{len(rows)} train step rows for {STEPS} steps")
@@ -538,16 +629,17 @@ def train_path_phase(cfg) -> dict:
             "step_spread": spread(r["events"][T.STEP_TIME]["device_ms"] for r in rows)}
 
 
-def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py") -> dict:
+def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py",
+               steps: int = STEPS) -> dict:
     """One ``python -m traceml_tpu_torch run`` call of a ``dev/`` script;
-    returns its session's artifacts, the launcher's output and the call's
-    wall time."""
+    returns its session's artifacts, its system, process and step-memory
+    rows, the launcher's output and the call's wall time."""
     logs = RUN_DIR / name
     shutil.rmtree(logs, ignore_errors=True)
     argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
             "--logs-dir", str(logs), "--run-name", name, "--sampler-interval", repr(interval_s),
             str(REPO / "traceml_tpu_torch" / "dev" / script),
-            "--", "--steps", str(STEPS), "--delay-ms", repr(delay_ms)]
+            "--", "--steps", str(steps), "--delay-ms", repr(delay_ms)]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     t0 = time.perf_counter()
     proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -577,12 +669,18 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
         return json.loads(path.read_text())
 
     conn = sqlite3.connect(session / "telemetry.sqlite")
+    conn.row_factory = sqlite3.Row
     try:
-        rows = conn.execute("SELECT step, clock, events_json FROM step_time_samples ORDER BY step").fetchall()
+        rows = [tuple(r) for r in conn.execute(
+            "SELECT step, clock, events_json FROM step_time_samples ORDER BY step")]
+        tables = {t: [dict(r) for r in conn.execute(f"SELECT * FROM {t} ORDER BY id")]
+                  for t in ("system_samples", "system_device_samples", "process_samples",
+                            "process_device_samples", "step_memory_samples")}
     finally:
         conn.close()
     return {"summary": read("final_summary.json"), "manifest": read("manifest.json"),
-            "ingest": read("ingest_stats.json"), "rows": rows, "stdout": out, "wall_s": wall_s}
+            "ingest": read("ingest_stats.json"), "system_manifest": read("system_manifest.json"),
+            "rows": rows, "tables": tables, "stdout": out, "wall_s": wall_s, "steps": steps}
 
 
 def check_run(name: str, run: dict, n_layers: int, verdict) -> dict:
@@ -607,13 +705,14 @@ def check_run(name: str, run: dict, n_layers: int, verdict) -> dict:
              "batches_dropped": (producer.get("transport") or {}).get("batches_dropped")}
     check(drops == {k: 0 for k in drops}, f"run {name}: telemetry dropped {drops}")
     check(ingest["finished_ranks"] == [0], f"run {name}: finished ranks {ingest['finished_ranks']}")
+    n = run["steps"]
     steps = [r[0] for r in run["rows"]]
-    check(steps == list(range(1, STEPS + 1)), f"run {name}: step_time_samples hold steps {steps[:3]}..., "
-                                              f"{len(steps)} rows for {STEPS} steps")
+    check(steps == list(range(1, n + 1)), f"run {name}: step_time_samples hold steps {steps[:3]}..., "
+                                          f"{len(steps)} rows for {n} steps")
     launch_lines = [l for l in run["stdout"].splitlines() if l.startswith("flash_attention.launches ")]
     launches = int(launch_lines[-1].split()[1]) if launch_lines else None
-    check(launches == n_layers * STEPS, f"run {name}: rank reports {launches} flash launches, "
-                                        f"not {n_layers} x {STEPS}")
+    check(launches == n_layers * n, f"run {name}: rank reports {launches} flash launches, "
+                                    f"not {n_layers} x {n}")
     kind = summary["primary_diagnosis"]["kind"]
     log("run", f"{name}: verdict {kind} ({summary['primary_diagnosis']['severity']}): "
                f"{summary['primary_diagnosis'].get('summary')}")
@@ -651,6 +750,52 @@ def check_run(name: str, run: dict, n_layers: int, verdict) -> dict:
         "envelopes_ingested": ingest["envelopes_ingested"],
         "finalize_s": manifest.get("finalize_sec"),
         "wall_s": run["wall_s"],
+        "telemetry": check_telemetry(name, run),
+    }
+
+
+def check_telemetry(name: str, run: dict) -> dict:
+    """The system and process gates on one call: both sections OK; every
+    host row with ``cpu_pct``; every GPU row with NVML utilization,
+    temperature and power; the manifest's GPU name and power limit those
+    of ``nvidia-smi``; RSS above 0; the process rows' GPU peak at least
+    the largest step-memory peak.  Returns what NVML and psutil read, the
+    recent means as the system rules read them."""
+    from traceml_tpu_torch.diagnostics.system.rules import _recent_mean
+
+    sections, tables = run["summary"]["sections"], run["tables"]
+    for key in ("system", "process"):
+        check(sections[key]["status"] == "OK", f"run {name}: {key} section {sections[key]['status']}")
+    host, gpu = tables["system_samples"], tables["system_device_samples"]
+    proc, proc_gpu = tables["process_samples"], tables["process_device_samples"]
+    check(bool(host) and all(r["cpu_pct"] is not None for r in host), f"run {name}: host rows without cpu_pct")
+    nvml = ("utilization_pct", "temperature_c", "power_w")
+    check(bool(gpu) and all(r[k] is not None for r in gpu for k in nvml),
+          f"run {name}: GPU rows without NVML counters ({len(gpu)} rows)")
+    smi_name, smi_limit = (v.strip() for v in nvidia_smi().split(","))
+    devices = run["system_manifest"].get("devices") or [{}]
+    check(devices[0].get("nvml_name") == smi_name and
+          abs(devices[0].get("power_limit_w", -1.0) - float(smi_limit.split()[0])) < 0.01,
+          f"run {name}: manifest GPU {devices[0]} against nvidia-smi {smi_name}, {smi_limit}")
+    check(bool(proc) and all(r["rss_bytes"] > 0 for r in proc), f"run {name}: process RSS not positive")
+    step_peak = max((r["step_peak_bytes"] for r in tables["step_memory_samples"]), default=0)
+    proc_peak = max(r["memory_peak_bytes"] for r in proc_gpu) if proc_gpu else 0
+    check(proc_peak >= step_peak, f"run {name}: process GPU peak {proc_peak} below step peak {step_peak}")
+    util = [r["utilization_pct"] for r in gpu]
+    return {
+        "system_verdict": sections["system"]["diagnosis"]["kind"],
+        "process_verdict": sections["process"]["diagnosis"]["kind"],
+        "gpu_rows": len(gpu), "host_rows": len(host), "process_rows": len(proc),
+        "utilization_pct_recent_mean": _recent_mean(gpu, "utilization_pct"),
+        "utilization_pct_mean_all_rows": statistics.fmean(util),
+        "utilization_pct_series": util,
+        "temperature_c_max": max(r["temperature_c"] for r in gpu),
+        "power_w_recent_mean": _recent_mean(gpu, "power_w"),
+        "host_cpu_pct_recent_mean": _recent_mean(host, "cpu_pct"),
+        "process_cpu_pct_recent_mean": _recent_mean(proc, "cpu_pct"),
+        "rss_bytes_max": max(r["rss_bytes"] for r in proc),
+        "process_gpu_peak_bytes": proc_peak, "step_memory_peak_bytes": step_peak,
+        "manifest_gpu": devices[0],
     }
 
 
@@ -659,9 +804,10 @@ def run_phase(main: dict) -> None:
     sender tick and with the main path's input delay at the default tick,
     held to the gates of ``check_run``."""
     RUN_DIR.mkdir(parents=True, exist_ok=True)
-    for name, delay_ms, interval_s, verdict in (("healthy", 0.0, 0.1, "COMPUTE_BOUND"),
-                                                ("input_delay", main["delay_ms"], 1.0, "INPUT_BOUND")):
-        got = check_run(name, launch_run(name, delay_ms, interval_s), main["n_layers"], verdict)
+    for name, delay_ms, interval_s, steps, verdict in (
+            ("healthy", 0.0, 0.1, RUN_FORWARD_STEPS, "COMPUTE_BOUND"),
+            ("input_delay", main["delay_ms"], 1.0, STEPS, "INPUT_BOUND")):
+        got = check_run(name, launch_run(name, delay_ms, interval_s, steps=steps), main["n_layers"], verdict)
         log("run", f"{name} (delay {delay_ms:.3f} ms, sender tick {interval_s} s) " + json.dumps(got))
         if name == "healthy":
             run_ms, ref_ms = got["step_device_ms"], main["step_ms"]
@@ -723,9 +869,20 @@ def train_run_phase(cfg, train: dict) -> None:
         log("run", f"{name} (delay {delay:.3f} ms, sender tick {interval_s} s; analytic {analytic:.6e} "
                    f"FLOPs/step; loss first {first} last {last}) " + json.dumps(got))
         if name == "train_healthy":
+            util = got["telemetry"]["utilization_pct_recent_mean"]
+            check(util >= UTIL_HEALTHY_MIN_PCT,
+                  f"run {name}: NVML utilization {util}% (last 30 samples) below {UTIL_HEALTHY_MIN_PCT}%")
             run_ms, ref_ms = got["step_device_ms"], train["step_spread"]
             log("run", "train step device ms under run vs in-process: " + ", ".join(
                 f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms))
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -734,10 +891,7 @@ def main() -> int:
         return 2
     from traceml_tpu_torch.ops import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     log("env", f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
                f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -766,6 +920,8 @@ def main() -> int:
     from traceml_tpu_torch.dev.workload import full_width_config
 
     cfg = full_width_config()
+    lm_head_phase(cfg)
+    torch.cuda.empty_cache()
     train = train_path_phase(cfg)
     kernel["launches"] = main_path["launches"] + train["launches"]
     kernel["launches_by_path"] = {"forward": main_path["launches"], "train": train["launches"]}

@@ -3,12 +3,15 @@
 Numpy-made rank rows (one scenario per case) go through
 ``traceml_tpu.diagnostics.step_time.api.diagnose_rank_rows`` and the port's
 counterpart.  Kinds, severities, ranks and evidence must be equal, and
-scores within 1e-9.
+scores within 1e-9; actions and summaries equal once the JAX texts are put
+through the advice table of ``test_torch_advice.py`` (the port names
+PyTorch/CUDA remedies).
 """
 
 import numpy as np
 import pytest
 
+from tests.test_torch_advice import ACTIONS, port_advice, port_summary
 from traceml_tpu.diagnostics.step_time.api import diagnose_rank_rows as jax_diagnose
 from traceml_tpu_torch.diagnostics.step_time.api import diagnose_rank_rows
 from traceml_tpu_torch.utils import timing as T
@@ -86,10 +89,11 @@ def test_diagnosis_equals_jax(scenario, mode):
     for a, b in zip(ours.issues, theirs.issues):
         assert (a.severity, a.status, a.phase, a.ranks, a.metric) == (
             b.severity, b.status, b.phase, b.ranks, b.metric)
-        assert a.summary == b.summary
+        assert a.summary == port_summary(b.summary)
+        assert a.action == ACTIONS.get(b.action, b.action)
         assert a.evidence == b.evidence
         assert a.score == pytest.approx(b.score, abs=1e-9)
         assert (a.confidence is None) == (b.confidence is None)
         if a.confidence is not None:
             assert a.confidence == pytest.approx(b.confidence, abs=1e-9)
-    assert ours.to_dict() == theirs.to_dict()
+    assert ours.to_dict() == port_advice(theirs.to_dict())

@@ -1,15 +1,21 @@
 """The port's final report against the JAX package's, on the same DB.
 
 Rows made from a numpy seed (two ranks, 80 steps on the device clock,
-step-memory every 5 steps) go through the port's SQLite writer; then the
-JAX ``generate_summary`` and the port's read that same database.  Once
-healthy (compute-dominated: COMPUTE_BOUND) and once INPUT_BOUND, with one
-rank at 95% of device memory so the memory rules fire too (pressure and
-imbalance).
-``primary_diagnosis`` and every section must be equal: strings, ints and
-kinds exactly, floats to a relative 1e-9 (the JAX report builds its
-window with the columnar engine, the port with the scalar reference,
-which may differ in the last digits).
+step-memory every 5 steps, system rows from rank 0 with the NVML columns
+filled, process rows from every rank) go through the port's SQLite
+writer; then the JAX ``generate_summary`` and the port's read that same
+database.  Once healthy (compute-dominated: COMPUTE_BOUND) and once
+INPUT_BOUND, with one rank at 95% of device memory so the memory rules
+fire too (pressure and imbalance); and once healthy with NVML utilization
+at 20%, where the system section's LOW_DEVICE_UTILIZATION warning (1.0)
+outranks COMPUTE_BOUND (info, 0.6).
+``primary_diagnosis`` and every section, the system and process sections
+and their cards included, must be equal: strings, ints and kinds exactly,
+floats to a relative 1e-9 (the JAX report builds its window with the
+columnar engine, the port with the scalar reference, which may differ in
+the last digits).  The JAX actions and summaries are first put through
+the advice table of ``test_torch_advice.py``: the port names PyTorch/CUDA
+remedies.
 
 Then the same with ``model_stats_samples`` rows (the MFU inputs) beside
 compute rows and beside train-shaped rows (forward, backward, optimizer):
@@ -28,7 +34,16 @@ import math
 
 import pytest
 
-from tests.test_torch_sqlite import memory_rows, model_stats_rows, step_rows, wire_payloads, write
+from tests.test_torch_advice import port_advice
+from tests.test_torch_sqlite import (
+    memory_rows,
+    model_stats_rows,
+    process_rows,
+    step_rows,
+    system_rows,
+    wire_payloads,
+    write,
+)
 from traceml_tpu.reporting.final import generate_summary as jax_generate_summary
 from traceml_tpu.runtime.settings import TraceMLSettings as JaxSettings
 from traceml_tpu_torch.aggregator.sqlite_writer import SQLiteWriter
@@ -36,6 +51,7 @@ from traceml_tpu_torch.reporting.final import generate_summary
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
 from traceml_tpu_torch.telemetry.envelope import normalize_telemetry_envelope
 
+GiB = 1 << 30
 LEFT_OUT = {"history", "regressions"}
 LEFT_OUT_META = {"window_build"}
 NOT_COMPARED_META = {"generated_at"}
@@ -58,14 +74,18 @@ def assert_same(ours, theirs, path="payload"):
         assert ours == theirs, (path, ours, theirs)
 
 
-def _reports(tmp_path, input_ms, compute_ms, used_frac, train=False, model_stats=None, ranks=2):
+def _reports(tmp_path, input_ms, compute_ms, used_frac, train=False, model_stats=None, ranks=2,
+             util_pct=92.0):
     """Both reports on one DB; rank r computes (1 + 0.02 r)× longer, rank
-    1 uses ``used_frac`` of device memory, the others half."""
+    1 uses ``used_frac`` of device memory, the others half; rank 0's
+    system rows read ``util_pct`` NVML utilization."""
     db = tmp_path / "telemetry.sqlite"
     payloads = wire_payloads(
         {r: step_rows(10 + r, 80, input_ms, compute_ms * (1 + 0.02 * r), train=train) for r in range(ranks)},
         {r: memory_rows(12 + r, 80, used_frac if r == 1 else 0.5) for r in range(ranks)},
         rank_model_stats=model_stats,
+        rank_system={0: system_rows(20, 45, util_pct=util_pct)},
+        rank_process={r: process_rows(22 + r, 45, rss=(6 + 2 * r) * GiB) for r in range(ranks)},
     )
     write(SQLiteWriter(db), normalize_telemetry_envelope, payloads)
     out = {}
@@ -82,19 +102,25 @@ def _reports(tmp_path, input_ms, compute_ms, used_frac, train=False, model_stats
 
 
 @pytest.mark.parametrize(
-    "input_ms, compute_ms, used_frac, kind, memory_kinds",
+    "input_ms, compute_ms, used_frac, util_pct, kind, memory_kinds, system_kinds",
     [
-        (0.5, 18.0, 0.5, "COMPUTE_BOUND", {"HEALTHY"}),
-        (60.0, 18.0, 0.95, "INPUT_BOUND", {"MEMORY_IMBALANCE", "HIGH_MEMORY_PRESSURE"}),
+        (0.5, 18.0, 0.5, 92.0, "COMPUTE_BOUND", {"HEALTHY"}, {"HEALTHY"}),
+        (60.0, 18.0, 0.95, 92.0, "INPUT_BOUND", {"MEMORY_IMBALANCE", "HIGH_MEMORY_PRESSURE"},
+         {"HEALTHY"}),
+        (0.5, 18.0, 0.5, 20.0, "LOW_DEVICE_UTILIZATION", {"HEALTHY"}, {"LOW_DEVICE_UTILIZATION"}),
     ],
-    ids=["healthy", "input_bound"],
+    ids=["healthy", "input_bound", "system_warning_outranks_compute_bound"],
 )
-def test_final_summary_matches_the_jax_report(tmp_path, input_ms, compute_ms, used_frac, kind, memory_kinds):
-    ours, theirs = _reports(tmp_path, input_ms, compute_ms, used_frac)
+def test_final_summary_matches_the_jax_report(tmp_path, input_ms, compute_ms, used_frac, util_pct, kind,
+                                              memory_kinds, system_kinds):
+    ours, theirs = _reports(tmp_path, input_ms, compute_ms, used_frac, util_pct=util_pct)
     assert ours["primary_diagnosis"]["kind"] == kind
     assert {i["kind"] for i in ours["sections"]["step_memory"]["issues"]} == memory_kinds
-    assert_same(ours["primary_diagnosis"], theirs["primary_diagnosis"], "primary_diagnosis")
-    assert_same(ours["sections"], theirs["sections"], "sections")
+    assert {i["kind"] for i in ours["sections"]["system"]["issues"]} == system_kinds
+    for key in ("system", "process"):
+        assert ours["sections"][key]["status"] == "OK" and ours["sections"][key]["card"]
+    assert_same(ours["primary_diagnosis"], port_advice(theirs["primary_diagnosis"]), "primary_diagnosis")
+    assert_same(ours["sections"], port_advice(theirs["sections"]), "sections")
     assert ours["sections"]["step_time"]["global"]["clock"] == "device"
     assert ours["sections"]["step_time"]["global"]["n_steps"] == 80
     assert ours["schema"] == theirs["schema"]
@@ -133,8 +159,8 @@ def test_efficiency_section_matches_the_jax_report(tmp_path, train, model_stats,
     same efficiency block, the same verdict and every section equal."""
     ours, theirs = _reports(tmp_path, 0.5, 18.0, 0.5, train=train, model_stats=model_stats, ranks=3)
     assert ours["primary_diagnosis"]["kind"] == kind
-    assert_same(ours["primary_diagnosis"], theirs["primary_diagnosis"], "primary_diagnosis")
-    assert_same(ours["sections"], theirs["sections"], "sections")
+    assert_same(ours["primary_diagnosis"], port_advice(theirs["primary_diagnosis"]), "primary_diagnosis")
+    assert_same(ours["sections"], port_advice(theirs["sections"]), "sections")
     eff = ours["sections"]["step_time"]["global"]["efficiency"]
     assert eff["flops_per_step"] > 0 and eff["achieved_tflops_median"] > 0
     if model_stats is NO_PEAK:
@@ -158,8 +184,8 @@ def test_low_mfu_on_a_patched_train_step_is_judged(tmp_path):
     assert theirs["primary_diagnosis"]["kind"] == "COMPUTE_BOUND"
     st_ours, st_theirs = ours["sections"]["step_time"], theirs["sections"]["step_time"]
     assert [i["kind"] for i in st_ours["issues"]] == ["LOW_MFU"] + [i["kind"] for i in st_theirs["issues"]]
-    assert_same(st_ours["issues"][1:], st_theirs["issues"], "issues")
+    assert_same(st_ours["issues"][1:], port_advice(st_theirs["issues"]), "issues")
     for key in set(st_theirs) - {"diagnosis", "issues"}:
         assert_same(st_ours[key], st_theirs[key], f"step_time.{key}")
     for key in set(theirs["sections"]) - {"step_time"}:
-        assert_same(ours["sections"][key], theirs["sections"][key], key)
+        assert_same(ours["sections"][key], port_advice(theirs["sections"][key]), key)

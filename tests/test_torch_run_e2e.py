@@ -6,7 +6,9 @@ aggregator and the ranks (one, then two), each the executor running
 DecoderLM with ``device="cpu"`` and a 30 ms host input delay; each rank
 ships its rows over TCP, the aggregator stores them in SQLite and writes
 the final summary, which must say INPUT_BOUND, as must the launcher's
-stdout.  ``--disable-traceml`` passes a script through untraced; any mode
+stdout.  Its ``system`` section holds the host rows of rank 0 alone (the
+node's primary rank) and its ``process`` section every rank's rows; on
+the CPU no GPU row is written.  ``--disable-traceml`` passes a script through untraced; any mode
 but ``summary`` is refused.  ``traceml_tpu_torch/dev/train_script.py``
 on the same model under ``run`` (one rank): its rows carry forward,
 backward and optimizer phases from the auto-patches, the summary has an
@@ -75,6 +77,12 @@ def test_run_summary_mode_input_bound(tmp_path, nprocs):
     finally:
         conn.close()
     assert rows == [(r, s) for r in range(nprocs) for s in range(1, STEPS + 1)]
+    system, process = payload["sections"]["system"], payload["sections"]["process"]
+    assert system["status"] == process["status"] == "OK"
+    assert list(system["global"]["nodes"]) == ["0"] and system["global"]["devices"] == {}
+    assert system["global"]["nodes"]["0"]["cpu_pct_mean"] is not None
+    assert sorted(process["global"]["per_rank"]) == [str(r) for r in range(nprocs)]
+    assert all(v["rss_bytes"] > 0 for v in process["global"]["per_rank"].values())
     assert (session / "final_summary.txt").exists()
     assert "INPUT_BOUND" in proc.stdout
     assert "flash_attention.launches 0" in proc.stdout  # S=64 < the kernel's threshold

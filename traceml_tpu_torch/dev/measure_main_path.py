@@ -25,6 +25,15 @@
 5. The overhead governor: three traced forward loops and three traced
    train loops, reading the governor after each step (the steps whose
    device markers it skipped, its stride and probe-cost EMA).
+6. The samplers' cost on the rank: a traced forward loop (300 steps) and
+   a traced train loop (60 steps) with the runtime ticking every 0.1 s,
+   the wall time of each sampler's ``sample()`` per tick (system: psutil
+   and NVML; process: psutil and the allocator; step time; step memory),
+   which includes the tick thread's waits for the GIL while the training
+   thread holds it; then the system and process samplers alone, called
+   from the main thread with nothing else running, and whether the
+   host's ``/proc/stat`` advances while the main thread spins (psutil's
+   host CPU % reads it).
 
 Each untraced run first removes the auto-patches, each traced run
 installs them, so the untraced runs pay nothing of the tracer.
@@ -185,6 +194,59 @@ def _governor_trace(make_step, batches, steps: int) -> dict:
             "batch_min_over_100us": sum(1 for x in minima if x > 100e-6)}
 
 
+def _sampler_cost(make_step, batches, steps: int) -> dict:
+    """One traced loop under a runtime ticking every 0.1 s, timing each
+    sampler's ``sample()`` per tick (``dev/workload.time_samplers``)."""
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.dev.workload import sampler_cost_summary, time_samplers
+    from traceml_tpu_torch.runtime.settings import TraceMLSettings
+
+    tm.init(mode="auto")
+    rt = tm.start_runtime(TraceMLSettings(sampler_interval_sec=0.1))
+    costs = time_samplers(rt.samplers)
+    step = make_step()
+    source = (batches[i % len(batches)] for i in range(steps))
+    t0 = time.perf_counter()
+    for tokens in tm.wrap_dataloader(source, to_device=True):
+        with tm.trace_step():
+            step(tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    tm.stop_runtime()
+    return {"steps": steps, "wall_ms_per_step": wall_ms, **sampler_cost_summary(costs),
+            "alone_us_per_call": _samplers_alone()}
+
+
+def _samplers_alone(calls: int = 200) -> dict:
+    """The system and process samplers' ``sample()`` from the main thread
+    with no training running: their own cost, without GIL waits."""
+    from traceml_tpu_torch.samplers.process_sampler import ProcessSampler
+    from traceml_tpu_torch.samplers.system_sampler import SystemSampler
+
+    out = {}
+    for sampler in (SystemSampler(), ProcessSampler()):
+        sampler.sample()  # NVML handles, the allocator backend
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            sampler.sample()
+        out[sampler.name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def _proc_stat_advances(spin_s: float = 0.5) -> dict:
+    """The host's CPU times before and after ``spin_s`` of a busy main
+    thread, and psutil's host CPU % over that spin."""
+    import psutil
+
+    before = psutil.cpu_times()
+    psutil.cpu_percent(interval=None)
+    end = time.perf_counter() + spin_s
+    while time.perf_counter() < end:
+        pass
+    return {"cpu_percent": psutil.cpu_percent(interval=None), "cpu_times_before": before._asdict(),
+            "cpu_times_after": psutil.cpu_times()._asdict()}
+
+
 def _overhead(runs) -> dict:
     untraced = [ms for name, ms in runs if name == "untraced"]
     traced = [ms for name, ms in runs if name == "traced"]
@@ -306,6 +368,8 @@ def main() -> int:
     for _ in range(3):
         print("[governor] forward " + json.dumps(_governor_trace(lambda: tm.wrap_step_fn(forward), batches, STEPS)),
               flush=True)
+    print("[sampler_cost] forward " + json.dumps(
+        _sampler_cost(lambda: tm.wrap_step_fn(forward), batches, 5 * STEPS)), flush=True)
 
     del model
     torch.cuda.empty_cache()
@@ -330,6 +394,8 @@ def main() -> int:
     print("[train_profile] " + json.dumps(breakdown), flush=True)
     for _ in range(3):
         print("[governor] train " + json.dumps(_governor_trace(lambda: step, train_batches, STEPS)), flush=True)
+    print("[sampler_cost] train " + json.dumps(_sampler_cost(lambda: step, train_batches, STEPS)), flush=True)
+    print("[proc_stat] " + json.dumps(_proc_stat_advances()), flush=True)
     return 0
 
 

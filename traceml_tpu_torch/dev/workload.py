@@ -1,4 +1,5 @@
-"""The main-path workload of the on-card runs, and their kernel timer.
+"""The main-path workload of the on-card runs, their kernel timer and
+their sampler timer.
 
 The full-width DecoderLM of the repo's own TPU lane (``bench.py:206-210``:
 vocab 16384, hidden 1024, 12 layers, 16 heads over 8 kv heads, bf16
@@ -11,6 +12,9 @@ train step, whose model sees ``tokens[:, :-1]`` at S=1024.
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Tuple
+
+import statistics
+import time
 
 import numpy as np
 import torch
@@ -109,3 +113,34 @@ def cuda_ms(fn: Callable[[], Any], iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_samplers(samplers) -> Dict[str, List[float]]:
+    """Wrap each sampler's ``sample`` so that every tick's wall time (s)
+    lands in the returned dict under the sampler's name."""
+    costs: Dict[str, List[float]] = {s.name: [] for s in samplers}
+
+    def timed(inner, out):
+        def sample() -> None:
+            t0 = time.perf_counter()
+            inner()
+            out.append(time.perf_counter() - t0)
+        return sample
+
+    for s in samplers:
+        s.sample = timed(s.sample, costs[s.name])
+    return costs
+
+
+def sampler_cost_summary(costs: Dict[str, List[float]]) -> Dict[str, Any]:
+    """Per sampler: ticks and the median, p90 and max µs of a tick; and the
+    median µs of a whole tick of all samplers."""
+    out: Dict[str, Any] = {}
+    for name, vals in costs.items():
+        if vals:
+            v = sorted(vals)
+            out[name] = {"ticks": len(v), "median_us": statistics.median(v) * 1e6,
+                         "p90_us": v[min(len(v) - 1, int(0.9 * len(v)))] * 1e6, "max_us": v[-1] * 1e6}
+    ticks = [sum(t) for t in zip(*(v for v in costs.values() if v))]
+    out["all_samplers_median_us_per_tick"] = statistics.median(ticks) * 1e6 if ticks else None
+    return out

@@ -3,7 +3,7 @@
 Counterpart of ``traceml_tpu/diagnostics/step_memory/rules.py`` without
 the columnar context build and the vectorized imbalance gate (the JAX
 package's scalar branch is its golden reference).  Rule texts are kept
-verbatim, as in the step-time pack.
+verbatim, except the actions, which name PyTorch/CUDA remedies.
 
 Context shape: per-rank per-device :class:`MemorySeries` (sorted step
 series of ``{step, current_bytes, step_peak_bytes, limit_bytes}``) built
@@ -88,10 +88,10 @@ class HighPressureRule:
                         f" / {fmt_bytes(last_lim)})."
                     ),
                     action=(
-                        "Reduce per-chip footprint: smaller microbatch, "
-                        "jax.checkpoint/remat, optimizer-state sharding "
-                        "(ZeRO-style), bf16 activations, or shard the model "
-                        "further."
+                        "Reduce per-GPU footprint: smaller microbatch, "
+                        "activation checkpointing (torch.utils.checkpoint), "
+                        "optimizer-state sharding (ZeRO-style, FSDP), bf16 "
+                        "activations, or shard the model further."
                     ),
                     metric="memory_pressure",
                     score=pressure,
@@ -235,9 +235,13 @@ def _collect_creep_evidence(ctx: MemoryContext) -> List[_CreepEvidence]:
 
 
 _CREEP_ACTION = (
-    "Hunt Python-side references to device arrays (growing metric lists, "
-    "retained batches), check for per-step recompiles creating executables, "
-    "and confirm donated buffers are actually donated."
+    "Hunt Python-side references to CUDA tensors (growing metric lists, "
+    "losses kept without .item() or .detach(), retained batches), check for "
+    "autograd graphs kept alive across steps, and read "
+    "torch.cuda.memory_stats(): a reserve that grows while allocated bytes "
+    "stay flat is caching-allocator fragmentation "
+    "(PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True; "
+    "torch.cuda.empty_cache() returns cached blocks)."
 )
 
 

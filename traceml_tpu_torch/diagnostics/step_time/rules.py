@@ -32,6 +32,10 @@ Rules:
   healthy (share ≥ 0.85 / 0.92).
 * ``CompileBoundRule``  — TPU-new: recompilation storms surface as a
   first-class verdict instead of a straggler artifact.
+
+Kinds, severities, metrics, scores and evidence are the JAX rules'; the
+actions (and the COMPILE_BOUND summary) name PyTorch/CUDA remedies, where
+the JAX texts name JAX and TPU ones.
 """
 
 from __future__ import annotations
@@ -147,9 +151,11 @@ class InputBoundRule:
                     f"{ctx.window.metric(STEP_KEY).median_ms:.1f} ms)."
                 ),
                 action=(
-                    "Speed up the input pipeline: more dataloader workers / "
-                    "host prefetch, cache or pre-tokenize the dataset, overlap "
-                    "host input with device compute (double-buffer device_put)."
+                    "Speed up the input pipeline: more DataLoader workers "
+                    "(num_workers) with pin_memory=True, cache or pre-tokenize "
+                    "the dataset, overlap host input with device compute "
+                    "(non_blocking=True copies from pinned memory, prefetch "
+                    "the next batch)."
                 ),
                 metric="input_share",
                 phase="input",
@@ -340,9 +346,10 @@ class ResidualHeavyRule:
                 ),
                 action=(
                     "Look for untimed host work between phases: logging, "
-                    "metric syncs (device→host reads), checkpoint writes, "
-                    "Python overhead; on TPU also check for hidden "
-                    "host-device round trips forcing early sync."
+                    "metric syncs (device→host reads such as .item() or "
+                    ".cpu()), checkpoint writes, Python overhead; also check "
+                    "for hidden host-device round trips forcing early sync "
+                    "(torch.cuda.synchronize, printing a CUDA tensor)."
                 ),
                 metric="residual_share",
                 phase=RESIDUAL_KEY,
@@ -389,8 +396,10 @@ class ComputeBoundRule:
                     "a well-fed training job)."
                 ),
                 action=(
-                    "To go faster: larger per-chip batch, bf16 everywhere, "
-                    "remat tuning, or scale out over more chips."
+                    "To go faster: larger per-GPU batch, bf16 autocast and "
+                    "TF32 for f32 matmuls, activation checkpointing "
+                    "(torch.utils.checkpoint) tuned to fit that batch, or "
+                    "scale out over more GPUs."
                 ),
                 metric="compute_share",
                 phase="compute",
@@ -402,7 +411,7 @@ class ComputeBoundRule:
 
 
 class CompileBoundRule:
-    """TPU-new: recompilation eating wall-clock."""
+    """Recompilation eating wall-clock."""
 
     def evaluate(self, ctx: _Ctx) -> List[DiagnosticIssue]:
         w = ctx.window
@@ -449,14 +458,17 @@ class CompileBoundRule:
                 kind="COMPILE_BOUND",
                 severity=severity,
                 summary=(
-                    f"XLA re-compilation consumes {share * 100:.0f}% of mean "
+                    f"Re-compilation consumes {share * 100:.0f}% of mean "
                     f"step time across the window ({n_compile_steps} steps "
                     "recompiled after warmup)."
                 ),
                 action=(
                     "Eliminate recompiles: pad/bucket batch shapes to a fixed "
-                    "set, avoid Python-value-dependent jit branches, check "
-                    "for dtype or sharding churn between steps."
+                    "set, mark dynamic dimensions "
+                    "(torch._dynamo.mark_dynamic), remove graph breaks and "
+                    "Python-value-dependent branches under torch.compile "
+                    "(TORCH_LOGS=recompiles,graph_breaks names them), check "
+                    "for dtype or device churn between steps."
                 ),
                 metric="compile_share",
                 phase="compile",
@@ -573,11 +585,13 @@ class LowMfuRule:
                     "program wastes it."
                 ),
                 action=(
-                    "Feed the MXU: bf16 matmuls (jax.default_matmul_precision),"
-                    " larger per-chip batch/seq so matmul tiles fill the "
-                    "systolic array, check for fusion breaks and tiny ops "
-                    "with `traceml-tpu profile`, consider remat to enable "
-                    "bigger batches."
+                    "Feed the tensor cores: bf16 autocast (torch.autocast) "
+                    "and TF32 for f32 matmuls "
+                    "(torch.backends.cuda.matmul.fp32_precision = \"tf32\"), "
+                    "larger per-GPU batch/seq so GEMM tiles fill the SMs, "
+                    "find tiny kernels and launch gaps with torch.profiler, "
+                    "consider activation checkpointing "
+                    "(torch.utils.checkpoint) to enable bigger batches."
                 ),
                 metric="mfu",
                 phase="compute",

@@ -14,14 +14,20 @@ RMSNorm and an f32 ``lm_head``.  Numerics follow the flax module:
 * RoPE is the half-split rotation, computed in f32, cast back;
 * GQA repeats each kv head in place (``repeat_interleave``), as
   ``jnp.repeat(k, group, axis=2)`` does;
-* ``lm_head`` promotes the activations to f32: the logits are f32.
+* ``lm_head`` promotes the activations to f32: the logits are f32.  The
+  flax ``Dense(dtype=float32)`` sets no ``precision``, so XLA's DEFAULT
+  leaves it to the backend: TF32 on a Hopper GPU.  The port runs the
+  ``lm_head``'s three GEMMs (forward and both gradients) at TF32 and no
+  other matmul (``TF32Dense``); on the CPU TF32 does not exist and
+  nothing changes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,6 +110,73 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+@contextlib.contextmanager
+def tf32_matmul() -> Iterator[None]:
+    """CUDA f32 matmuls at TF32 inside the block; on exit every
+    precision flag reads what it read before, whichever API the caller
+    set them with.
+
+    The legacy ``allow_tf32`` flag and ``fp32_precision`` are one state
+    that torch checks for consistency, and a mix of the two APIs makes the
+    legacy getter raise.  So: already TF32 → nothing to do; a legacy
+    precision of "high" or "medium" → set only ``fp32_precision``; at
+    "highest" → the legacy setter, which sets both, and on exit
+    ``set_float32_matmul_precision("highest")`` plus the two per-backend
+    values it touches.  A state the legacy getter cannot read (the caller
+    mixed the APIs) is left alone."""
+    cuda_mm = torch.backends.cuda.matmul
+    before = cuda_mm.fp32_precision
+    try:
+        legacy = torch.get_float32_matmul_precision() if before != "tf32" else None
+    except RuntimeError:
+        legacy = None
+    if legacy is None:
+        yield
+        return
+    mkldnn_before = torch.backends.mkldnn.matmul.fp32_precision
+    if legacy == "highest":
+        cuda_mm.allow_tf32 = True
+    else:
+        cuda_mm.fp32_precision = "tf32"
+    try:
+        yield
+    finally:
+        if legacy == "highest":
+            torch.set_float32_matmul_precision("highest")
+            torch.backends.mkldnn.matmul.fp32_precision = mkldnn_before
+        cuda_mm.fp32_precision = before
+
+
+class _TF32Linear(torch.autograd.Function):
+    """``F.linear(x, w)`` whose forward GEMM and both gradient GEMMs run
+    under ``tf32_matmul``: autograd runs the backward later, maybe on its
+    own thread, after a context around the forward has closed."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        with tf32_matmul():
+            return F.linear(x, w)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with tf32_matmul():
+            if ctx.needs_input_grad[0]:
+                gx = grad.matmul(w)
+            if ctx.needs_input_grad[1]:
+                gw = grad.reshape(-1, grad.shape[-1]).t().mm(x.reshape(-1, x.shape[-1]))
+        return gx, gw
+
+
+class TF32Dense(Dense):
+    """``Dense`` whose GEMMs run at TF32 on a GPU: the ``lm_head``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _TF32Linear.apply(x.to(self.dtype), self.weight.to(self.dtype))
 
 
 class Embed(nn.Module):
@@ -189,7 +262,7 @@ class DecoderLM(nn.Module):
         self.embed = Embed(cfg.vocab_size, cfg.hidden, dtype, cfg.param_dtype, dev)
         self.layers = nn.ModuleList(Block(cfg, dtype, dev) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.hidden, dtype=dtype, device=dev)
-        self.lm_head = Dense(cfg.hidden, cfg.vocab_size, torch.float32, cfg.param_dtype, dev)
+        self.lm_head = TF32Dense(cfg.hidden, cfg.vocab_size, torch.float32, cfg.param_dtype, dev)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         B, S = tokens.shape

@@ -1,7 +1,8 @@
 """Final summary generator.
 
-Counterpart of ``traceml_tpu/reporting/final.py`` for the step-time and
-step-memory domains.  Reads the SQLite projections through
+Counterpart of ``traceml_tpu/reporting/final.py`` for the system,
+process, step-time and step-memory domains.  Reads the SQLite projections
+through
 ``reporting/loaders.py``, builds the step-time window with the scalar
 ``utils/step_time_window.py`` (the JAX package's golden reference arm),
 runs each domain's diagnosis, promotes a run-level primary diagnosis,
@@ -9,11 +10,11 @@ and writes ``final_summary.json`` and ``final_summary.txt`` atomically.
 A failed section degrades to a NO_DATA payload: the report never fails
 because one domain did.
 
-The ``system``, ``process``, ``collectives`` and ``liveness`` sections
-are NO_DATA stubs (their samplers come later), and the payload leaves
-out what the JAX report adds only when it has something for it: the
-cross-run ``regressions``, the stitched ``history`` and
-``meta.window_build``; no HTML artifact is written yet.
+The ``collectives`` and ``liveness`` sections are NO_DATA stubs (their
+samplers come later), and the payload leaves out what the JAX report adds
+only when it has something for it: the cross-run ``regressions``, the
+stitched ``history`` and ``meta.window_build``; no HTML artifact is
+written yet.
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ from typing import Any, Callable, Dict, Optional
 from traceml_tpu_torch.analytics.efficiency import build_efficiency
 from traceml_tpu_torch.analytics.trends.core import compute_window_trend
 from traceml_tpu_torch.diagnostics.common import DiagnosticResult
+from traceml_tpu_torch.diagnostics.process.api import diagnose as diagnose_process
 from traceml_tpu_torch.diagnostics.step_memory.api import diagnose_rank_rows as diagnose_memory
 from traceml_tpu_torch.diagnostics.step_time.api import diagnose_window
+from traceml_tpu_torch.diagnostics.system.api import diagnose as diagnose_system
 from traceml_tpu_torch.reporting import loaders
 from traceml_tpu_torch.reporting.primary_diagnosis import build_primary_diagnosis
 from traceml_tpu_torch.reporting.rollup import build_rollup
@@ -47,6 +50,7 @@ SCHEMA_VERSION = "traceml-tpu/1"
 REPORT_WINDOW_STEPS = 200
 WINDOW_READ_STEPS = 600
 MEMORY_READ_ROWS = 20000
+SAMPLE_READ_ROWS = 2000  # newest system and process rows read
 
 
 def _no_data_section(key: str, error: Optional[str] = None) -> Dict[str, Any]:
@@ -235,6 +239,119 @@ def _build_step_memory_section(rank_rows, identities=None):
     return section, result
 
 
+def _build_system_section(host, devices):
+    if not host and not devices:
+        return _no_data_section("system"), None
+    result = diagnose_system(host, devices)
+    nodes = {}
+    for node, rows in host.items():
+        if not rows:
+            continue
+        last = rows[-1]
+        cpu_vals = [r["cpu_pct"] for r in rows if r.get("cpu_pct") is not None]
+        used, total = last.get("memory_used_bytes"), last.get("memory_total_bytes")
+        nodes[str(node)] = {
+            "hostname": last.get("hostname"),
+            "cpu_pct_mean": statistics.mean(cpu_vals) if cpu_vals else None,
+            "cpu_pct_max": max(cpu_vals) if cpu_vals else None,
+            "memory_used_bytes": used,
+            "memory_total_bytes": total,
+            "memory_pct": (used / total * 100.0) if used and total else None,
+            "load_1m": last.get("load_1m"),
+            "n_samples": len(rows),
+        }
+    chips = {}
+    for (node, dev), rows in devices.items():
+        if not rows:
+            continue
+        last = rows[-1]
+        util_vals = [
+            r["utilization_pct"] for r in rows if r.get("utilization_pct") is not None
+        ]
+        chips[f"{node}:{dev}"] = {
+            "device_kind": last.get("device_kind"),
+            "memory_used_bytes": last.get("memory_used_bytes"),
+            "memory_peak_bytes": last.get("memory_peak_bytes"),
+            "memory_total_bytes": last.get("memory_total_bytes"),
+            "utilization_pct_mean": statistics.mean(util_vals) if util_vals else None,
+            "temperature_c": last.get("temperature_c"),
+            "power_w": last.get("power_w"),
+        }
+    global_block: Dict[str, Any] = {"nodes": nodes, "devices": chips}
+    if len(nodes) > 1:
+        cpu_means = {
+            n: v["cpu_pct_mean"]
+            for n, v in nodes.items()
+            if v["cpu_pct_mean"] is not None
+        }
+        if cpu_means:
+            worst = max(cpu_means, key=lambda n: cpu_means[n])
+            global_block["cluster"] = {
+                "n_nodes": len(nodes),
+                "cpu_pct_min": min(cpu_means.values()),
+                "cpu_pct_median": statistics.median(cpu_means.values()),
+                "cpu_pct_max": cpu_means[worst],
+                "busiest_node": nodes[worst].get("hostname"),
+            }
+    section = {
+        "status": "OK",
+        "diagnosis": result.diagnosis.to_dict(),
+        "issues": [i.to_dict() for i in result.issues],
+        "global": global_block,
+        "units": {"memory": "bytes", "cpu": "%"},
+    }
+    return section, result
+
+
+def _build_process_section(procs, devices, identities=None):
+    if not procs and not devices:
+        return _no_data_section("process"), None
+    result = diagnose_process(procs, devices)
+    identities = identities or {}
+    per_rank = {}
+    for rank, rows in procs.items():
+        if not rows:
+            continue
+        last = rows[-1]
+        cpu_vals = [r["cpu_pct"] for r in rows if r.get("cpu_pct") is not None]
+        rss_vals = [r["rss_bytes"] for r in rows if r.get("rss_bytes") is not None]
+        per_rank[str(rank)] = {
+            "identity": identities.get(rank),
+            "pid": last.get("pid"),
+            "hostname": last.get("hostname"),
+            "rss_bytes": last.get("rss_bytes"),
+            "rss_peak_bytes": max(rss_vals) if rss_vals else None,
+            "cpu_pct": last.get("cpu_pct"),
+            "cpu_pct_mean": statistics.mean(cpu_vals) if cpu_vals else None,
+            "cpu_pct_max": max(cpu_vals) if cpu_vals else None,
+            "num_threads": last.get("num_threads"),
+            "n_samples": len(rows),
+        }
+    with_cpu = {
+        r: v["cpu_pct_mean"] for r, v in per_rank.items() if v["cpu_pct_mean"]
+    }
+    rollup = {
+        "total_rss_bytes": sum(v["rss_bytes"] or 0 for v in per_rank.values()),
+        "busiest_rank": max(with_cpu, key=lambda r: with_cpu[r])
+        if with_cpu
+        else None,
+        **build_rollup({
+            "rss_bytes": {r: v["rss_bytes"] for r, v in per_rank.items()},
+            "cpu_pct_mean": {
+                r: v["cpu_pct_mean"] for r, v in per_rank.items()
+            },
+        }),
+    }
+    section = {
+        "status": "OK",
+        "diagnosis": result.diagnosis.to_dict(),
+        "issues": [i.to_dict() for i in result.issues],
+        "global": {"per_rank": per_rank, "rollup": rollup},
+        "units": {"memory": "bytes", "cpu": "%"},
+    }
+    return section, result
+
+
 # -- text rendering ------------------------------------------------------
 
 
@@ -342,15 +459,70 @@ def _step_memory_card(sec: Dict[str, Any]) -> str:
     return "\n".join(out)
 
 
+def _system_card(sec: Dict[str, Any]) -> str:
+    g = sec.get("global") or {}
+    out = []
+    for node, info in sorted((g.get("nodes") or {}).items(), key=lambda kv: int(kv[0])):
+        cpu = info.get("cpu_pct_mean")
+        out.append(
+            f"node {node} ({info.get('hostname')}): "
+            f"cpu {cpu:.0f}%" if cpu is not None else
+            f"node {node} ({info.get('hostname')}): cpu n/a"
+        )
+        if info.get("memory_used_bytes") and info.get("memory_total_bytes"):
+            out[-1] += (
+                f"  ram {fmt_bytes(info['memory_used_bytes'])}"
+                f"/{fmt_bytes(info['memory_total_bytes'])}"
+            )
+    def _dev_key(kv):  # "node:dev" → numeric order (10 after 2)
+        try:
+            node, dev = kv[0].split(":", 1)
+            return (int(node), int(dev))
+        except (ValueError, AttributeError):
+            return (1 << 30, 0)
+
+    for key, dev in sorted((g.get("devices") or {}).items(), key=_dev_key):
+        line = f"chip {key} ({dev.get('device_kind')})"
+        if dev.get("memory_used_bytes") is not None:
+            line += f": hbm {fmt_bytes(dev['memory_used_bytes'])}"
+            if dev.get("memory_total_bytes"):
+                line += f"/{fmt_bytes(dev['memory_total_bytes'])}"
+        if dev.get("utilization_pct_mean") is not None:
+            line += f"  duty {dev['utilization_pct_mean']:.0f}%"
+        out.append(line)
+    return "\n".join(out)
+
+
+def _process_card(sec: Dict[str, Any]) -> str:
+    per_rank = (sec.get("global") or {}).get("per_rank") or {}
+    if not per_rank:
+        return ""
+    out = []
+    for rank, info in sorted(per_rank.items(), key=lambda kv: int(kv[0])):
+        cpu = info.get("cpu_pct_mean")
+        out.append(
+            f"rank {rank} (pid {info.get('pid')}): "
+            f"cpu {cpu:.0f}%  " if cpu is not None
+            else f"rank {rank} (pid {info.get('pid')}): cpu n/a  "
+        )
+        out[-1] += f"rss {fmt_bytes(info.get('rss_bytes'))}"
+        if info.get("num_threads") is not None:
+            out[-1] += f"  threads {info['num_threads']}"
+        out[-1] += _ident_suffix(info)
+    rollup = (sec.get("global") or {}).get("rollup") or {}
+    if rollup.get("total_rss_bytes"):
+        out.append(f"total rss: {fmt_bytes(rollup['total_rss_bytes'])}")
+    return "\n".join(out)
+
+
 # every section with a text card in the JAX report (liveness has none);
-# the system, process and collectives sections are NO_DATA in this
-# slice, so their card is ""
+# the collectives section is NO_DATA in the port so far, so its card is ""
 _CARD_BUILDERS = {
     "step_time": _step_time_card,
     "step_memory": _step_memory_card,
     "collectives": None,
-    "system": None,
-    "process": None,
+    "system": _system_card,
+    "process": _process_card,
 }
 
 
@@ -451,7 +623,24 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
         out.extend(f"  {l}" for l in mem_card.splitlines())
         out.append("")
 
-    for key in ("step_memory", "step_time"):
+    cluster = ((sections.get("system") or {}).get("global") or {}).get("cluster")
+    if cluster:
+        out.append(
+            f"Cluster: {cluster['n_nodes']} nodes · host CPU "
+            f"{cluster['cpu_pct_min']:.0f}/{cluster['cpu_pct_median']:.0f}/"
+            f"{cluster['cpu_pct_max']:.0f}% (min/median/max, busiest "
+            f"{cluster.get('busiest_node')})"
+        )
+        out.append("")
+
+    for key, title in (("system", "System"), ("process", "Processes")):
+        card = (sections.get(key) or {}).get("card")
+        if card:
+            out.append(f"{title}:")
+            out.extend(f"  {l}" for l in card.splitlines())
+            out.append("")
+
+    for key in ("system", "process", "step_memory", "step_time"):
         diag = (sections.get(key) or {}).get("diagnosis") or {}
         if diag.get("status") == "issue":
             out.append(f"[{key}] {diag.get('kind')}: {diag.get('summary')}")
@@ -516,7 +705,19 @@ def generate_summary(
             section, results["step_memory"] = _build_step_memory_section(rows, identities)
             return section
 
+        def run_system():
+            host, devices = loaders.load_system_rows(db_path, max_rows=SAMPLE_READ_ROWS, conn=conn)
+            section, results["system"] = _build_system_section(host, devices)
+            return section
+
+        def run_process():
+            procs, devices = loaders.load_process_rows(db_path, max_rows=SAMPLE_READ_ROWS, conn=conn)
+            section, results["process"] = _build_process_section(procs, devices, identities)
+            return section
+
         built = {
+            "system": _safe_section("system", run_system),
+            "process": _safe_section("process", run_process),
             "step_time": _safe_section("step_time", run_step_time),
             "step_memory": _safe_section("step_memory", run_step_memory),
         }
@@ -527,16 +728,15 @@ def generate_summary(
     finally:
         conn.close()
     sections = {
-        "system": _no_data_section("system"),
-        "process": _no_data_section("process"),
-        "step_time": built["step_time"],
-        "step_memory": built["step_memory"],
+        **built,
         "collectives": _no_data_section("collectives"),
         "liveness": _no_data_section("liveness"),
     }
     primary = build_primary_diagnosis(
         results.get("step_time"),
         results.get("step_memory"),
+        results.get("system"),
+        results.get("process"),
         step_time_error=sections["step_time"].get("error"),
     )
     meta: Dict[str, Any] = {

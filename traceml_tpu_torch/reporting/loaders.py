@@ -1,9 +1,10 @@
 """SQLite read paths of the final report.
 
 Counterpart of ``traceml_tpu/reporting/loaders.py``, trimmed to the
-tables this slice writes.  One-shot readers, one query per table, each
-bounded per rank with a ``ROW_NUMBER() OVER (PARTITION BY global_rank
-...)`` window.  Every loader accepts an optional ``conn`` to reuse a
+tables the port writes.  One-shot readers, one query per table; the
+step-time and step-memory reads are bounded per rank with a
+``ROW_NUMBER() OVER (PARTITION BY global_rank ...)`` window, the system
+and process reads by their newest rows.  Every loader accepts an optional ``conn`` to reuse a
 read connection.
 """
 
@@ -13,7 +14,7 @@ import json
 import sqlite3
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 
 def _connect_ro(db_path: Path) -> sqlite3.Connection:
@@ -156,13 +157,70 @@ def load_step_memory_rows(
     return out
 
 
-def load_topology(db_path: Path, conn: Optional[sqlite3.Connection] = None) -> Dict[str, Any]:
-    """Run topology from the step-time identity columns."""
+def load_system_rows(
+    db_path: Path,
+    max_rows: int = 2000,
+    conn: Optional[sqlite3.Connection] = None,
+) -> Tuple[Dict[int, List[Dict[str, Any]]], Dict[tuple, List[Dict[str, Any]]]]:
+    """The newest ``max_rows`` system rows: node_rank → host rows and
+    (node_rank, device_id) → GPU rows, oldest first."""
+    host: Dict[int, List[Dict[str, Any]]] = {}
+    devices: Dict[tuple, List[Dict[str, Any]]] = {}
     with _reading(db_path, conn) as c:
-        if not _table_exists(c, "step_time_samples"):
+        if _table_exists(c, "system_samples"):
+            for r in c.execute(
+                "SELECT * FROM (SELECT * FROM system_samples ORDER BY id DESC"
+                f" LIMIT {int(max_rows)}) ORDER BY id ASC"
+            ):
+                host.setdefault(int(r["node_rank"]), []).append(dict(r))
+        if _table_exists(c, "system_device_samples"):
+            for r in c.execute(
+                "SELECT * FROM (SELECT * FROM system_device_samples ORDER BY id"
+                f" DESC LIMIT {int(max_rows)}) ORDER BY id ASC"
+            ):
+                devices.setdefault(
+                    (int(r["node_rank"]), int(r["device_id"] or 0)), []
+                ).append(dict(r))
+    return host, devices
+
+
+def load_process_rows(
+    db_path: Path,
+    max_rows: int = 2000,
+    conn: Optional[sqlite3.Connection] = None,
+) -> Tuple[Dict[int, List[Dict[str, Any]]], Dict[tuple, List[Dict[str, Any]]]]:
+    """The newest ``max_rows`` process rows: global_rank → process rows
+    and (global_rank, device_id) → GPU rows, oldest first."""
+    procs: Dict[int, List[Dict[str, Any]]] = {}
+    devices: Dict[tuple, List[Dict[str, Any]]] = {}
+    with _reading(db_path, conn) as c:
+        if _table_exists(c, "process_samples"):
+            for r in c.execute(
+                "SELECT * FROM (SELECT * FROM process_samples ORDER BY id DESC"
+                f" LIMIT {int(max_rows)}) ORDER BY id ASC"
+            ):
+                procs.setdefault(int(r["global_rank"]), []).append(dict(r))
+        if _table_exists(c, "process_device_samples"):
+            for r in c.execute(
+                "SELECT * FROM (SELECT * FROM process_device_samples ORDER BY"
+                f" id DESC LIMIT {int(max_rows)}) ORDER BY id ASC"
+            ):
+                devices.setdefault(
+                    (int(r["global_rank"]), int(r["device_id"] or 0)), []
+                ).append(dict(r))
+    return procs, devices
+
+
+def load_topology(db_path: Path, conn: Optional[sqlite3.Connection] = None) -> Dict[str, Any]:
+    """Run topology from the identity columns of the first table present
+    of step_time, process and system samples."""
+    with _reading(db_path, conn) as c:
+        tables = [t for t in ("step_time_samples", "process_samples", "system_samples")
+                  if _table_exists(c, t)]
+        if not tables:
             return {"mode": "unknown", "world_size": 0, "nodes": 0}
         rows = c.execute(
-            "SELECT DISTINCT global_rank, node_rank, hostname, world_size FROM step_time_samples"
+            f"SELECT DISTINCT global_rank, node_rank, hostname, world_size FROM {tables[0]}"
         ).fetchall()
     ranks = sorted({int(r["global_rank"]) for r in rows})
     nodes = sorted({int(r["node_rank"]) for r in rows})
@@ -187,7 +245,7 @@ def load_rank_identities(
     identity: Dict[int, Dict[str, Any]] = {}
     newest: Dict[int, float] = {}
     with _reading(db_path, conn) as c:
-        for table in ("step_time_samples", "step_memory_samples"):
+        for table in ("step_time_samples", "process_samples", "step_memory_samples"):
             if not _table_exists(c, table):
                 continue
             # SQLite bare-column semantics: with MAX(id) the other

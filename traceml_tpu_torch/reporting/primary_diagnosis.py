@@ -1,9 +1,11 @@
 """Run-level primary diagnosis.
 
-Counterpart of ``traceml_tpu/reporting/primary_diagnosis.py`` for the two
-domains this slice diagnoses.  Promotes the step-time finding to run
-level; a non-healthy memory finding of higher severity can outrank an
-info-grade step-time verdict; otherwise it falls back to
+Counterpart of ``traceml_tpu/reporting/primary_diagnosis.py`` for the
+four domains the port diagnoses.  Promotes the step-time finding to run
+level (a severity rank plus 0.6); a non-healthy step-memory, system or
+process finding scores its severity rank alone, so a warning there (1.0)
+outranks an info-grade step-time verdict such as COMPUTE_BOUND (0.6) but
+not a step-time warning (1.6); otherwise it falls back to
 ``NO_CLEAR_PERFORMANCE_BOTTLENECK`` / ``INSUFFICIENT_STEP_TIME_DATA``.
 """
 
@@ -23,6 +25,8 @@ _SEV_ORDER = {SEVERITY_CRITICAL: 2, SEVERITY_WARNING: 1}
 def build_primary_diagnosis(
     step_time: Optional[DiagnosticResult],
     step_memory: Optional[DiagnosticResult] = None,
+    system: Optional[DiagnosticResult] = None,
+    process: Optional[DiagnosticResult] = None,
     step_time_error: Optional[str] = None,
 ) -> Dict[str, Any]:
     candidates = []
@@ -34,9 +38,10 @@ def build_primary_diagnosis(
             # step-time issues get a priority bump: they ARE the
             # performance story
             candidates.append((_SEV_ORDER.get(issue.severity, 0) + 0.6, "step_time", issue))
-    if step_memory is not None and not step_memory.healthy:
-        issue = step_memory.diagnosis
-        candidates.append((_SEV_ORDER.get(issue.severity, 0), "step_memory", issue))
+    for domain, result in (("step_memory", step_memory), ("system", system), ("process", process)):
+        if result is not None and not result.healthy:
+            issue = result.diagnosis
+            candidates.append((_SEV_ORDER.get(issue.severity, 0), domain, issue))
 
     if not candidates:
         if step_time is None and step_time_error:

@@ -1,8 +1,11 @@
 """Per-rank runtime agent.
 
 Counterpart of the per-rank part of ``traceml_tpu/runtime/runtime.py``: it
-owns the step-time and step-memory samplers, a daemon tick thread at
-``sampler_interval_sec`` and, when the settings name an aggregator port,
+resolves the rank's identity (``runtime/identity.py``), owns the samplers
+that ``runtime/sampler_registry.build_samplers`` gives this rank (system on
+the node's primary rank, process, step time, step memory), a daemon tick
+thread at ``sampler_interval_sec`` and, when the settings name an
+aggregator port,
 the TCP client and the publisher.  Every tick samples, and publishes
 when there is a publisher.  Lifecycle: start → tick loop → stop (join
 the thread, final drain, final publish with the ``rank_finished``
@@ -16,14 +19,13 @@ from __future__ import annotations
 import threading
 from typing import List, Optional
 
+from traceml_tpu_torch.runtime.identity import resolve_runtime_identity
+from traceml_tpu_torch.runtime.sampler_registry import build_samplers
 from traceml_tpu_torch.runtime.sender import TelemetryPublisher
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
-from traceml_tpu_torch.samplers.step_memory_sampler import StepMemorySampler
-from traceml_tpu_torch.samplers.step_time_sampler import StepTimeSampler
 from traceml_tpu_torch.sdk.state import get_state
 from traceml_tpu_torch.telemetry.control import build_rank_finished
-from traceml_tpu_torch.telemetry.envelope import SenderIdentity
 from traceml_tpu_torch.transport.tcp_transport import TCPClient
 from traceml_tpu_torch.utils.error_log import get_error_log
 
@@ -31,7 +33,8 @@ from traceml_tpu_torch.utils.error_log import get_error_log
 class TraceMLRuntime:
     def __init__(self, settings: Optional[TraceMLSettings] = None) -> None:
         self.settings = settings or TraceMLSettings()
-        self.identity = SenderIdentity.from_env(self.settings.session_id)
+        self.runtime_identity = resolve_runtime_identity()
+        self.identity = self.runtime_identity.to_sender_identity(self.settings.session_id)
         self.samplers: List[BaseSampler] = []
         self.client: Optional[TCPClient] = None
         self.publisher: Optional[TelemetryPublisher] = None
@@ -45,7 +48,7 @@ class TraceMLRuntime:
             if self._started:
                 return
             self._started = True
-        self.samplers = [StepTimeSampler(), StepMemorySampler()]
+        self.samplers = build_samplers(self.settings, self.runtime_identity)
         agg = self.settings.aggregator
         if agg.port:
             self.client = TCPClient(agg.connect_host, agg.port)

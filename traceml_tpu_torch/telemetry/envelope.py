@@ -53,26 +53,6 @@ class SenderIdentity:
     hostname: str = dataclasses.field(default_factory=socket.gethostname)
     pid: int = dataclasses.field(default_factory=os.getpid)
 
-    @classmethod
-    def from_env(cls, session_id: str) -> "SenderIdentity":
-        """The rank's identity from the launcher's RANK/WORLD_SIZE
-        contract (torchrun's names); a single process is rank 0 of 1."""
-
-        def num(key: str, default: int) -> int:
-            try:
-                return int(os.environ.get(key, default))
-            except (TypeError, ValueError):
-                return default
-
-        return cls(
-            session_id=session_id,
-            global_rank=num("RANK", 0),
-            local_rank=num("LOCAL_RANK", 0),
-            world_size=num("WORLD_SIZE", 1),
-            local_world_size=num("LOCAL_WORLD_SIZE", 1),
-            node_rank=num("NODE_RANK", 0),
-        )
-
     def to_meta(self) -> Dict[str, Any]:
         return {
             "schema": SCHEMA_VERSION,

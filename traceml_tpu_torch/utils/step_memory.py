@@ -11,9 +11,12 @@ per step and device:
   of the start and end edges, a lower bound
 * ``limit_bytes``     — device capacity
 
-Backends are pluggable: ``CudaMemoryBackend`` reads
-``torch.cuda.memory_stats()``; on the CPU the null backend records
+Backends are pluggable: ``CudaMemoryBackend`` reads the caching
+allocator's counters (``torch.cuda.memory_stats_as_nested_dict()``); on the CPU the null backend records
 nothing, and tests inject the scripted fake.
+
+``device_memory_rows`` forms the system and process samplers' per-device
+rows from the same backend.
 """
 
 from __future__ import annotations
@@ -52,14 +55,17 @@ class CudaMemoryBackend:
         self._torch.cuda.reset_peak_memory_stats(self._index)
 
     def sample(self) -> List[Dict[str, Any]]:
-        stats = self._torch.cuda.memory_stats(self._index)
-        current = int(stats.get("allocated_bytes.all.current", 0))
+        # the allocator's nested stats as the C++ side returns them:
+        # ``memory_stats`` flattens and sorts all of them in Python first
+        stats = self._torch.cuda.memory_stats_as_nested_dict(self._index)
+        allocated = stats.get("allocated_bytes", {}).get("all", {})
+        current = int(allocated.get("current", 0))
         return [
             {
                 "device_id": self._index,
                 "device_kind": self._kind,
                 "current_bytes": current,
-                "peak_bytes": int(stats.get("allocated_bytes.all.peak", current)),
+                "peak_bytes": int(allocated.get("peak", current)),
                 "limit_bytes": self._limit,
             }
         ]
@@ -122,6 +128,15 @@ class StepMemoryTracker:
     def backend_name(self) -> str:
         return getattr(self._backend, "name", "unknown")
 
+    @property
+    def backend(self) -> MemoryBackend:
+        return self._backend
+
+    def peak_bytes(self, device_id: int) -> int:
+        """The largest step peak recorded on ``device_id`` (0 for a
+        backend without a peak reset, whose own peak is the run's)."""
+        return self._peak.get(device_id, 0)
+
     def reset(self, step: int) -> None:
         """Step-start edge.  A backend with a peak reset resets it here,
         every step; otherwise only the first step samples (in a contiguous
@@ -181,3 +196,70 @@ class StepMemoryTracker:
         except Exception as exc:
             get_error_log().warning("step memory record failed", exc)
         return rows
+
+
+def _sampler_backend() -> Optional[MemoryBackend]:
+    """The samplers' backend once CUDA is initialized: the SDK tracker's
+    (the trace's device) or else the CUDA backend of the first device on
+    which this process's allocator holds memory.  ``None`` until then:
+    the allocator counters read here need no CUDA context, so the sampler
+    thread never creates one."""
+    from traceml_tpu_torch.runtime.identity import cuda_is_initialized
+
+    if not cuda_is_initialized():
+        return None
+    from traceml_tpu_torch.sdk.state import get_state
+
+    tracker = get_state().mem_tracker
+    if tracker is not None and isinstance(tracker.backend, CudaMemoryBackend):
+        return tracker.backend
+    import torch
+
+    used = [i for i in range(torch.cuda.device_count()) if torch.cuda.memory_reserved(i) > 0]
+    return CudaMemoryBackend(torch.device("cuda", used[0])) if used else None
+
+
+def device_memory_rows(backend_holder: Dict[str, Any], ts: float) -> List[Dict[str, Any]]:
+    """Per-device rows of the system and process samplers.
+
+    ``backend_holder`` is a dict owned by the sampler: ``{"backend":
+    MemoryBackend | None}``, filled by ``_sampler_backend`` when empty;
+    the rows are empty until there is a backend.  A ``"tracker"`` entry
+    (a ``StepMemoryTracker``) stands in for the SDK's.
+
+    ``memory_peak_bytes`` is the run's peak so far.  A backend that
+    resets its peak at every step start (``CudaMemoryBackend``) reports
+    the current step's peak only, so the row takes the largest of that,
+    the peaks this holder has seen and the tracker's recorded step peaks:
+    never below a step-memory row's peak.  Other backends' peaks pass
+    through, as in the JAX package.
+    """
+    backend = backend_holder.get("backend")
+    if backend is None:
+        backend = backend_holder["backend"] = _sampler_backend()
+        if backend is None:
+            return []
+    resets = hasattr(backend, "reset_peak")
+    tracker = backend_holder.get("tracker")
+    if tracker is None and resets:
+        from traceml_tpu_torch.sdk.state import get_state
+
+        tracker = get_state().mem_tracker
+    peaks = backend_holder.setdefault("peaks", {})
+    rows = []
+    for r in backend.sample():
+        dev = r["device_id"]
+        peak = r.get("peak_bytes")
+        if resets:
+            peak = peaks[dev] = max(
+                peaks.get(dev, 0), int(peak or 0), tracker.peak_bytes(dev) if tracker else 0
+            )
+        rows.append({
+            "timestamp": ts,
+            "device_id": dev,
+            "device_kind": r.get("device_kind", "unknown"),
+            "memory_used_bytes": r.get("current_bytes"),
+            "memory_peak_bytes": peak,
+            "memory_total_bytes": r.get("limit_bytes"),
+        })
+    return rows
