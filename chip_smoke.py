@@ -58,10 +58,12 @@
    least 50 steps, its step-memory section with a positive peak, one
    ``step_time_samples`` row per traced step, the manifest ``completed``
    with telemetry ``ok``, no dropped rows or decode errors, 12 × 60 flash
-   launches in the rank, and the verdict in the summary and on the
-   launcher's stdout: COMPUTE_BOUND for the healthy forward, the band of
-   the measured MFU for the healthy train run (LOW_MFU below 15%),
-   INPUT_BOUND with the delay.  The train runs also need their stored
+   launches in the rank, the liveness section OK with the rank finished,
+   and the verdict in the summary and on the launcher's stdout: the band
+   of the measured MFU for the healthy runs (LOW_MFU below 15%, then
+   MODERATE_MFU to 30%, then COMPUTE_BOUND; the forward's FLOPs come from
+   ``wrap_step_fn``'s first in-step call, within 2% of the analytic
+   count), INPUT_BOUND with the delay.  The train runs also need their stored
    rows to meet the in-process loop's device-clock gates, the loss
    falling, and an ``efficiency`` section with the card's peak,
    ``flops_per_step`` within 2% of the analytic count and an MFU in
@@ -71,12 +73,23 @@
    its power limit as ``nvidia-smi`` does, RSS above 0 and the process
    rows' GPU peak at least the largest step-memory peak; the healthy
    train run's NVML utilization, as the system rules read it (the mean of
-   the last 30 samples), must be at least ``UTIL_HEALTHY_MIN_PCT``.  Reported: the step device times under ``run`` (median, mean,
+   the last 30 samples), must be at least ``UTIL_HEALTHY_MIN_PCT``.
+   Reported: the step device times under ``run`` (median, mean,
    p90, max) against the in-process loop's, which runs no sender; the
    sender's busy ticks, its collect and encode cost per busy tick, its
    flush cost per timed send and its codec, the aggregator's
    finalization time and each call's wall time.  The sessions are kept
    under ``traceml_logs/chip_smoke/``.
+6. Remat, H2D, tokens, the final summary and a dead rank: the train step
+   with each block checkpointed (``ModelConfig.remat``) against the step
+   without, then traced in process under ``init(mode="auto",
+   traced_model=model)`` (``remat_train_phase``: 24 launches a step, a
+   lower peak, FLOPs with the recompute); ``run`` of ``train_script.py
+   --remat --h2d to --tokens --final-summary`` (``remat_run_phase``: the
+   ``torch_h2d`` patch's h2d device time on every row, tokens/s,
+   ``final_summary()`` against the final artifact); ``run`` of
+   ``train_script.py --kill-after 20`` under short liveness thresholds
+   (``killed_run_phase``: RANK_LOST, critical, the primary diagnosis).
 
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -414,17 +427,45 @@ def main_path_phase() -> dict:
             "step_ms": spread(r["events"][T.STEP_TIME]["device_ms"] for r in rows)}
 
 
+def _matmul_params(cfg) -> tuple:
+    """Per layer: the block's matmul weights, and those of its last
+    projection (``w_down``); and the ``lm_head``'s."""
+    hd = cfg.head_dim
+    per_layer = (2 * cfg.hidden * cfg.n_heads * hd + 2 * cfg.hidden * cfg.n_kv_heads * hd
+                 + 3 * cfg.hidden * cfg.ffn_hidden)
+    return per_layer, cfg.hidden * cfg.ffn_hidden, cfg.hidden * cfg.vocab_size
+
+
 def analytic_train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one train step: 6 x the matmul parameters x the
     tokens (forward 2, backward 4), plus causal attention counted over
     the full S x S products as XLA counts the jnp path, 4·S²·D per head
     forward and 8·S²·D backward."""
-    hd = cfg.head_dim
-    per_layer = (2 * cfg.hidden * cfg.n_heads * hd + 2 * cfg.hidden * cfg.n_kv_heads * hd
-                 + 3 * cfg.hidden * cfg.ffn_hidden)
-    matmul_params = cfg.n_layers * per_layer + cfg.hidden * cfg.vocab_size
-    attention = 12 * batch * cfg.n_heads * seq * seq * hd * cfg.n_layers
+    per_layer, _, head = _matmul_params(cfg)
+    matmul_params = cfg.n_layers * per_layer + head
+    attention = 12 * batch * cfg.n_heads * seq * seq * cfg.head_dim * cfg.n_layers
     return 6.0 * matmul_params * batch * seq + attention
+
+
+def analytic_remat_flops(cfg, batch: int, seq: int) -> float:
+    """The train step's FLOPs with each block checkpointed: the step's,
+    plus each block's forward again in the backward but for its last
+    projection, whose output the backward does not need
+    (``torch.utils.checkpoint`` stops the recompute there, and XLA leaves
+    it out of the rematerialized program; measured on the CPU at small
+    size, ``tests/test_torch_train_step.py``)."""
+    per_layer, w_down, _ = _matmul_params(cfg)
+    recompute = (2.0 * (per_layer - w_down) * batch * seq
+                 + 4 * batch * cfg.n_heads * seq * seq * cfg.head_dim) * cfg.n_layers
+    return analytic_train_flops(cfg, batch, seq) + recompute
+
+
+def analytic_forward_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one forward: 2 x the matmul parameters x the tokens,
+    plus 4·S²·D per head and layer of attention."""
+    per_layer, _, head = _matmul_params(cfg)
+    matmul_params = cfg.n_layers * per_layer + head
+    return 2.0 * matmul_params * batch * seq + 4 * batch * cfg.n_heads * seq * seq * cfg.head_dim * cfg.n_layers
 
 
 def grad_check_phase() -> None:
@@ -467,13 +508,14 @@ def check_train_rows(name: str, rows) -> None:
               f"{name}: step {step} forward/backward/optimizer device_ms {ms}")
 
 
-def train_compare_phase(cfg, batches) -> None:
-    """The full-width train step through the kernel route against the
-    same step through the plain route (``flash_attention_plain`` on the
-    card, differentiated by autograd), from the same weights on the same
-    batches: the first step's gradients, the loss of each of
-    ``COMPARE_STEPS`` steps and each parameter's update after them, by
-    checks that scale with the output."""
+def train_compare_phase(batches, routes, tag: str = "train") -> None:
+    """The full-width train step through one route against another from
+    the same weights on the same batches: the first step's gradients, the
+    loss of each of ``COMPARE_STEPS`` steps and each parameter's update
+    after them, by checks that scale with the output.  ``routes`` is
+    ``((name, cfg, plain), (name, cfg, plain))``, the route under test
+    first; ``plain`` runs attention through ``flash_attention_plain`` on
+    the card, differentiated by autograd."""
     from contextlib import nullcontext
 
     from traceml_tpu_torch.dev.attention_check import scaled_errors
@@ -483,13 +525,13 @@ def train_compare_phase(cfg, batches) -> None:
     from traceml_tpu_torch.ops.flash_attention import flash_attention_plain
 
     tokens = [b.cuda() for b in batches[:COMPARE_STEPS]]
-    got = {}
-    for route in ("kernel", "plain"):
+    got, start = {}, None
+    for route, cfg, use_plain in routes:
         model, optimizer = build_train_state(cfg, SEED)
-        if route == "kernel":
+        if start is None:
             start = {n: p.detach().clone() for n, p in model.named_parameters()}
         plain = mock.patch.object(attention_mod, "flash_attention", flash_attention_plain)
-        with plain if route == "plain" else nullcontext():
+        with plain if use_plain else nullcontext():
             loss_fn(model, tokens[0]).backward()
             grads = {n: p.grad for n, p in model.named_parameters()}
             model.zero_grad(set_to_none=True)
@@ -498,27 +540,29 @@ def train_compare_phase(cfg, batches) -> None:
         got[route] = {"losses": losses, "grads": grads,
                       "updates": {n: p.detach() - start[n] for n, p in model.named_parameters()}}
         del model, optimizer, step
-    k, p = got["kernel"], got["plain"]
+    (name_k, _, _), (name_p, _, _) = routes
+    k, p = got[name_k], got[name_p]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
     grad_rel = {n: scaled_errors(k["grads"][n], p["grads"][n])["rel_fro"] for n in p["grads"]}
     update_rel = {n: (k["updates"][n] - p["updates"][n]).norm().item() / p["updates"][n].norm().item()
                   for n in p["updates"]}
     worst_grad = max(grad_rel, key=grad_rel.get)
     worst_update = max(update_rel, key=update_rel.get)
-    log("train", json.dumps({
-        "losses_kernel": k["losses"], "losses_plain": p["losses"], "loss_rel": loss_rel,
+    log(tag, json.dumps({
+        "routes": [name_k, name_p],
+        f"losses_{name_k}": k["losses"], f"losses_{name_p}": p["losses"], "loss_rel": loss_rel,
         "grad_rel_fro_max": [worst_grad, grad_rel[worst_grad]],
         "grad_rel_fro_median": statistics.median(grad_rel.values()),
         "update_rel_fro_max": [worst_update, update_rel[worst_update]],
         "update_rel_fro_median": statistics.median(update_rel.values()),
         "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_fro": TRAIN_GRAD_REL_FRO,
                 "update_rel_fro": TRAIN_UPDATE_REL_FRO}}))
-    check(all(math.isfinite(x) for x in k["losses"]), "non-finite train loss through the kernel")
-    check(max(loss_rel) <= TRAIN_LOSS_REL, f"train loss kernel vs plain: {loss_rel}")
+    check(all(math.isfinite(x) for x in k["losses"]), f"non-finite train loss through the {name_k} route")
+    check(max(loss_rel) <= TRAIN_LOSS_REL, f"train loss {name_k} vs {name_p}: {loss_rel}")
     check(grad_rel[worst_grad] <= TRAIN_GRAD_REL_FRO,
-          f"gradient of {worst_grad} kernel vs plain: rel_fro {grad_rel[worst_grad]}")
+          f"gradient of {worst_grad} {name_k} vs {name_p}: rel_fro {grad_rel[worst_grad]}")
     check(update_rel[worst_update] <= TRAIN_UPDATE_REL_FRO,
-          f"update of {worst_update} kernel vs plain: rel_fro {update_rel[worst_update]}")
+          f"update of {worst_update} {name_k} vs {name_p}: rel_fro {update_rel[worst_update]}")
 
 
 def lm_head_phase(cfg) -> dict:
@@ -596,7 +640,7 @@ def train_path_phase(cfg) -> dict:
     from traceml_tpu_torch.utils import timing as T
 
     batches = host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)
-    train_compare_phase(cfg, batches)
+    train_compare_phase(batches, (("kernel", cfg, False), ("plain", cfg, True)))
     model, optimizer = build_train_state(cfg, SEED)
     n_params = sum(p.numel() for p in model.parameters())
     step = make_train_step(model, optimizer)
@@ -624,23 +668,80 @@ def train_path_phase(cfg) -> dict:
     check(not any(T.COMPUTE_TIME in r["events"] for r in rows), "a compute phase in the train rows")
     check(math.isfinite(last) and last < first, f"train loss did not fall: first {first}, last {last}")
     check(peak > n_params * 16, f"train step peak {peak} bytes below params + grads + AdamW state")
-    return {"launches": run["launches"], "n_params": n_params,
+    return {"launches": run["launches"], "n_params": n_params, "peak": peak,
             "step_ms": phases["STEP_TIME"]["device_ms_median"],
             "step_spread": spread(r["events"][T.STEP_TIME]["device_ms"] for r in rows)}
 
 
+def remat_train_phase(cfg, train: dict) -> dict:
+    """The train step with each block checkpointed (``ModelConfig.remat``):
+    three steps against the step without remat on the same weights and
+    batches, held to the train step's gates; then a traced loop in
+    process under ``init(mode="auto", traced_model=model)``, its model
+    FLOPs counted on the warm-up step.  Gates: forward, backward and
+    optimizer device times on every row and one forward a step (the
+    recompute inside the backward is no forward), 2 x 12 flash launches a
+    step (the recompute runs the kernel again), a step peak below the
+    non-remat loop's, and ``flops_per_step`` within ``FLOPS_REL_TOL`` of
+    ``analytic_remat_flops``."""
+    import dataclasses
+
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS, build_train_state, host_batches
+    from traceml_tpu_torch.models.transformer import make_train_step
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+    from traceml_tpu_torch.sdk.state import get_state
+    from traceml_tpu_torch.utils import timing as T
+
+    rcfg = dataclasses.replace(cfg, remat=True)
+    batches = host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)
+    train_compare_phase(batches, (("remat", rcfg, False), ("no_remat", cfg, False)), tag="remat")
+    model, optimizer = build_train_state(rcfg, SEED)
+    step = make_train_step(model, optimizer)
+    shutdown_patches()
+    tm.init(mode="auto", traced_model=model)
+    flops = tm.estimate_step_flops(step, batches[0].cuda())  # the warm-up step, outside the trace
+    analytic = analytic_remat_flops(cfg, BATCH, TRAIN_TOKENS - 1)
+    run = traced_loop(step, batches, STEPS, 0.0)
+    rows, mem = run["rows"], run["memory"]
+    first, last = run["first"]["loss"].item(), run["last"]["loss"].item()
+    peak = max((m["step_peak_bytes"] for m in mem), default=0)
+    phases = {name: phase_medians(rows, name)
+              for name in ("STEP_TIME", "FORWARD_TIME", "BACKWARD_TIME", "OPTIMIZER_STEP", "H2D_TIME")}
+    out = {"launches": run["launches"], "flops_per_step": flops, "analytic_flops": analytic,
+           "flops_rel_err": abs(flops - analytic) / analytic, "step_peak_bytes": peak,
+           "no_remat_step_peak_bytes": train["peak"], "step_ms": phases["STEP_TIME"]["device_ms_median"],
+           "no_remat_step_ms": train["step_ms"], "loss_first": first, "loss_last": last,
+           "patches": get_state().patches}
+    log("remat", f"{STEPS} traced remat train steps in {run['wall_s']:.4f} s wall " + json.dumps(out))
+    log("remat", "phase medians " + json.dumps(phases))
+    check(run["launches"] == 2 * cfg.n_layers * STEPS,
+          f"remat flash launches {run['launches']} != 2 x {cfg.n_layers} x {STEPS}")
+    check(len(rows) == STEPS, f"{len(rows)} remat step rows for {STEPS} steps")
+    check_train_rows("in-process remat loop", [(r["step"], r["clock"], r["events"]) for r in rows])
+    counts = [r["events"][T.FORWARD_TIME]["count"] for r in rows]
+    check(counts == [1] * STEPS, f"remat rows with a forward count other than 1: {counts}")
+    check(math.isfinite(last) and last < first, f"remat loss did not fall: first {first}, last {last}")
+    check(0 < peak < train["peak"], f"remat step peak {peak} not below the non-remat peak {train['peak']}")
+    check(out["flops_rel_err"] <= FLOPS_REL_TOL, f"remat flops_per_step {flops} vs analytic {analytic}")
+    del model, optimizer, step
+    return out
+
+
 def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py",
-               steps: int = STEPS) -> dict:
+               steps: int = STEPS, script_args=(), launcher_args=(), env_extra=None,
+               expect_ok: bool = True) -> dict:
     """One ``python -m traceml_tpu_torch run`` call of a ``dev/`` script;
     returns its session's artifacts, its system, process and step-memory
-    rows, the launcher's output and the call's wall time."""
+    rows, the launcher's output and the call's wall time.  The call must
+    exit 0, or, with ``expect_ok=False``, must not."""
     logs = RUN_DIR / name
     shutil.rmtree(logs, ignore_errors=True)
     argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
             "--logs-dir", str(logs), "--run-name", name, "--sampler-interval", repr(interval_s),
-            str(REPO / "traceml_tpu_torch" / "dev" / script),
-            "--", "--steps", str(steps), "--delay-ms", repr(delay_ms)]
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+            *launcher_args, str(REPO / "traceml_tpu_torch" / "dev" / script),
+            "--", "--steps", str(steps), "--delay-ms", repr(delay_ms), *script_args]
+    env = dict(os.environ, PYTHONPATH=str(REPO), **(env_extra or {}))
     t0 = time.perf_counter()
     proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
@@ -658,15 +759,16 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     wall_s = time.perf_counter() - t0
     (RUN_DIR / f"{name}.stdout.txt").write_text(out)
     (RUN_DIR / f"{name}.stderr.txt").write_text(err)
-    check(proc.returncode == 0, f"run {name} exited {proc.returncode}; stderr tail:\n{err[-3000:]}")
+    check((proc.returncode == 0) == expect_ok,
+          f"run {name} exited {proc.returncode}; stderr tail:\n{err[-3000:]}")
     sessions = [p for p in logs.iterdir() if p.is_dir()]
     check(len(sessions) == 1, f"run {name}: {len(sessions)} session dirs")
     session = sessions[0]
 
-    def read(fname):
+    def read(fname, required=True):
         path = session / fname
-        check(path.exists(), f"run {name}: {fname} missing")
-        return json.loads(path.read_text())
+        check(path.exists() or not required, f"run {name}: {fname} missing")
+        return json.loads(path.read_text()) if path.exists() else None
 
     conn = sqlite3.connect(session / "telemetry.sqlite")
     conn.row_factory = sqlite3.Row
@@ -679,14 +781,16 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     finally:
         conn.close()
     return {"summary": read("final_summary.json"), "manifest": read("manifest.json"),
-            "ingest": read("ingest_stats.json"), "system_manifest": read("system_manifest.json"),
+            "ingest": read("ingest_stats.json"),
+            "system_manifest": read("system_manifest.json", required=expect_ok),
             "rows": rows, "tables": tables, "stdout": out, "wall_s": wall_s, "steps": steps}
 
 
-def check_run(name: str, run: dict, n_layers: int, verdict) -> dict:
+def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: int = 1) -> dict:
     """The run phase's gates on one call; returns its reported numbers.
     ``verdict`` is the expected primary verdict, or a function of the
-    summary that gives it."""
+    summary that gives it; the flash kernel must launch
+    ``launches_per_layer`` times a layer and a step."""
     from traceml_tpu_torch.utils import timing as T
 
     summary, manifest, ingest = run["summary"], run["manifest"], run["ingest"]
@@ -711,8 +815,12 @@ def check_run(name: str, run: dict, n_layers: int, verdict) -> dict:
                                           f"{len(steps)} rows for {n} steps")
     launch_lines = [l for l in run["stdout"].splitlines() if l.startswith("flash_attention.launches ")]
     launches = int(launch_lines[-1].split()[1]) if launch_lines else None
-    check(launches == n_layers * n, f"run {name}: rank reports {launches} flash launches, "
-                                    f"not {n_layers} x {n}")
+    check(launches == launches_per_layer * n_layers * n,
+          f"run {name}: rank reports {launches} flash launches, not {launches_per_layer} x {n_layers} x {n}")
+    liveness = summary["sections"]["liveness"]
+    check(liveness["status"] == "OK" and liveness["diagnosis"]["kind"] == "HEALTHY"
+          and {r: v["state"] for r, v in liveness["ranks"].items()} == {"0": "finished"},
+          f"run {name}: liveness {liveness['status']} {liveness['diagnosis']} {liveness.get('ranks')}")
     kind = summary["primary_diagnosis"]["kind"]
     log("run", f"{name}: verdict {kind} ({summary['primary_diagnosis']['severity']}): "
                f"{summary['primary_diagnosis'].get('summary')}")
@@ -802,13 +910,25 @@ def check_telemetry(name: str, run: dict) -> dict:
 def run_phase(main: dict) -> None:
     """``python -m traceml_tpu_torch run`` on the card, healthy with a fast
     sender tick and with the main path's input delay at the default tick,
-    held to the gates of ``check_run``."""
+    held to the gates of ``check_run``.  ``wrap_step_fn`` counts the
+    forward's FLOPs on its first in-step call, so the healthy verdict is
+    that of the measured MFU's band, and ``flops_per_step`` must lie
+    within ``FLOPS_REL_TOL`` of ``analytic_forward_flops``."""
+    from traceml_tpu_torch.dev.workload import full_width_config
+
     RUN_DIR.mkdir(parents=True, exist_ok=True)
+    analytic = analytic_forward_flops(full_width_config(), BATCH, SEQ)
     for name, delay_ms, interval_s, steps, verdict in (
-            ("healthy", 0.0, 0.1, RUN_FORWARD_STEPS, "COMPUTE_BOUND"),
+            ("healthy", 0.0, 0.1, RUN_FORWARD_STEPS, mfu_verdict),
             ("input_delay", main["delay_ms"], 1.0, STEPS, "INPUT_BOUND")):
         got = check_run(name, launch_run(name, delay_ms, interval_s, steps=steps), main["n_layers"], verdict)
-        log("run", f"{name} (delay {delay_ms:.3f} ms, sender tick {interval_s} s) " + json.dumps(got))
+        eff = got["efficiency"] or {}
+        flops = eff.get("flops_per_step")
+        check(eff.get("flops_source") == "flop_counter" and flops is not None
+              and abs(flops - analytic) / analytic <= FLOPS_REL_TOL,
+              f"run {name}: forward flops_per_step {flops} ({eff.get('flops_source')}) vs analytic {analytic}")
+        log("run", f"{name} (delay {delay_ms:.3f} ms, sender tick {interval_s} s; analytic {analytic:.6e} "
+                   f"FLOPs/step) " + json.dumps(got))
         if name == "healthy":
             run_ms, ref_ms = got["step_device_ms"], main["step_ms"]
             log("run", "step device ms under run (stored rows) vs in-process (no sender): " + ", ".join(
@@ -817,7 +937,7 @@ def run_phase(main: dict) -> None:
 
 
 def mfu_verdict(summary: dict) -> str:
-    """The healthy train run's verdict by the band of its measured MFU
+    """A healthy run's verdict by the band of its measured MFU
     (``diagnostics/step_time/policy.py``): LOW_MFU (warning) below 15%;
     from 15% to 30% MODERATE_MFU (info) must be among the issues, and the
     verdict is whichever of it and COMPUTE_BOUND scores higher; at 30% or
@@ -877,6 +997,96 @@ def train_run_phase(cfg, train: dict) -> None:
                 f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms))
 
 
+def remat_run_phase(cfg, remat: dict) -> dict:
+    """``run`` of ``train_script.py --remat --h2d to --tokens --final-summary``
+    (healthy, 0.1 s sender tick): the ``torch_h2d`` patch times the
+    script's own ``batch.to(device, non_blocking=True)`` inside the step,
+    the script declares its tokens and asks for ``final_summary()``
+    before it exits.  The train run's gates with 2 x 12 launches a step,
+    and: an h2d device time on every row (one copy a step, none by
+    ``wrap_dataloader``), ``tokens_per_step`` 8 x 1024 and
+    ``tokens_per_sec_median`` within ``FLOPS_REL_TOL`` of the tokens over
+    the summary's steady-state step, ``flops_per_step`` within
+    ``FLOPS_REL_TOL`` of ``analytic_remat_flops``, the dict that
+    ``final_summary()`` returned with the final artifact's primary kind
+    and no more steps, and the verdict of the MFU's band."""
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS
+    from traceml_tpu_torch.utils import timing as T
+
+    name = "train_remat_h2d"
+    run = launch_run(name, 0.0, 0.1, script="train_script.py",
+                     script_args=("--remat", "--h2d", "to", "--tokens", "--final-summary"))
+    got = check_run(name, run, cfg.n_layers, mfu_verdict, launches_per_layer=2)
+    rows = [(step, clock, json.loads(ev)) for step, clock, ev in run["rows"]]
+    check_train_rows(f"run {name}", rows)
+    check("train_script: batches copied by Tensor.to in the step" in run["stdout"],
+          f"run {name}: the script did not copy its batches in the step")
+    h2d = [(ev.get(T.H2D_TIME) or {}) for _, _, ev in rows]
+    check(all(e.get("count") == 1 and (e.get("device_ms") or 0) > 0 for e in h2d),
+          f"run {name}: rows without one h2d copy on the device clock: "
+          f"{[(r[0], e) for r, e in zip(rows, h2d) if not (e.get('count') == 1 and (e.get('device_ms') or 0) > 0)][:3]}")
+    summary = run["summary"]
+    eff = got["efficiency"] or {}
+    tokens = BATCH * (TRAIN_TOKENS - 1)
+    check(eff.get("tokens_per_step") == tokens, f"run {name}: tokens_per_step {eff.get('tokens_per_step')}")
+    want_tps = tokens / (got["steady_state_ms"] / 1e3)
+    tps = eff.get("tokens_per_sec_median")
+    check(tps is not None and abs(tps - want_tps) / want_tps <= FLOPS_REL_TOL,
+          f"run {name}: tokens_per_sec_median {tps} vs {want_tps}")
+    analytic = analytic_remat_flops(cfg, BATCH, TRAIN_TOKENS - 1)
+    flops = eff.get("flops_per_step")
+    check(flops is not None and abs(flops - analytic) / analytic <= FLOPS_REL_TOL,
+          f"run {name}: flops_per_step {flops} vs analytic {analytic}")
+    lines = [l for l in run["stdout"].splitlines() if l.startswith("final_summary ")]
+    check(bool(lines), f"run {name}: the script printed no final_summary line")
+    asked = json.loads(lines[-1].split(" ", 1)[1])
+    final_kind = summary["primary_diagnosis"]["kind"]
+    final_steps = summary["sections"]["step_time"]["global"]["n_steps"]
+    check(asked["kind"] == final_kind and asked["n_steps"] is not None and asked["n_steps"] <= final_steps,
+          f"run {name}: final_summary() gave {asked}, the final artifact {final_kind} over {final_steps} steps")
+    out = {**got, "final_summary_in_script": asked, "analytic_flops": analytic,
+           "tokens_per_sec_expected": want_tps,
+           "h2d_device_ms_median": statistics.median(e["device_ms"] for e in h2d),
+           "in_process_remat": {k: remat[k] for k in ("step_ms", "step_peak_bytes")}}
+    log("run", f"{name} " + json.dumps(out))
+    return out
+
+
+def killed_run_phase() -> dict:
+    """``run`` of ``train_script.py --kill-after 20``: the rank sends itself
+    SIGKILL after 20 of 60 steps, under the JAX chaos test's settings
+    (heartbeat every 0.5 s, stale after 1 s, lost after 3 s, an 8 s
+    settle window, so the window crosses the lost line).  Gates: the
+    run exits non-zero with the manifest ``failed``; the final summary
+    exists, its liveness diagnosis is RANK_LOST, critical, naming rank 0;
+    rank 0 is unfinished as ``lost`` with a data gap; the primary
+    diagnosis is the liveness one."""
+    name = "train_killed"
+    env = {"TRACEML_HEARTBEAT_INTERVAL_SEC": "0.5", "TRACEML_LIVENESS_STALE_SEC": "1",
+           "TRACEML_LIVENESS_LOST_SEC": "3"}
+    run = launch_run(name, 0.0, 0.25, script="train_script.py", script_args=("--kill-after", "20"),
+                     launcher_args=("--finalize-timeout", "8"), env_extra=env, expect_ok=False)
+    summary, manifest = run["summary"], run["manifest"]
+    sec = summary["sections"]["liveness"]
+    diag, primary = sec["diagnosis"], summary["primary_diagnosis"]
+    out = {"manifest_status": manifest["status"], "exit_code": manifest.get("exit_code"),
+           "liveness": {k: sec.get(k) for k in ("thresholds", "ranks", "data_gaps", "unfinished_ranks",
+                                                "unfinished_rank_states")},
+           "liveness_kinds": [i["kind"] for i in sec["issues"]],
+           "primary": {k: primary.get(k) for k in ("kind", "domain", "severity", "summary")},
+           "stored_steps": len(run["rows"]), "wall_s": run["wall_s"]}
+    log("run", f"{name} " + json.dumps(out))
+    check(manifest["status"] == "failed", f"run {name}: manifest status {manifest['status']}")
+    check(diag["kind"] == "RANK_LOST" and diag["severity"] == "critical" and 0 in diag["ranks"],
+          f"run {name}: liveness diagnosis {diag}")
+    check(0 in (sec.get("unfinished_ranks") or []) and (sec.get("unfinished_rank_states") or {}).get("0") == "lost",
+          f"run {name}: unfinished {sec.get('unfinished_ranks')} {sec.get('unfinished_rank_states')}")
+    check("0" in (sec.get("data_gaps") or {}), f"run {name}: data gaps {sec.get('data_gaps')}")
+    check(primary.get("domain") == "liveness" and primary["kind"] in ("RANK_LOST", "LIKELY_PREEMPTED"),
+          f"run {name}: primary diagnosis {primary}")
+    return out
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -923,13 +1133,18 @@ def main() -> int:
     lm_head_phase(cfg)
     torch.cuda.empty_cache()
     train = train_path_phase(cfg)
-    kernel["launches"] = main_path["launches"] + train["launches"]
-    kernel["launches_by_path"] = {"forward": main_path["launches"], "train": train["launches"]}
+    torch.cuda.empty_cache()
+    remat = remat_train_phase(cfg, train)
+    kernel["launches"] = main_path["launches"] + train["launches"] + remat["launches"]
+    kernel["launches_by_path"] = {"forward": main_path["launches"], "train": train["launches"],
+                                  "remat_train": remat["launches"]}
     torch.cuda.empty_cache()
     log("time", f"train phases {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     run_phase(main_path)
     train_run_phase(cfg, train)
+    remat_run_phase(cfg, remat)
+    killed_run_phase()
     log("time", f"run phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)

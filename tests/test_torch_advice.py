@@ -10,7 +10,7 @@ it rewrote (patterns, since summaries carry numbers).  The parity tests
 neither field leaves the comparison.
 
 Then every rule of every port pack (step time, step memory, system,
-process) is made to fire on seeded rows, and no ``action`` or ``summary``
+process, liveness) is made to fire on seeded rows or snapshots, and no ``action`` or ``summary``
 it writes may name JAX, XLA, the MXU, the TPU, ``device_put``, remat,
 donation or the ``traceml-tpu`` command.
 """
@@ -20,6 +20,7 @@ import re
 import numpy as np
 import pytest
 
+from traceml_tpu.diagnostics.liveness import rules as jax_liveness_rules
 from traceml_tpu.diagnostics.process import rules as jax_process_rules
 from traceml_tpu.diagnostics.step_memory import rules as jax_memory_rules
 from traceml_tpu.diagnostics.step_time import rules as jax_step_rules
@@ -94,6 +95,21 @@ ACTIONS = {
     "Find the spike (often eval/checkpoint or the first step's allocations) and shave it: "
     "activation checkpointing (torch.utils.checkpoint) of the spiky computation, or stage "
     "it; torch.cuda.empty_cache() then returns the cached blocks.",
+    # liveness: RANK_LOST, LIKELY_PREEMPTED, WORLD_STALE
+    "Check the lost ranks' hosts/logs for OOM kills, preemption notices, or crashes; "
+    "cross-rank metrics after the loss point cover survivors only.":
+    "Check the lost ranks' GPU hosts: the kernel log for the OOM killer or NVIDIA Xid errors, "
+    "the scheduler's preemption notices, and each rank's crash_stderr.log; cross-rank metrics "
+    "after the loss point cover survivors only.",
+    "Check the scheduler/cloud console for preemption or eviction events on these hosts; if "
+    "preemptible capacity, consider checkpointing more frequently.":
+    "Check the scheduler (Slurm, Kubernetes) or the cloud console for preemption or eviction of "
+    "these GPU hosts; on preemptible capacity, checkpoint more often and let torchrun's elastic "
+    "restarts resume the job.",
+    "Check aggregator host load and the network path between ranks and the aggregator; "
+    "individual rank verdicts are unreliable while most of the world is silent.":
+    "Check the aggregator host's load and the network path from the GPU hosts to it; individual "
+    "rank verdicts are unreliable while most of the world is silent.",
 }
 
 # (JAX pattern, port replacement) over summaries
@@ -138,7 +154,8 @@ def test_the_table_is_one_to_one_and_names_no_jax_remedy():
     # every JAX action the table names is a text some JAX rule writes
     sources = "".join(
         open(m.__file__, encoding="utf-8").read()
-        for m in (jax_step_rules, jax_memory_rules, jax_system_rules, jax_process_rules)
+        for m in (jax_step_rules, jax_memory_rules, jax_system_rules, jax_process_rules,
+                  jax_liveness_rules)
     )
     flat = re.sub(r'"\s*\n\s*(f?)"', "", sources)
     for jax_text in ACTIONS:
@@ -232,6 +249,13 @@ def _system_process_issues(rng):
     return issues
 
 
+def _liveness_issues(rng):
+    from tests.test_torch_liveness import SNAPSHOTS
+    from traceml_tpu_torch.diagnostics.liveness import diagnose_rank_status
+
+    return [i for snap in SNAPSHOTS.values() for i in diagnose_rank_status(snap).issues]
+
+
 RULE_KINDS = {
     "step_time": {
         "CleanStragglerRule": {"COMPUTE_STRAGGLER"}, "InputBoundRule": {"INPUT_BOUND"},
@@ -255,6 +279,10 @@ RULE_KINDS = {
         "RankDeviceMemoryImbalanceRule": {"RANK_DEVICE_MEMORY_IMBALANCE"},
         "DeviceMemoryOverhangRule": {"DEVICE_MEMORY_OVERHANG"},
     },
+    "liveness": {
+        "RankLostRule": {"RANK_LOST"}, "LikelyPreemptedRule": {"LIKELY_PREEMPTED"},
+        "WorldStaleRule": {"WORLD_STALE"},
+    },
 }
 
 
@@ -265,7 +293,8 @@ def test_every_rule_fires_and_names_no_jax_remedy(pack):
     rules = importlib.import_module(f"traceml_tpu_torch.diagnostics.{pack}.rules")
     assert sorted(type(r).__name__ for r in rules.DEFAULT_RULES) == sorted(RULE_KINDS[pack])
     collect = {"step_time": _step_time_issues, "step_memory": _step_memory_issues,
-               "system": _system_process_issues, "process": _system_process_issues}[pack]
+               "system": _system_process_issues, "process": _system_process_issues,
+               "liveness": _liveness_issues}[pack]
     issues = collect(np.random.default_rng(7))
     kinds = {i.kind for i in issues}
     for rule, rule_kinds in RULE_KINDS[pack].items():

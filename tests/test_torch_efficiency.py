@@ -9,6 +9,8 @@
   for the CPU and for names it does not know.
 * The step-time sampler publishes one ``model_stats`` row per change of
   the declaration, with the peak of the declared device.
+* ``set_step_tokens``: the row and the tokens/s it gives equal the JAX
+  package's on the same declarations.
 """
 
 import pytest
@@ -123,3 +125,49 @@ def test_set_step_flops_defaults_to_the_trace_device():
         assert peak_flops_for(st.flops_device_kind) is None
     finally:
         reset_state_for_tests()
+
+
+def test_set_step_tokens_to_tokens_per_sec_as_jax():
+    """``set_step_tokens`` → the sampler's ``model_stats`` row → the
+    ``efficiency`` block: the port's row and tokens/s against the JAX
+    package's ``set_step_tokens``, sampler and ``build_efficiency`` on the
+    same declarations (to 1e-9), with FLOPs declared and without."""
+    import traceml_tpu.sdk.state as jax_state
+    from traceml_tpu.api import set_step_flops as jax_set_step_flops
+    from traceml_tpu.api import set_step_tokens as jax_set_step_tokens
+    from traceml_tpu.samplers.step_time_sampler import MODEL_STATS_TABLE as JAX_TABLE
+    from traceml_tpu.samplers.step_time_sampler import StepTimeSampler as JaxSampler
+    from traceml_tpu_torch.api import set_step_tokens
+    from traceml_tpu_torch.samplers.step_time_sampler import MODEL_STATS_TABLE, StepTimeSampler
+    from traceml_tpu_torch.sdk.flops import set_step_flops
+    from traceml_tpu_torch.sdk.state import reset_state_for_tests
+
+    # the peak is each package's own chip table (the JAX one knows TPUs)
+    keys = ("flops_per_step", "flops_source", "device_kind", "device_count", "tokens_per_step")
+    for flops in (None, 9.0e12):
+        reset_state_for_tests(device="cpu")
+        jax_state.reset_state_for_tests()
+        try:
+            ours, theirs = StepTimeSampler(), JaxSampler()
+            set_step_tokens(8 * 1024)
+            jax_set_step_tokens(8 * 1024)
+            if flops is not None:
+                set_step_flops(flops, device_kind="NVIDIA H100 80GB HBM3", device_count=1)
+                jax_set_step_flops(flops, device_kind="NVIDIA H100 80GB HBM3", device_count=1)
+            for sampler in (ours, theirs):
+                sampler.sample()
+                sampler.sample()  # unchanged: no second row
+            (row,), (jax_row,) = ours.db.tail(MODEL_STATS_TABLE), theirs.db.tail(JAX_TABLE)
+        finally:
+            reset_state_for_tests()
+            jax_state.reset_state_for_tests()
+        assert {k: row[k] for k in keys} == {k: jax_row[k] for k in keys}
+        assert row["tokens_per_step"] == 8192.0
+        step_ms = {0: 137.25, 1: 141.5}
+        eff = build_efficiency({0: row}, step_ms)
+        want = jax_build_efficiency({0: jax_row}, step_ms)
+        same = ("tokens_per_step", "tokens_per_sec_median", "flops_per_step", "achieved_tflops_median")
+        assert {k: eff[k] for k in same} == {k: want[k] for k in same}
+        assert eff["tokens_per_sec_median"] == pytest.approx(want["tokens_per_sec_median"], rel=1e-9, abs=0)
+        assert eff["tokens_per_sec_median"] == round(
+            (8192 / 0.13725 + 8192 / 0.1415) / 2, 1)

@@ -17,6 +17,11 @@ the last digits).  The JAX actions and summaries are first put through
 the advice table of ``test_torch_advice.py``: the port names PyTorch/CUDA
 remedies.
 
+Then the same with the aggregator's ``rank_status.json`` and
+``finalization_warning.json`` in the session dir: the ``liveness``
+section (states, data gaps, unfinished ranks) and its place in the
+primary diagnosis, where a lost rank outranks every performance finding.
+
 Then the same with ``model_stats_samples`` rows (the MFU inputs) beside
 compute rows and beside train-shaped rows (forward, backward, optimizer):
 the ``efficiency`` block and every section equal; and the one verdict
@@ -75,10 +80,11 @@ def assert_same(ours, theirs, path="payload"):
 
 
 def _reports(tmp_path, input_ms, compute_ms, used_frac, train=False, model_stats=None, ranks=2,
-             util_pct=92.0):
+             util_pct=92.0, session_files=None):
     """Both reports on one DB; rank r computes (1 + 0.02 r)× longer, rank
     1 uses ``used_frac`` of device memory, the others half; rank 0's
-    system rows read ``util_pct`` NVML utilization."""
+    system rows read ``util_pct`` NVML utilization.  ``session_files``
+    (name → JSON) are written into both session dirs first."""
     db = tmp_path / "telemetry.sqlite"
     payloads = wire_payloads(
         {r: step_rows(10 + r, 80, input_ms, compute_ms * (1 + 0.02 * r), train=train) for r in range(ranks)},
@@ -95,6 +101,8 @@ def _reports(tmp_path, input_ms, compute_ms, used_frac, train=False, model_stats
     ):
         session = tmp_path / name / "s"
         session.mkdir(parents=True)
+        for fname, data in (session_files or {}).items():
+            (session / fname).write_text(json.dumps(data))
         assert gen(db_path=db, session_dir=session, settings=settings)
         out[name] = json.loads((session / "final_summary.json").read_text())
         assert (session / "final_summary.txt").read_text().count("VERDICT") == 1
@@ -189,3 +197,58 @@ def test_low_mfu_on_a_patched_train_step_is_judged(tmp_path):
         assert_same(st_ours[key], st_theirs[key], f"step_time.{key}")
     for key in set(theirs["sections"]) - {"step_time"}:
         assert_same(ours["sections"][key], port_advice(theirs["sections"][key]), key)
+
+
+def _rank_status(states, now=1792000000.0, stale=1.0, lost=3.0):
+    """A ``rank_status.json`` as the aggregator writes it: rank → (state,
+    seconds of silence at ``now``, seconds from last progress to last
+    contact)."""
+    ranks = {}
+    for rank, (state, silent, gap) in states.items():
+        last_seen = now - silent
+        ranks[str(rank)] = {"state": state, "first_seen": now - 120.0, "last_seen": last_seen,
+                            "last_progress": last_seen - gap, "finished": state == "finished"}
+    return {"ts": now, "thresholds": {"stale_after_sec": stale, "lost_after_sec": lost}, "ranks": ranks,
+            "session_id": "s", "expected_world_size": len(states)}
+
+
+LIVENESS_CASES = {
+    "all_finished": ({0: ("finished", 2.0, 0.1), 1: ("finished", 2.1, 0.1)}, None, "COMPUTE_BOUND",
+                     {"HEALTHY"}),
+    "rank_killed": ({0: ("finished", 2.0, 0.1), 1: ("lost", 8.2, 0.3)},
+                    {"missing_ranks": [1], "missing_rank_states": {"1": "lost"}, "finished_ranks": [0],
+                     "expected_world_size": 2, "ts": 1792000000.0},
+                    "RANK_LOST", {"RANK_LOST", "LIKELY_PREEMPTED"}),
+    "stale_world": ({0: ("stale", 1.5, 0.2), 1: ("stale", 1.6, 30.0)},
+                    {"missing_ranks": [0, 1], "missing_rank_states": {"0": "stale", "1": "stale"},
+                     "finished_ranks": [], "expected_world_size": 2, "ts": 1792000000.0},
+                    "WORLD_STALE", {"WORLD_STALE"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVENESS_CASES))
+@pytest.mark.parametrize("input_ms", [0.5, 60.0], ids=["compute", "input_bound"])
+def test_liveness_section_matches_the_jax_report(tmp_path, case, input_ms):
+    """The liveness section and the primary diagnosis against the JAX
+    report on one session dir: a lost rank (critical + 0.7) outranks
+    INPUT_BOUND (critical + 0.6); a stale world (warning + 0.7) outranks
+    COMPUTE_BOUND but not INPUT_BOUND."""
+    states, warning, kind, kinds = LIVENESS_CASES[case]
+    files = {"rank_status.json": _rank_status(states)}
+    if warning is not None:
+        files["finalization_warning.json"] = warning
+    ours, theirs = _reports(tmp_path, input_ms, 18.0, 0.5, session_files=files)
+    sec = ours["sections"]["liveness"]
+    assert sec["status"] == "OK" and {i["kind"] for i in sec["issues"]} == kinds
+    if input_ms > 1.0 and kind != "RANK_LOST":
+        kind = "INPUT_BOUND"
+    assert ours["primary_diagnosis"]["kind"] == kind
+    assert (ours["primary_diagnosis"]["domain"] == "liveness") == (kind in ("RANK_LOST", "WORLD_STALE"))
+    assert_same(ours["primary_diagnosis"], port_advice(theirs["primary_diagnosis"]), "primary_diagnosis")
+    assert_same(sec, port_advice(theirs["sections"]["liveness"]), "sections.liveness")
+    assert_same(ours["sections"], port_advice(theirs["sections"]), "sections")
+    if case == "rank_killed":
+        assert set(sec["data_gaps"]) == {"1"} and sec["unfinished_ranks"] == [1]
+        assert sec["unfinished_rank_states"] == {"1": "lost"}
+        text = (tmp_path / "port" / "s" / "final_summary.txt").read_text()
+        assert "[liveness] RANK_LOST" in text

@@ -11,7 +11,8 @@
   guard: nothing is recorded inside ``wrap_step_fn``'s compute region.
 * ``unpatch_all_torch`` restores ``nn.Module.__call__``,
   ``Tensor.backward`` and ``torch.autograd.backward`` and removes the
-  hooks; ``init`` records what it installed and honours ``patch_*``.
+  hooks; ``init`` records what it installed (the ``torch_h2d`` patch
+  first, ``tests/test_torch_h2d.py``) and honours ``patch_*``.
 * Under ``init(mode="auto")`` the forward loop of ``forward_script.py``
   gives exactly the phases it gave before the patches existed: input,
   h2d, compute and the envelope, no forward.
@@ -173,7 +174,8 @@ def test_unpatch_restores_originals_and_removes_hooks():
     assert cfg.mode == "auto"
     from traceml_tpu_torch.sdk.state import get_state
 
-    assert get_state().patches == ["torch_dataloader", "torch_forward", "torch_backward", "torch_optimizer"]
+    assert get_state().patches == [
+        "torch_h2d", "torch_dataloader", "torch_forward", "torch_backward", "torch_optimizer"]
     assert nn.Module.__call__ is not call and torch.Tensor.backward is not t_bwd
     assert torch.autograd.backward is not a_bwd
     port_patches.unpatch_all_torch()
@@ -192,7 +194,7 @@ def test_init_modes_install_what_they_say():
     assert get_state().patches == [] and nn.Module.__call__ is call
     reset_state_for_tests(device="cpu")
     initial.init(mode="auto", device="cpu", patch_forward=False, patch_dataloader=False)
-    assert get_state().patches == ["torch_backward", "torch_optimizer"]
+    assert get_state().patches == ["torch_h2d", "torch_backward", "torch_optimizer"]
 
 
 def test_dataloader_patch_times_each_batch():

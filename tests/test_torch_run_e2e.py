@@ -14,6 +14,17 @@ on the same model under ``run`` (one rank): its rows carry forward,
 backward and optimizer phases from the auto-patches, the summary has an
 ``efficiency`` section with the FLOPs its warm-up step counted and no MFU
 (a CPU has no peak), and the 30 ms input delay makes it INPUT_BOUND.
+
+Liveness and the summary call: every healthy run's ``liveness`` section
+is OK with each rank finished; a ``--nprocs 2`` forward run whose rank 1
+sends itself SIGKILL mid-loop, under the settings of the JAX chaos test
+``test_rank_sigkill_reported_lost_with_data_gap`` (heartbeat 0.5 s,
+stale 1 s, lost 3 s, an 8 s settle window), gives that test's
+assertions; ``train_script.py --remat --h2d to --tokens --final-summary``
+gets the summary from ``final_summary()`` inside the script, with the
+final artifact's verdict, declares its tokens (tokens/s in
+``efficiency``), and ``summary()`` flattens the artifact as the JAX one
+does.
 """
 
 import json
@@ -87,6 +98,9 @@ def test_run_summary_mode_input_bound(tmp_path, nprocs):
     assert "INPUT_BOUND" in proc.stdout
     assert "flash_attention.launches 0" in proc.stdout  # S=64 < the kernel's threshold
     assert not (session / "finalization_warning.json").exists()
+    liveness = payload["sections"]["liveness"]
+    assert liveness["status"] == "OK" and liveness["diagnosis"]["kind"] == "HEALTHY"
+    assert {r: v["state"] for r, v in liveness["ranks"].items()} == {str(r): "finished" for r in range(nprocs)}
 
 
 def test_run_train_script_input_bound(tmp_path):
@@ -145,3 +159,104 @@ def test_other_modes_are_refused(tmp_path, capsys):
     assert main(["run", "--mode", "cli", "--logs-dir", str(tmp_path / "logs"), str(script)]) == 2
     assert "use --mode summary" in capsys.readouterr().out
     assert not (tmp_path / "logs").exists()
+
+
+def test_rank_sigkill_reported_lost_with_data_gap(tmp_path):
+    """The JAX chaos test's assertions on the port: rank 1 of 2 kills
+    itself after 20 of 400 steps."""
+    logs = tmp_path / "logs"
+    env = _env()
+    env.update({"TRACEML_HEARTBEAT_INTERVAL_SEC": "0.5", "TRACEML_LIVENESS_STALE_SEC": "1",
+                "TRACEML_LIVENESS_LOST_SEC": "3"})
+    proc = subprocess.run(
+        [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary", "--nprocs", "2",
+         "--logs-dir", str(logs), "--run-name", "rankkill", "--sampler-interval", "0.25",
+         "--finalize-timeout", "8", str(SCRIPT), "--",
+         "--device", "cpu", "--tiny", "--delay-ms", "30", "--steps", "400", "--kill-after", "20",
+         "--kill-rank", "1"],
+        env=env, capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
+    )
+    assert proc.returncode != 0  # a SIGKILLed rank is a failed run
+    (session,) = [p for p in logs.iterdir() if p.is_dir()]
+    manifest = json.loads((session / "manifest.json").read_text())
+    assert manifest["status"] == "failed"
+    summary = json.loads((session / "final_summary.json").read_text())
+    sec = summary["sections"]["liveness"]
+    assert sec["diagnosis"]["kind"] == "RANK_LOST", sec["diagnosis"]
+    assert sec["diagnosis"]["severity"] == "critical"
+    assert 1 in sec["diagnosis"]["ranks"], sec["diagnosis"]
+    assert "1" in sec.get("data_gaps", {}), sec.get("data_gaps")
+    assert 1 in sec["unfinished_ranks"]
+    assert sec["unfinished_rank_states"]["1"] == "lost"
+    assert summary["primary_diagnosis"]["kind"] in ("RANK_LOST", "LIKELY_PREEMPTED"), summary["primary_diagnosis"]
+    status = json.loads((session / "rank_status.json").read_text())
+    assert status["thresholds"] == {"stale_after_sec": 1.0, "lost_after_sec": 3.0}
+
+
+def test_train_script_final_summary_tokens_and_summary(tmp_path):
+    from traceml_tpu.sdk.summary_client import summary as jax_summary
+    from traceml_tpu_torch.sdk.summary_client import summary
+
+    logs = tmp_path / "logs"
+    proc = subprocess.run(
+        [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
+         "--logs-dir", str(logs), "--sampler-interval", "0.25", "--finalize-timeout", "30",
+         str(TRAIN_SCRIPT), "--", "--device", "cpu", "--tiny", "--delay-ms", "30", "--steps", str(STEPS),
+         "--remat", "--h2d", "to", "--tokens", "--final-summary"],
+        env=_env(), capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (session,) = [p for p in logs.iterdir() if p.is_dir()]
+    payload = json.loads((session / "final_summary.json").read_text())
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("final_summary ")]
+    asked = json.loads(lines[-1].split(" ", 1)[1])
+    g = payload["sections"]["step_time"]["global"]
+    assert asked["kind"] == payload["primary_diagnosis"]["kind"] == "INPUT_BOUND"
+    assert 0 < asked["n_steps"] <= g["n_steps"] == STEPS
+    assert "train_script: batches copied by Tensor.to in the step" in proc.stdout
+    eff = g["efficiency"]
+    assert eff["tokens_per_step"] == 2 * 64
+    assert eff["tokens_per_sec_median"] == round(128 / (g["steady_state"]["median_ms"] / 1e3), 1)
+    assert payload["sections"]["liveness"]["ranks"]["0"]["state"] == "finished"
+    assert not (session / "control" / "final_summary_request.json").exists()
+    flat = summary(session_dir=session)
+    assert flat == jax_summary(session_dir=session)
+    assert flat["traceml/sections/step_time/global/efficiency/tokens_per_step"] == 128
+    assert all(k.startswith("traceml/") and isinstance(v, (int, float)) for k, v in flat.items())
+
+
+def test_summary_protocol_and_service_as_jax(tmp_path):
+    """The request and response files are the JAX package's (same paths,
+    read across the two packages), and the service settles, generates,
+    answers and clears the request as the JAX one does."""
+    from traceml_tpu.sdk import protocol as jax_protocol
+    from traceml_tpu_torch.aggregator.summary_service import FinalSummaryService
+    from traceml_tpu_torch.sdk import protocol
+
+    for name in ("control_dir", "request_path", "response_path", "get_final_summary_json_path",
+                 "get_final_summary_txt_path"):
+        assert getattr(protocol, name)(tmp_path) == getattr(jax_protocol, name)(tmp_path)
+    protocol.write_summary_request(tmp_path, requester_rank=3)
+    assert jax_protocol.read_summary_request(tmp_path)["requester_rank"] == 3
+    calls = []
+    service = FinalSummaryService(TraceMLSettingsAt(tmp_path), generate=lambda: calls.append("gen") or True,
+                                  settle=lambda: calls.append("settle"), poll_interval=0.0)
+    service.poll()
+    assert calls == ["settle", "gen"] and service.requests_served == 1
+    assert jax_protocol.read_summary_response(tmp_path)["ok"] is True
+    assert protocol.read_summary_request(tmp_path) is None
+    service.poll()  # no request: nothing
+    assert calls == ["settle", "gen"]
+    protocol.write_summary_request(tmp_path)
+    failing = FinalSummaryService(TraceMLSettingsAt(tmp_path), generate=lambda: 1 / 0, poll_interval=0.0)
+    failing.poll()
+    resp = jax_protocol.read_summary_response(tmp_path)
+    assert resp["ok"] is False and "division" in resp["error"]
+    assert protocol.read_summary_request(tmp_path) is None
+
+
+class TraceMLSettingsAt:
+    """Settings whose session dir is a given directory."""
+
+    def __init__(self, session_dir):
+        self.session_dir = session_dir

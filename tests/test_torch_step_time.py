@@ -5,6 +5,10 @@ go through both packages' ``_aggregate_step`` and must give equal rows.
 Then the port's ``trace_step`` / ``wrap_step_fn`` / ``wrap_dataloader``
 run on the CPU beside the JAX SDK loop, and the rows must share the JAX
 schema, with ``clock: "host"`` on the port's side (no CUDA markers).
+``wrap_step_fn``'s FLOPs: the same decisions as the JAX wrapper's
+cost-analysis estimate (first in-step call only, a manual value wins, an
+out-of-step call publishes nothing), the flash op counted under
+``torch.inference_mode()``, and the switch that turns it off.
 """
 
 from unittest import mock
@@ -235,3 +239,124 @@ def test_probe_cost_is_a_windowed_minimum(slow_every):
             assert strides[-1] > 1 and gov.probe_cost_ema > 1e-3
     finally:
         reset_governor_for_tests()
+
+
+# -- wrap_step_fn's FLOPs, against the JAX wrapper's cost-analysis estimate --
+
+
+def _flops_decisions(pkg):
+    """After each call of the sequence (out of a step, in a step, in a
+    step), whether FLOPs are declared and by what source; then the same
+    with a manual value declared first.  ``pkg`` is "jax" or "port"."""
+    if pkg == "jax":
+        import jax.numpy as jnp
+
+        import traceml_tpu.sdk.state as state
+        from traceml_tpu.api import set_step_flops
+        from traceml_tpu.sdk.instrumentation import trace_step
+        from traceml_tpu.sdk.step_fn import wrap_step_fn
+
+        def make():
+            return wrap_step_fn(lambda x: x @ x)
+
+        def reset():
+            return state.reset_state_for_tests()
+
+        x = jnp.ones((8, 8))
+    else:
+        import traceml_tpu_torch.sdk.state as state
+        from traceml_tpu_torch.sdk.flops import set_step_flops
+        from traceml_tpu_torch.sdk.instrumentation import trace_step
+        from traceml_tpu_torch.sdk.step_fn import wrap_step_fn
+
+        def make():
+            return wrap_step_fn(lambda x: x @ x)
+
+        def reset():
+            return state.reset_state_for_tests(device="cpu")
+
+        x = torch.ones(8, 8)
+    out = []
+    for manual in (False, True):
+        st = reset()
+        if manual:
+            set_step_flops(5.0e9, device_kind="cpu", device_count=1)
+        step = make()
+        seen = []
+        step(x)  # an eval call, out of a step
+        seen.append((st.flops_per_step, st.flops_source))
+        for _ in range(2):
+            with trace_step(st):
+                step(x)
+            seen.append((st.flops_per_step, st.flops_source))
+        out.append(seen)
+    reset()
+    return out
+
+
+def test_wrap_step_fn_declares_flops_as_the_jax_wrapper():
+    """Both wrappers: an out-of-step call publishes nothing; the first
+    in-step call declares the count once (the JAX one by XLA's cost
+    analysis, the port by ``FlopCounterMode`` on that call); a manual
+    value declared before wins."""
+    sources = {"cost_analysis": "counted", "flop_counter": "counted", "manual": "manual", None: None}
+
+    def normalize(runs):
+        return [[(flops is not None, sources[src]) for flops, src in seen] for seen in runs]
+
+    theirs, ours = _flops_decisions("jax"), _flops_decisions("port")
+    assert normalize(ours) == normalize(theirs) == [
+        [(False, None), (True, "counted"), (True, "counted")],
+        [(True, "manual")] * 3,
+    ]
+    assert ours[0][1][0] == 2 * 8 ** 3  # one 8x8 matmul
+    assert [f for f, _ in ours[1]] == [5.0e9] * 3
+
+
+def test_wrap_step_fn_counts_the_flash_op_under_inference_mode():
+    """The forward of ``forward_script.py`` runs under
+    ``torch.inference_mode()``; at S=1024 its attention is the flash custom
+    op (the plain version on CPU tensors), whose FLOP formula must still
+    count: 2 x the matmul parameters x the tokens plus 4·B·H·S²·D a layer."""
+    import traceml_tpu_torch.sdk.state as state
+    from traceml_tpu_torch.models.transformer import DecoderLM, ModelConfig
+    from traceml_tpu_torch.sdk.instrumentation import trace_step
+    from traceml_tpu_torch.sdk.step_fn import wrap_step_fn
+
+    cfg = ModelConfig(vocab_size=256, hidden=128, n_layers=2, n_heads=4, n_kv_heads=2, max_seq_len=1024,
+                      dtype=torch.float32)
+    st = state.reset_state_for_tests(device="cpu")
+    try:
+        model = DecoderLM(cfg, device="cpu")
+
+        def forward(tokens):
+            with torch.inference_mode():
+                return model(tokens)
+
+        step = wrap_step_fn(forward)
+        tokens = torch.zeros(1, 1024, dtype=torch.long)
+        with trace_step(st):
+            step(tokens)
+        flops, source = st.flops_per_step, st.flops_source
+    finally:
+        state.reset_state_for_tests()
+    hd = cfg.head_dim
+    per_layer = 2 * cfg.hidden * cfg.n_heads * hd + 2 * cfg.hidden * cfg.n_kv_heads * hd + 3 * cfg.hidden * cfg.ffn_hidden
+    matmul = cfg.n_layers * per_layer + cfg.hidden * cfg.vocab_size
+    assert source == "flop_counter"
+    assert flops == 2 * matmul * 1024 + 4 * cfg.n_heads * 1024 * 1024 * hd * cfg.n_layers
+
+
+def test_wrap_step_fn_estimate_can_be_turned_off():
+    import traceml_tpu_torch.sdk.state as state
+    from traceml_tpu_torch.sdk.instrumentation import trace_step
+    from traceml_tpu_torch.sdk.step_fn import wrap_step_fn
+
+    st = state.reset_state_for_tests(device="cpu")
+    try:
+        step = wrap_step_fn(lambda x: x @ x, estimate_flops=False)
+        with trace_step(st):
+            step(torch.ones(4, 4))
+        assert st.flops_per_step is None
+    finally:
+        state.reset_state_for_tests()

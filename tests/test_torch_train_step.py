@@ -28,6 +28,16 @@
   ``cost_analysis`` of the JAX train step, which also counts elementwise
   work: the ratio port / XLA must lie in [0.93, 0.99] (measured 0.974 in
   f32 and 0.968 in bf16; jax 0.9.0 on the CPU).
+* Remat (``ModelConfig(remat=True)``, each block checkpointed): the
+  port's step against the JAX remat step within the bounds above (the
+  JAX step runs attention through its plain reference: inside
+  ``jax.checkpoint`` the Pallas kernel's failure under differentiation
+  escapes its fallback); the port's remat step against its step without
+  remat within 1e-6 in f32; ``FlopCounterMode`` counts the recompute as
+  XLA does (the analytic count plus each block's forward but its last
+  projection, exactly; port / XLA in [0.93, 0.99], measured 0.972); and
+  under ``init(mode="auto")`` a remat step records one forward, with and
+  without ``traced_model``, though the recompute calls every block again.
 """
 
 import jax
@@ -203,3 +213,144 @@ def test_estimate_step_flops_against_analytic_and_xla(jax_run):
     assert abs(flops - analytic) / analytic <= 0.01
     assert 0.93 <= flops / jax_run["xla_flops"] <= 0.99
     reset_state_for_tests()
+
+
+# -- remat: each block checkpointed ---------------------------------------
+
+
+@pytest.fixture(scope="module", params=sorted(DTYPES))
+def jax_remat_run(request):
+    """The JAX ``ModelConfig(remat=True)`` train step, as ``jax_run``.  Inside
+    ``jax.checkpoint`` the Pallas kernel's failure under differentiation
+    is raised at lowering, past ``causal_attention``'s fallback, so the
+    step runs attention through its plain reference
+    (``_PALLAS_MIN_SEQ`` raised for the fixture): the path the non-remat
+    JAX step falls back to."""
+    from traceml_tpu.ops import attention as jax_attention
+
+    jdt, tdt = DTYPES[request.param]
+    saved = jax_attention._PALLAS_MIN_SEQ
+    jax_attention._PALLAS_MIN_SEQ = 1 << 30
+    try:
+        jcfg = jax_tf.ModelConfig(dtype=jdt, remat=True, **NARROW)
+        model, state, tx = jax_tf.init_train_state(jcfg, jax.random.PRNGKey(0))
+        train_step = jax.jit(jax_tf.make_train_step(model, tx))
+        rng = np.random.default_rng(1)
+        batches = [rng.integers(0, NARROW["vocab_size"], (BATCH, TOKENS)).astype(np.int32)
+                   for _ in range(STEPS)]
+        start = jax.tree_util.tree_map(np.asarray, state["params"])
+        xla_flops = train_step.lower(state, jnp.asarray(batches[0])).cost_analysis()["flops"]
+        losses = []
+        for tokens in batches:
+            state, metrics = train_step(state, jnp.asarray(tokens))
+            losses.append(float(metrics["loss"]))
+    finally:
+        jax_attention._PALLAS_MIN_SEQ = saved
+    end = params_from_jax(jax.tree_util.tree_map(np.asarray, state["params"]))
+    return {"name": request.param, "dtype": tdt, "start": start, "end": end, "losses": losses,
+            "batches": batches, "xla_flops": float(xla_flops)}
+
+
+def _port_remat_run(run, remat=True):
+    cfg = tf.ModelConfig(dtype=run["dtype"], remat=remat, **NARROW)
+    model, optimizer = tf.init_train_state(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(run["start"]))
+    start = {n: p.detach().float().clone() for n, p in model.named_parameters()}
+    step = tf.make_train_step(model, optimizer)
+    losses = [float(step(torch.from_numpy(t).long())["loss"]) for t in run["batches"]]
+    end = {n: p.detach().float() for n, p in model.named_parameters()}
+    return losses, start, end
+
+
+def test_remat_train_step_matches_jax_remat(jax_remat_run):
+    """The port's remat step against the JAX remat step, within the
+    non-remat test's bounds (the flax params of ``nn.remat(Block)`` load
+    through ``params_from_jax`` unchanged)."""
+    losses, start, end = _port_remat_run(jax_remat_run)
+    assert all(np.isfinite(losses)) and losses[-1] != losses[0]
+    errors = _errors(jax_remat_run, losses, start, end)
+    assert _within(jax_remat_run["name"], errors), errors
+
+
+def test_remat_equals_no_remat_in_f32():
+    """Checkpointing recomputes the same forward: in f32 the port's remat
+    step and its step without remat, from the same weights on the same
+    batches, agree within 1e-6 (loss relative, every parameter after 3
+    steps by relative Frobenius)."""
+    rng = np.random.default_rng(3)
+    batches = [torch.from_numpy(rng.integers(0, NARROW["vocab_size"], (BATCH, TOKENS))).long()
+               for _ in range(STEPS)]
+    got = {}
+    for remat in (True, False):
+        model, optimizer = tf.init_train_state(tf.ModelConfig(dtype=torch.float32, remat=remat, **NARROW),
+                                               device="cpu", seed=0)
+        step = tf.make_train_step(model, optimizer)
+        losses = [float(step(t)["loss"]) for t in batches]
+        got[remat] = losses, {n: p.detach().clone() for n, p in model.named_parameters()}
+    (losses, end), (ref_losses, ref_end) = got[True], got[False]
+    assert max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)) <= 1e-6
+    assert max(rel_fro(end[n].numpy(), ref_end[n].numpy()) for n in ref_end) <= 1e-6
+
+
+def analytic_remat_flops(cfg: dict, batch: int, seq: int) -> float:
+    """The step's count plus each block's forward again, but for its last
+    projection (``w_down``): its output is not saved for the backward, so
+    ``torch.utils.checkpoint`` stops the recompute before it."""
+    hd = cfg["hidden"] // cfg["n_heads"]
+    ffn = tf.ModelConfig(**cfg).ffn_hidden
+    per_layer = 2 * cfg["hidden"] * cfg["n_heads"] * hd + 2 * cfg["hidden"] * cfg["n_kv_heads"] * hd
+    per_layer += 2 * cfg["hidden"] * ffn  # w_gate, w_up; not w_down
+    attention = 4 * batch * cfg["n_heads"] * seq * seq * hd
+    return analytic_flops(cfg, batch, seq) + (2.0 * per_layer * batch * seq + attention) * cfg["n_layers"]
+
+
+def test_remat_flops_against_analytic_and_xla(jax_remat_run):
+    """``FlopCounterMode`` counts the recompute, as XLA's cost analysis of
+    the lowered remat program does: the port's count is the analytic
+    remat count exactly (matmuls and attention are all it counts), and
+    the ratio port / XLA lies in the non-remat test's [0.93, 0.99]
+    (measured 0.972 in f32)."""
+    from traceml_tpu_torch.sdk.flops import estimate_step_flops
+    from traceml_tpu_torch.sdk.state import reset_state_for_tests
+
+    reset_state_for_tests(device="cpu")
+    try:
+        cfg = tf.ModelConfig(dtype=jax_remat_run["dtype"], remat=True, **NARROW)
+        model, optimizer = tf.init_train_state(cfg, device="cpu")
+        step = tf.make_train_step(model, optimizer)
+        flops = estimate_step_flops(step, torch.from_numpy(jax_remat_run["batches"][0]).long())
+    finally:
+        reset_state_for_tests()
+    assert flops == analytic_remat_flops(NARROW, BATCH, TOKENS - 1)
+    assert 0.93 <= flops / jax_remat_run["xla_flops"] <= 0.99
+
+
+@pytest.mark.parametrize("traced_model", [False, True])
+def test_recomputed_blocks_record_no_forward(traced_model):
+    """Under ``init(mode="auto")`` a remat train step records one forward:
+    the blocks that ``torch.utils.checkpoint`` calls again inside the timed
+    ``backward()`` are not forwards, with ``traced_model`` (a block is no
+    target) and without it (a recomputed block is an outermost call)."""
+    from collections import Counter
+
+    from traceml_tpu_torch.sdk.initial import init
+    from traceml_tpu_torch.sdk.instrumentation import trace_step
+    from traceml_tpu_torch.sdk.state import reset_state_for_tests
+    from traceml_tpu_torch.utils import timing as T
+
+    st = reset_state_for_tests(device="cpu")
+    try:
+        cfg = tf.ModelConfig(**dict(NARROW, max_seq_len=128), remat=True)
+        model, optimizer = tf.init_train_state(cfg, device="cpu")
+        init(mode="auto", device="cpu", traced_model=model if traced_model else None)
+        step = tf.make_train_step(model, optimizer)
+        tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 65))).long()
+        T.GLOBAL_STEP_QUEUE.drain()
+        for _ in range(2):
+            with trace_step(st):
+                step(tokens)
+        per_step = [Counter(e.name for e in batch.events) for batch in T.GLOBAL_STEP_QUEUE.drain()]
+    finally:
+        reset_state_for_tests()
+    assert [c[T.FORWARD_TIME] for c in per_step] == [1, 1]
+    assert [c[T.BACKWARD_TIME] for c in per_step] == [1, 1]

@@ -5,12 +5,16 @@ into phases (input wait, h2d, forward, backward, optimizer or one
 compute phase, residual) timed against CUDA events, per-step memory
 comes from the CUDA caching allocator, and the rows turn into a
 step-time verdict (INPUT_BOUND, COMPUTE_BOUND, LOW_MFU, …).
-``init(mode="auto")`` patches the DataLoader, ``nn.Module.__call__``,
-``backward`` and ``Optimizer.step``; ``estimate_step_flops`` or
-``set_step_flops`` gives the MFU numerator.
+``init(mode="auto")`` patches ``Tensor.to``/``.cuda`` (host→device
+copies), the DataLoader, ``nn.Module.__call__``, ``backward`` and
+``Optimizer.step``; ``wrap_step_fn``'s first in-step call,
+``estimate_step_flops`` or ``set_step_flops`` gives the MFU numerator,
+``set_step_tokens`` the tokens/s one.
 ``python -m traceml_tpu_torch run --mode summary script.py`` runs a
 script under tracing: the ranks ship their rows over TCP to an
-aggregator, which stores them in SQLite and writes ``final_summary.json``.
+aggregator, which stores them in SQLite, tracks each rank's liveness and
+writes ``final_summary.json``; ``final_summary()`` asks for it from
+inside the script.
 
 The JAX package ``traceml_tpu`` is the reference; this package imports
 neither it nor JAX.  The public API is a lazy facade, so importing the
@@ -30,7 +34,10 @@ _API_SYMBOLS = (
     "wrap_optimizer",
     "wrap_h2d",
     "set_step_flops",
+    "set_step_tokens",
     "estimate_step_flops",
+    "final_summary",
+    "summary",
     "live_metrics",
     "start_runtime",
     "stop_runtime",

@@ -1,20 +1,27 @@
 """The aggregator.
 
 Counterpart of ``traceml_tpu/aggregator/trace_aggregator.py`` for the
-summary mode over TCP (no display drivers, session registry, liveness
-tracker, shm rings or summary service yet).
+summary mode over TCP (no display drivers, session registry, shm rings
+or restarts yet).
 
-Owns the TCP ingest server and the SQLite writer.  Its loop blocks on
-``wait_for_data``, decodes frames on its own thread, hands telemetry
-envelopes to the writer and handles the control messages inline:
-``rank_finished`` (the end-of-run barrier), ``rank_heartbeat`` and
-``producer_stats`` (kept latest-per-rank).  Every few seconds, and once
-at the end, it writes ``ingest_stats.json``.
+Owns the TCP ingest server, the SQLite writer, the rank liveness tracker
+and the final-summary service.  Its loop blocks on ``wait_for_data``,
+decodes frames on its own thread, hands telemetry envelopes to the
+writer and handles the control messages inline: ``rank_finished`` (the
+end-of-run barrier), ``rank_heartbeat`` and ``producer_stats`` (kept
+latest-per-rank).  Every envelope and control message feeds the
+liveness tracker (a ``step_time`` envelope is step progress).  Every
+few seconds, and once at the end, it writes ``ingest_stats.json`` and
+``rank_status.json``.  Each loop tick polls the summary service, which
+answers a rank's ``final_summary()`` request.
 
 ``stop()`` settles the end of the run (drains until every expected rank
 sent ``rank_finished`` or the deadline passes, else writes
-``finalization_warning.json`` naming the missing ranks), finalizes the
-SQLite writer and generates ``final_summary.json``/``.txt``.
+``finalization_warning.json`` naming the missing ranks and their
+liveness states), finalizes the SQLite writer and generates
+``final_summary.json``/``.txt``.  The liveness states are written as
+they stand at settle-end: a rank killed mid-run reads LOST only if the
+settle window outlasts ``TRACEML_LIVENESS_LOST_SEC``.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ import threading
 import time
 from typing import Any, Dict, Optional, Set
 
+from traceml_tpu_torch.aggregator.liveness import RankLivenessTracker
 from traceml_tpu_torch.aggregator.sqlite_writer import SQLiteWriter
+from traceml_tpu_torch.aggregator.summary_service import FinalSummaryService
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
 from traceml_tpu_torch.telemetry.control import (
     PRODUCER_STATS,
@@ -68,6 +77,10 @@ class TraceMLAggregator:
         self._finished_ranks: Set[int] = set()
         self._seen_ranks: Set[int] = set()
         self._producer_stats: Dict[int, Dict[str, Any]] = {}
+        self.liveness = RankLivenessTracker()
+        self.summary_service = FinalSummaryService(
+            settings, generate=self.generate_final_summary, settle=self.settle_telemetry
+        )
         self._last_drain_frames = 0
         self._last_stats_write = 0.0
         self.envelopes_ingested = 0
@@ -133,6 +146,7 @@ class TraceMLAggregator:
                 if env is None:
                     continue
                 self._seen_ranks.add(env.global_rank)
+                self.liveness.observe(env.global_rank, progress=env.sampler == "step_time")
                 self.writer.ingest(env)
                 n += 1
             self.envelopes_ingested += n
@@ -155,7 +169,10 @@ class TraceMLAggregator:
         self._seen_ranks.add(rank)
         if kind == RANK_FINISHED:
             self._finished_ranks.add(rank)
-        elif kind == PRODUCER_STATS and isinstance(payload.get("stats"), dict):
+            self.liveness.mark_finished(rank)
+            return
+        self.liveness.observe(rank)
+        if kind == PRODUCER_STATS and isinstance(payload.get("stats"), dict):
             # snapshots are cumulative: keep the latest
             self._producer_stats[rank] = payload["stats"]
         elif kind != RANK_HEARTBEAT:
@@ -185,12 +202,23 @@ class TraceMLAggregator:
                 "ts": time.time(),
             },
         )
+        self._write_rank_status()
+
+    def _write_rank_status(self) -> None:
+        """Persist the liveness snapshot, on the stats cadence and at the
+        end: readers use the states as written (re-deriving them after the
+        run would read every rank that finished as LOST)."""
+        snap = self.liveness.snapshot()
+        snap["session_id"] = self.settings.session_id
+        snap["expected_world_size"] = self.expected_world_size()
+        atomic_write_json(self.settings.session_dir / "rank_status.json", snap)
 
     def _loop(self) -> None:
         while not self._stop_evt.is_set():
             try:
                 self.server.wait_for_data(_WAIT_S)
                 self._drain_all()
+                self.summary_service.poll()
                 now = time.monotonic()
                 if now - self._last_stats_write >= _STATS_INTERVAL_S:
                     self._last_stats_write = now
@@ -205,6 +233,12 @@ class TraceMLAggregator:
             return self.settings.expected_world_size
         return max(len(self._seen_ranks), 1)
 
+    def settle_telemetry(self, timeout: float = 5.0) -> None:
+        """Drain whatever is in flight and wait for it to be committed."""
+        deadline = time.monotonic() + timeout
+        self._drain_all()
+        self.writer.force_flush(timeout=max(0.5, deadline - time.monotonic()))
+
     def _settle_end_of_run(self, deadline: float) -> None:
         """Drain until every expected rank sent ``rank_finished`` or the
         deadline passes; then commit everything drained."""
@@ -218,13 +252,18 @@ class TraceMLAggregator:
         self.writer.force_flush(timeout=max(1.0, deadline - time.monotonic()))
         missing = sorted(set(range(expected)) - self._finished_ranks)
         if missing:
+            # each missing rank's liveness state rides along: the report
+            # tells a rank that died mid-run (LOST, a data gap) from one
+            # that only lost its finish marker
+            now = time.time()
             atomic_write_json(
                 self.settings.session_dir / "finalization_warning.json",
                 {
                     "missing_ranks": missing,
+                    "missing_rank_states": {str(r): self.liveness.state_of(r, now) for r in missing},
                     "finished_ranks": sorted(self._finished_ranks),
                     "expected_world_size": expected,
-                    "ts": time.time(),
+                    "ts": now,
                 },
             )
 

@@ -14,8 +14,10 @@ the card, so every layer's attention goes through the CUDA flash kernel.
         -- --device cpu --tiny --delay-ms 30    # the 2-layer model on the CPU
 
 ``--delay-ms`` sleeps on the host before each batch (an input pipeline
-that cannot keep up).  At the end it prints the flash kernel's launches
-in the traced loop, ``flash_attention.launches N``.
+that cannot keep up).  ``--kill-after N`` sends the process SIGKILL after
+N steps on the rank ``--kill-rank`` names (test scaffolding).  At the
+end it prints the flash kernel's launches in the traced loop,
+``flash_attention.launches N``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 import traceml_tpu_torch as tm
-from traceml_tpu_torch.dev.workload import BATCH, SEQ, build_model, full_width_config
+from traceml_tpu_torch.dev.workload import BATCH, SEQ, build_model, full_width_config, kill_after
 from traceml_tpu_torch.models.transformer import ModelConfig
 from traceml_tpu_torch.ops.flash_attention import flash_attention
 
@@ -43,6 +45,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--delay-ms", type=float, default=0.0, help="host sleep before each batch")
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true", help="the 2-layer, 128-wide model at B=2, S=64")
+    p.add_argument("--kill-after", type=int, default=0, help="SIGKILL this process after N steps")
+    p.add_argument("--kill-rank", type=int, default=0, help="the rank --kill-after kills")
     args = p.parse_args(argv)
 
     tm.init(mode="auto", device=args.device)
@@ -76,9 +80,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     step = tm.wrap_step_fn(forward)
     flash_attention.launches = 0
     t0 = time.perf_counter()
-    for tokens in tm.wrap_dataloader(batches(), to_device=True):
+    for i, tokens in enumerate(tm.wrap_dataloader(batches(), to_device=True)):
         with tm.trace_step():
             logits = step(tokens)
+        kill_after(i + 1, args.kill_after, args.kill_rank)
     if on_cuda:
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0

@@ -4,8 +4,16 @@
 
 1. Tracer overhead: the full-width forward loop untraced and traced
    (``init``, runtime, ``wrap_dataloader``, ``trace_step``,
-   ``wrap_step_fn``), in turns untraced, traced, traced, untraced; wall
-   time per step on the host clock, each run ending in a synchronize.
+   ``wrap_step_fn``), in turns untraced, traced, traced without the
+   ``torch_h2d`` patch, traced without it, traced, untraced; wall time
+   per step on the host clock, each run ending in a synchronize (the
+   traced runs' ``wrap_step_fn`` counts no FLOPs: that one-off first
+   call is timed on its own, ``[flops_count]``).  Then the ``torch_h2d``
+   patch alone on the untraced forward with the in-step gate held open,
+   off and on in turns (host enqueue per forward and wall per step); the
+   ``Tensor.to`` calls one traced step makes (forward, and train step
+   with and without remat), and the patched wrapper's host cost of one
+   in-step cast of a CUDA tensor against the unpatched method's.
 2. Where the device time goes: ``torch.profiler`` over a few traced
    steps, CUDA kernel time by kernel name, and its share of the same
    steps' wall time.  Beside it, the host's side of a step: the time to
@@ -17,7 +25,7 @@
    and 8 heads of 128), bf16, timed with CUDA events.
 4. The full-width train step (B=8, 1025 tokens, AdamW): the tracer's
    overhead (untraced, with no patch installed, against traced under
-   ``init(mode="auto")``'s forward, backward and optimizer patches,
+   ``init(mode="auto")``'s patches, with and without ``torch_h2d``,
    ``wrap_dataloader`` and ``trace_step``, in turns), and where its device
    time goes (``torch.profiler`` over a few traced steps, by kernel group,
    and the device time of the kernels launched under the plain attention
@@ -34,6 +42,11 @@
    from the main thread with nothing else running, and whether the
    host's ``/proc/stat`` advances while the main thread spins (psutil's
    host CPU % reads it).
+7. Remat: the untraced train step with each block checkpointed against
+   the step without, in turns: device time a step (CUDA events) and the
+   step's peak allocated memory; then the remat step traced under a
+   runtime ticking every 0.1 s (``[sampler_cost] remat train``): its
+   recompute runs Python on autograd's thread, beside the samplers.
 
 Each untraced run first removes the auto-patches, each traced run
 installs them, so the untraced runs pay nothing of the tracer.
@@ -58,10 +71,11 @@ PROFILED_STEPS = 5
 SEED = 0
 
 
-def _untraced_ms(model, batches, steps: int) -> float:
+def _untraced_ms(model, batches, steps: int, keep_patches: bool = False) -> float:
     from traceml_tpu_torch.sdk.initial import shutdown_patches
 
-    shutdown_patches()
+    if not keep_patches:
+        shutdown_patches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -71,16 +85,24 @@ def _untraced_ms(model, batches, steps: int) -> float:
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def _traced_ms(model, batches, steps: int) -> float:
+def _init_traced(patch_h2d: bool) -> None:
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+
+    shutdown_patches()
+    tm.init(mode="auto", patch_h2d=patch_h2d)
+
+
+def _traced_ms(model, batches, steps: int, patch_h2d: bool = True) -> float:
     import traceml_tpu_torch as tm
 
     def forward(tokens):
         with torch.inference_mode():
             return model(tokens)
 
-    tm.init(mode="auto")
+    _init_traced(patch_h2d)
     tm.start_runtime()
-    step = tm.wrap_step_fn(forward)
+    step = tm.wrap_step_fn(forward, estimate_flops=False)
     source = (batches[i % len(batches)] for i in range(steps))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -132,10 +154,10 @@ def _untraced_train_ms(step, batches, steps: int) -> float:
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def _traced_train_ms(step, batches, steps: int) -> float:
+def _traced_train_ms(step, batches, steps: int, patch_h2d: bool = True) -> float:
     import traceml_tpu_torch as tm
 
-    tm.init(mode="auto")
+    _init_traced(patch_h2d)
     tm.start_runtime()
     source = (batches[i % len(batches)] for i in range(steps))
     torch.cuda.synchronize()
@@ -248,14 +270,238 @@ def _proc_stat_advances(spin_s: float = 0.5) -> dict:
 
 
 def _overhead(runs) -> dict:
-    untraced = [ms for name, ms in runs if name == "untraced"]
-    traced = [ms for name, ms in runs if name == "traced"]
-    return {
-        "runs_ms_per_step": runs,
-        "untraced_ms": statistics.mean(untraced),
-        "traced_ms": statistics.mean(traced),
-        "overhead_pct": (statistics.mean(traced) / statistics.mean(untraced) - 1.0) * 100.0,
-    }
+    mean = {name: statistics.mean(ms for n, ms in runs if n == name) for name, _ in runs}
+    out = {"runs_ms_per_step": runs, "untraced_ms": mean["untraced"], "traced_ms": mean["traced"],
+           "overhead_pct": (mean["traced"] / mean["untraced"] - 1.0) * 100.0}
+    if "traced_no_h2d" in mean:
+        out["traced_no_h2d_ms"] = mean["traced_no_h2d"]
+        out["overhead_no_h2d_pct"] = (mean["traced_no_h2d"] / mean["untraced"] - 1.0) * 100.0
+        out["h2d_patch_pct"] = (mean["traced"] / mean["traced_no_h2d"] - 1.0) * 100.0
+    return out
+
+
+def _h2d_patch_ab(model, batches, steps: int, turns: int = 4) -> dict:
+    """The ``torch_h2d`` patch alone on the untraced full-width forward,
+    with the trace's in-step gate held open (``tls.in_step``) so that each
+    of the model's casts takes the path it takes in a traced step: host
+    ms to enqueue one forward on an idle card (median of ``steps``) and
+    wall ms per step of ``steps`` back-to-back forwards, patch off and on
+    in turns (off, on, on, off, ...)."""
+    from traceml_tpu_torch.instrumentation.patches.torch_h2d_patch import patch_torch_h2d, unpatch_torch_h2d
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+    from traceml_tpu_torch.sdk.state import get_state
+
+    shutdown_patches()
+    device_batches = [b.to("cuda") for b in batches]
+    tls = get_state().tls
+    out = {"off": {"enqueue_ms_median": [], "wall_ms": []}, "on": {"enqueue_ms_median": [], "wall_ms": []}}
+    for turn in range(turns):
+        for on in ((False, True) if turn % 2 == 0 else (True, False)):
+            if on:
+                patch_torch_h2d()
+            tls.in_step = True
+            try:
+                with torch.inference_mode():
+                    enqueue = []
+                    for i in range(steps):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        model(device_batches[i % len(device_batches)])
+                        enqueue.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for i in range(steps):
+                        model(device_batches[i % len(device_batches)])
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) / steps * 1e3
+            finally:
+                tls.in_step = False
+                unpatch_torch_h2d()
+            key = "on" if on else "off"
+            out[key]["enqueue_ms_median"].append(statistics.median(enqueue))
+            out[key]["wall_ms"].append(wall)
+    for v in out.values():
+        v["enqueue_ms_mean_of_medians"] = statistics.mean(v["enqueue_ms_median"])
+        v["wall_ms_mean"] = statistics.mean(v["wall_ms"])
+    out["enqueue_pct"] = (out["on"]["enqueue_ms_mean_of_medians"] / out["off"]["enqueue_ms_mean_of_medians"]
+                          - 1.0) * 100.0
+    out["wall_pct"] = (out["on"]["wall_ms_mean"] / out["off"]["wall_ms_mean"] - 1.0) * 100.0
+    return out
+
+
+def _h2d_patch_variants(model, batches, steps: int) -> dict:
+    """Wall ms per step of the traced forward loop (``_traced_ms``'s) and of
+    the untraced one with only the forward patch installed, each with no
+    ``Tensor.to`` patch, with ``torch_h2d``, and with a bare Python
+    pass-through over ``Tensor.to`` (what any Python-level patch of the
+    method costs), in the order A B C C B A."""
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.instrumentation.patches.torch_patches import patch_torch_forward
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+
+    base = torch.Tensor.to
+
+    def passthrough(self, *args, **kwargs):  # noqa: ANN001
+        return base(self, *args, **kwargs)
+
+    def traced(variant: str) -> float:
+        if variant == "passthrough":
+            _init_traced(False)
+            torch.Tensor.to = passthrough
+        else:
+            _init_traced(variant == "torch_h2d")
+        try:
+            tm.start_runtime()
+            step = tm.wrap_step_fn(lambda t: _inference(model, t), estimate_flops=False)
+            source = (batches[i % len(batches)] for i in range(steps))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for tokens in tm.wrap_dataloader(source, to_device=True):
+                with tm.trace_step():
+                    step(tokens)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            tm.stop_runtime()
+            return ms
+        finally:
+            if variant == "passthrough":
+                del torch.Tensor.to
+
+    def untraced(variant: str) -> float:
+        from traceml_tpu_torch.instrumentation.patches.torch_h2d_patch import patch_torch_h2d
+
+        shutdown_patches()
+        if variant == "passthrough":
+            torch.Tensor.to = passthrough
+        elif variant == "torch_h2d":
+            patch_torch_h2d()
+        patch_torch_forward()
+        try:
+            return _untraced_ms(model, batches, steps, keep_patches=True)
+        finally:
+            shutdown_patches()
+            if variant == "passthrough":
+                del torch.Tensor.to
+
+    order = ("none", "torch_h2d", "passthrough", "passthrough", "torch_h2d", "none")
+    out = {}
+    for name, run in (("traced", traced), ("untraced_forward_patch", untraced)):
+        runs = [(v, run(v)) for v in order]
+        out[name] = {"runs_ms_per_step": runs,
+                     **{v: statistics.mean(ms for n, ms in runs if n == v) for v in order[:3]}}
+    return out
+
+
+def _inference(model, tokens):
+    with torch.inference_mode():
+        return model(tokens)
+
+
+def _flops_count_ms(model, batches) -> dict:
+    """Host ms of ``wrap_step_fn``'s first in-step call, which runs under
+    ``FlopCounterMode``, against its second call (each synchronized)."""
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.sdk.state import get_state
+
+    def forward(tokens):
+        with torch.inference_mode():
+            return model(tokens)
+
+    st = get_state()
+    st.flops_per_step = None
+    _init_traced(True)
+    step = tm.wrap_step_fn(forward)
+    tokens = batches[0].to("cuda")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with tm.trace_step():
+            t0 = time.perf_counter()
+            step(tokens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {"first_call_ms": times[0], "second_call_ms": times[1], "flops_per_step": st.flops_per_step,
+            "flops_source": st.flops_source}
+
+
+def _to_calls_per_step(run_step) -> int:
+    """``Tensor.to`` calls in one ``run_step()`` inside a ``trace_step``,
+    counted by a wrapper over the installed method."""
+    import traceml_tpu_torch as tm
+
+    calls = [0]
+    installed = torch.Tensor.to
+
+    def counting(self, *args, **kwargs):  # noqa: ANN001
+        calls[0] += 1
+        return installed(self, *args, **kwargs)
+
+    torch.Tensor.to = counting
+    try:
+        with tm.trace_step():
+            run_step()
+        torch.cuda.synchronize()
+    finally:
+        torch.Tensor.to = installed
+    return calls[0]
+
+
+def _to_call_host_ns(calls: int = 20000) -> dict:
+    """Host cost of one in-step ``x.to(torch.bfloat16)`` of a small CUDA
+    bf16 tensor (a no-op cast, as most of the model's are), with the
+    ``torch_h2d`` patch installed and without it."""
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.sdk.state import get_state
+
+    x = torch.zeros(8, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for patched in (False, True, True, False):
+        _init_traced(patched)
+        with tm.trace_step():
+            assert get_state().tls.in_step
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                x.to(torch.bfloat16)
+            ns = (time.perf_counter() - t0) / calls * 1e9
+        out.setdefault("patched" if patched else "unpatched", []).append(ns)
+    torch.cuda.synchronize()
+    return {k: statistics.mean(v) for k, v in out.items()} | {"runs": out}
+
+
+def _remat_compare(cfg, batches, steps: int = 20) -> dict:
+    """The untraced train step with and without remat, in turns: device
+    ms a step (CUDA events over ``steps`` steps) and the peak allocated
+    bytes of one step."""
+    import dataclasses
+
+    from traceml_tpu_torch.dev.workload import build_train_state, cuda_ms
+    from traceml_tpu_torch.models.transformer import make_train_step
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+
+    shutdown_patches()
+    tokens = batches[0].to("cuda")
+    out = {}
+    for remat in (False, True, True, False):
+        model, optimizer = build_train_state(dataclasses.replace(cfg, remat=remat), SEED)
+        step = make_train_step(model, optimizer)
+        ms = cuda_ms(lambda: step(tokens), steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(tokens)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        key = "remat" if remat else "no_remat"
+        out.setdefault(key, {"step_ms": [], "peak_bytes": [], "resident_bytes": []})
+        out[key]["step_ms"].append(ms)
+        out[key]["peak_bytes"].append(peak)
+        out[key]["resident_bytes"].append(base)
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+    for v in out.values():
+        v["step_ms_mean"] = statistics.mean(v["step_ms"])
+    out["step_ms_ratio"] = out["remat"]["step_ms_mean"] / out["no_remat"]["step_ms_mean"]
+    return out
 
 
 def kernel_group(kernel_name: str) -> str:
@@ -288,7 +534,11 @@ def _kernel_breakdown(prof) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """``--only h2d`` stops after the forward's overhead and ``torch_h2d``
+    measurements."""
+    args = sys.argv[1:] if argv is None else argv
+    only = args[args.index("--only") + 1] if "--only" in args else None
     if not torch.cuda.is_available():
         print("measure_main_path: CUDA is not available", file=sys.stderr)
         return 2
@@ -318,10 +568,23 @@ def main() -> int:
     runs = [
         ("untraced", _untraced_ms(model, batches, STEPS)),
         ("traced", _traced_ms(model, batches, STEPS)),
+        ("traced_no_h2d", _traced_ms(model, batches, STEPS, patch_h2d=False)),
+        ("traced_no_h2d", _traced_ms(model, batches, STEPS, patch_h2d=False)),
         ("traced", _traced_ms(model, batches, STEPS)),
         ("untraced", _untraced_ms(model, batches, STEPS)),
     ]
     print("[overhead] " + json.dumps(_overhead(runs)), flush=True)
+    print("[h2d_patch] forward_ab " + json.dumps(_h2d_patch_ab(model, batches, STEPS)), flush=True)
+    print("[h2d_patch] variants " + json.dumps(_h2d_patch_variants(model, batches, STEPS)), flush=True)
+    if only == "h2d":
+        return 0
+    print("[flops_count] " + json.dumps(_flops_count_ms(model, batches)), flush=True)
+    print("[h2d_patch] to_call_host_ns " + json.dumps(_to_call_host_ns()), flush=True)
+    _init_traced(True)
+    probe = batches[0].to("cuda")
+    with torch.inference_mode():
+        print("[h2d_patch] forward to_calls_per_step " + json.dumps(_to_calls_per_step(lambda: model(probe))),
+              flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -380,10 +643,16 @@ def main() -> int:
     runs = [
         ("untraced", _untraced_train_ms(step, train_batches, STEPS)),
         ("traced", _traced_train_ms(step, train_batches, STEPS)),
+        ("traced_no_h2d", _traced_train_ms(step, train_batches, STEPS, patch_h2d=False)),
+        ("traced_no_h2d", _traced_train_ms(step, train_batches, STEPS, patch_h2d=False)),
         ("traced", _traced_train_ms(step, train_batches, STEPS)),
         ("untraced", _untraced_train_ms(step, train_batches, STEPS)),
     ]
     print("[train_overhead] " + json.dumps(_overhead(runs)), flush=True)
+    _init_traced(True)
+    probe = train_batches[0].to("cuda")
+    print("[h2d_patch] train to_calls_per_step " + json.dumps(_to_calls_per_step(lambda: step(probe))),
+          flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_ms = _traced_train_ms(step, train_batches, PROFILED_STEPS)
     breakdown = _kernel_breakdown(prof)
@@ -396,6 +665,19 @@ def main() -> int:
         print("[governor] train " + json.dumps(_governor_trace(lambda: step, train_batches, STEPS)), flush=True)
     print("[sampler_cost] train " + json.dumps(_sampler_cost(lambda: step, train_batches, STEPS)), flush=True)
     print("[proc_stat] " + json.dumps(_proc_stat_advances()), flush=True)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    remat = _remat_compare(cfg, train_batches)
+    print("[remat] " + json.dumps(remat), flush=True)
+    import dataclasses
+
+    model, optimizer = build_train_state(dataclasses.replace(cfg, remat=True), SEED)
+    step = make_train_step(model, optimizer)
+    _init_traced(True)
+    print("[h2d_patch] remat train to_calls_per_step " + json.dumps(_to_calls_per_step(lambda: step(probe))),
+          flush=True)
+    print("[sampler_cost] remat train " + json.dumps(_sampler_cost(lambda: step, train_batches, STEPS)),
+          flush=True)
     return 0
 
 

@@ -20,19 +20,39 @@ S=1024 and every layer's attention goes through the CUDA flash kernel.
 ``--delay-ms`` sleeps on the host before each batch (an input pipeline
 that cannot keep up).  At the end it prints the loss of the first and the
 last traced step and the flash kernel's launches in the traced loop,
-``flash_attention.launches N``.
+``flash_attention.launches N``.  Test scaffolding, not features:
+
+* ``--remat`` checkpoints each block (``ModelConfig.remat``);
+* ``--h2d to`` copies each batch inside the step with
+  ``batch.to(device, non_blocking=True)`` from pinned memory, timed by
+  the ``torch_h2d`` auto-patch (the default, ``--h2d dataloader``, copies
+  through ``wrap_dataloader(to_device=True)``);
+* ``--tokens`` declares the step's tokens, ``set_step_tokens(B * S)``;
+* ``--final-summary`` calls ``final_summary()`` after the loop and prints
+  ``final_summary {"kind": ..., "n_steps": ...}``;
+* ``--kill-after N`` sends the process SIGKILL after N steps, on the rank
+  ``--kill-rank`` names (default 0).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import time
 from typing import List, Optional
 
 import torch
 
 import traceml_tpu_torch as tm
-from traceml_tpu_torch.dev.workload import BATCH, TRAIN_TOKENS, build_train_state, full_width_config, host_batches
+from traceml_tpu_torch.dev.workload import (
+    BATCH,
+    TRAIN_TOKENS,
+    build_train_state,
+    full_width_config,
+    host_batches,
+    kill_after,
+)
 from traceml_tpu_torch.models.transformer import ModelConfig, make_train_step
 from traceml_tpu_torch.ops.flash_attention import flash_attention
 
@@ -46,6 +66,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--delay-ms", type=float, default=0.0, help="host sleep before each batch")
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true", help="the 2-layer, 128-wide model on (2, 65) tokens")
+    p.add_argument("--remat", action="store_true", help="checkpoint each block")
+    p.add_argument("--h2d", choices=("dataloader", "to"), default="dataloader",
+                   help="copy batches by wrap_dataloader(to_device=True) or by batch.to() in the step")
+    p.add_argument("--tokens", action="store_true", help="declare the step's tokens")
+    p.add_argument("--final-summary", action="store_true", help="call final_summary() after the loop")
+    p.add_argument("--kill-after", type=int, default=0, help="SIGKILL this process after N steps")
+    p.add_argument("--kill-rank", type=int, default=0, help="the rank --kill-after kills")
     args = p.parse_args(argv)
 
     on_cuda = torch.device(args.device).type == "cuda"
@@ -53,6 +80,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg, batch, n_tokens = ModelConfig.tiny(), TINY_BATCH, TINY_TOKENS
     else:
         cfg, batch, n_tokens = full_width_config(), BATCH, TRAIN_TOKENS
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=True)
     model, optimizer = build_train_state(cfg, SEED, device=args.device)
     tm.init(mode="auto", device=args.device, traced_model=model)
     train_step = make_train_step(model, optimizer)
@@ -63,6 +92,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if on_cuda:
         torch.cuda.synchronize()
     print(f"train_script: {flops:.6e} model FLOPs per step (FlopCounterMode)", flush=True)
+    if args.tokens:
+        tm.set_step_tokens(batch * (n_tokens - 1))
 
     def batches():
         for i in range(args.steps):
@@ -72,10 +103,16 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     flash_attention.launches = 0
     losses = []
+    copy_in_step = args.h2d == "to"
+    print("train_script: batches copied by "
+          + ("Tensor.to in the step" if copy_in_step else "wrap_dataloader(to_device=True)"), flush=True)
     t0 = time.perf_counter()
-    for tokens in tm.wrap_dataloader(batches(), to_device=True):
+    for i, tokens in enumerate(tm.wrap_dataloader(batches(), to_device=not copy_in_step)):
         with tm.trace_step():
+            if copy_in_step:
+                tokens = tokens.to(args.device, non_blocking=True)
             losses.append(train_step(tokens)["loss"])
+        kill_after(i + 1, args.kill_after, args.kill_rank)
     if on_cuda:
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -84,6 +121,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"train_script: {args.steps} steps in {wall_s:.4f} s wall; loss first {first:.6f} "
           f"last {last:.6f} finite={finite}", flush=True)
     print(f"flash_attention.launches {flash_attention.launches}", flush=True)
+    if args.final_summary:
+        got = tm.final_summary(timeout=120.0) or {}
+        step_time = (got.get("sections") or {}).get("step_time") or {}
+        print("final_summary " + json.dumps({
+            "kind": (got.get("primary_diagnosis") or {}).get("kind"),
+            "n_steps": (step_time.get("global") or {}).get("n_steps"),
+        }), flush=True)
     return 0 if finite else 1
 
 

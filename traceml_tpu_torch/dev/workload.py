@@ -144,3 +144,14 @@ def sampler_cost_summary(costs: Dict[str, List[float]]) -> Dict[str, Any]:
     ticks = [sum(t) for t in zip(*(v for v in costs.values() if v))]
     out["all_samplers_median_us_per_tick"] = statistics.median(ticks) * 1e6 if ticks else None
     return out
+
+
+def kill_after(step: int, after: int, rank: int) -> None:
+    """SIGKILL this process once ``step`` (1-based) reaches ``after`` when
+    it is rank ``rank`` (``RANK``, 0 when unset): a rank that dies mid-run
+    for the liveness runs.  ``after`` 0 never kills."""
+    import os
+    import signal
+
+    if after and step == after and int(os.environ.get("RANK", 0)) == rank:
+        os.kill(os.getpid(), signal.SIGKILL)

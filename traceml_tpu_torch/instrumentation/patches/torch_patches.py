@@ -17,7 +17,9 @@ Two things differ from the JAX package, whose timers are host-clock:
   (``tls.compute_depth``) or ``wrap_forward`` / ``wrap_backward`` /
   ``wrap_optimizer`` is timing is not recorded: the work is in that
   region already, and recording it twice would count it twice in the
-  step's accounted phases.
+  step's accounted phases.  Nor is a module call made while
+  ``backward()`` is timed: that is the recompute of a checkpointed block
+  (``ModelConfig.remat``), part of the backward's work.
 """
 
 from __future__ import annotations
@@ -68,6 +70,15 @@ def _records(st: TraceState, depth_attr: Optional[str] = None) -> bool:
     return depth_attr is None or not getattr(tls, depth_attr)
 
 
+def _records_forward(st: TraceState) -> bool:
+    """As ``_records``, and no module call is a forward while
+    ``backward()`` is being timed: ``torch.utils.checkpoint`` calls each
+    checkpointed block again in the backward to recompute it, and that
+    work is the backward's.  (On CUDA autograd runs the recompute on its
+    device thread, where ``tls.in_step`` is unset anyway.)"""
+    return _records(st, "forward_depth") and not st.tls.backward_depth
+
+
 def patch_torch_forward() -> bool:
     import torch.nn as nn
 
@@ -78,7 +89,7 @@ def patch_torch_forward() -> bool:
 
         def patched_call(self, *args, **kwargs):  # noqa: ANN001
             st = get_state()
-            if not _records(st, "forward_depth") or not _is_target(self):
+            if not _records_forward(st) or not _is_target(self):
                 return original(self, *args, **kwargs)
             return timed_call(FORWARD_TIME, "forward_depth", original, st, self, *args, **kwargs)
 

@@ -19,7 +19,12 @@ RMSNorm and an f32 ``lm_head``.  Numerics follow the flax module:
   leaves it to the backend: TF32 on a Hopper GPU.  The port runs the
   ``lm_head``'s three GEMMs (forward and both gradients) at TF32 and no
   other matmul (``TF32Dense``); on the CPU TF32 does not exist and
-  nothing changes.
+  nothing changes;
+* ``remat`` checkpoints each block, as ``nn.remat(Block)`` does: the
+  forward keeps only each block's input, and the backward recomputes the
+  block's forward (``torch.utils.checkpoint``, non-reentrant) before
+  differentiating it.  The flash kernel then runs twice a layer and a
+  step, once in the forward and once in the recompute.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from traceml_tpu_torch.ops.attention import causal_attention
 from traceml_tpu_torch.utils.device import resolve_device
@@ -49,6 +55,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -269,7 +276,10 @@ class DecoderLM(nn.Module):
         x = self.embed(tokens)
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         for layer in self.layers:
-            x = layer(x, positions)
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, positions, use_reentrant=False)
+            else:
+                x = layer(x, positions)
         return self.lm_head(self.final_norm(x))
 
 
@@ -295,6 +305,7 @@ def init_train_state(
     """``(model, optimizer)``: a DecoderLM initialised from ``seed`` and
     AdamW with weight decay 0.01 on every parameter, as the JAX
     ``init_train_state`` builds with ``optax.adamw(lr, weight_decay=0.01)``.
+    ``cfg.remat`` checkpoints each block, as in the JAX model.
 
     Torch's AdamW and optax's compute the same update,
     ``p ← p − lr·(m̂/(√v̂+ε) + wd·p)`` with the decay read from the

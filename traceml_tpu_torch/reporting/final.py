@@ -1,17 +1,19 @@
 """Final summary generator.
 
 Counterpart of ``traceml_tpu/reporting/final.py`` for the system,
-process, step-time and step-memory domains.  Reads the SQLite projections
-through
-``reporting/loaders.py``, builds the step-time window with the scalar
-``utils/step_time_window.py`` (the JAX package's golden reference arm),
+process, step-time, step-memory and liveness domains.  Reads the SQLite
+projections through ``reporting/loaders.py``, builds the step-time
+window with the scalar ``utils/step_time_window.py`` (the JAX package's
+golden reference arm),
 runs each domain's diagnosis, promotes a run-level primary diagnosis,
 and writes ``final_summary.json`` and ``final_summary.txt`` atomically.
 A failed section degrades to a NO_DATA payload: the report never fails
 because one domain did.
 
-The ``collectives`` and ``liveness`` sections are NO_DATA stubs (their
-samplers come later), and the payload leaves out what the JAX report adds
+The liveness section reads the aggregator's ``rank_status.json`` and
+``finalization_warning.json``, not the database: a rank killed mid-run
+left no closing rows.  The ``collectives`` section is a NO_DATA stub (its
+sampler comes later), and the payload leaves out what the JAX report adds
 only when it has something for it: the cross-run ``regressions``, the
 stitched ``history`` and ``meta.window_build``; no HTML artifact is
 written yet.
@@ -27,6 +29,7 @@ from typing import Any, Callable, Dict, Optional
 from traceml_tpu_torch.analytics.efficiency import build_efficiency
 from traceml_tpu_torch.analytics.trends.core import compute_window_trend
 from traceml_tpu_torch.diagnostics.common import DiagnosticResult
+from traceml_tpu_torch.diagnostics.liveness.api import diagnose_rank_status
 from traceml_tpu_torch.diagnostics.process.api import diagnose as diagnose_process
 from traceml_tpu_torch.diagnostics.step_memory.api import diagnose_rank_rows as diagnose_memory
 from traceml_tpu_torch.diagnostics.step_time.api import diagnose_window
@@ -640,11 +643,46 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
             out.extend(f"  {l}" for l in card.splitlines())
             out.append("")
 
-    for key in ("system", "process", "step_memory", "step_time"):
+    for key in ("liveness", "system", "process", "step_memory", "step_time"):
         diag = (sections.get(key) or {}).get("diagnosis") or {}
         if diag.get("status") == "issue":
             out.append(f"[{key}] {diag.get('kind')}: {diag.get('summary')}")
     return "\n".join(out) + "\n"
+
+
+def _build_liveness_section(session_dir: Path, mode: str):
+    """Rank liveness and the data gaps, from the aggregator's persisted
+    snapshots (``rank_status.json``, ``finalization_warning.json``)."""
+    snap = loaders.load_rank_status(session_dir)
+    if not snap:
+        return _no_data_section("liveness"), None
+    result = diagnose_rank_status(snap, mode=mode)
+    ranks = snap.get("ranks") or {}
+    # a lost rank's telemetry holds only up to its last contact: past
+    # gap_from_ts the cross-rank aggregates cover the survivors
+    gaps: Dict[str, Any] = {}
+    for rank_s, info in ranks.items():
+        if isinstance(info, dict) and info.get("state") == "lost" and not info.get("finished"):
+            gaps[rank_s] = {
+                "gap_from_ts": info.get("last_seen"),
+                "last_progress_ts": info.get("last_progress"),
+            }
+    section: Dict[str, Any] = {
+        "status": "OK",
+        "diagnosis": result.diagnosis.to_dict(),
+        "issues": [i.to_dict() for i in result.issues],
+        "thresholds": snap.get("thresholds"),
+        "expected_world_size": snap.get("expected_world_size"),
+        "ranks": ranks,
+    }
+    if gaps:
+        section["data_gaps"] = gaps
+    warn = read_json(Path(session_dir) / "finalization_warning.json")
+    if isinstance(warn, dict) and warn.get("missing_ranks"):
+        section["unfinished_ranks"] = warn.get("missing_ranks")
+        if warn.get("missing_rank_states"):
+            section["unfinished_rank_states"] = warn["missing_rank_states"]
+    return section, result
 
 
 # -- entrypoint ----------------------------------------------------------
@@ -727,10 +765,15 @@ def generate_summary(
             topology = {"mode": "unknown", "world_size": 0}
     finally:
         conn.close()
+
+    def run_liveness():
+        section, results["liveness"] = _build_liveness_section(session_dir, mode)
+        return section
+
     sections = {
         **built,
         "collectives": _no_data_section("collectives"),
-        "liveness": _no_data_section("liveness"),
+        "liveness": _safe_section("liveness", run_liveness),
     }
     primary = build_primary_diagnosis(
         results.get("step_time"),
@@ -738,6 +781,7 @@ def generate_summary(
         results.get("system"),
         results.get("process"),
         step_time_error=sections["step_time"].get("error"),
+        liveness=results.get("liveness"),
     )
     meta: Dict[str, Any] = {
         "session_id": getattr(settings, "session_id", "unknown"),

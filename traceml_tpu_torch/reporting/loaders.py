@@ -1,7 +1,8 @@
 """SQLite read paths of the final report.
 
 Counterpart of ``traceml_tpu/reporting/loaders.py``, trimmed to the
-tables the port writes.  One-shot readers, one query per table; the
+tables the port writes, and the aggregator's ``rank_status.json``.
+One-shot readers, one query per table; the
 step-time and step-memory reads are bounded per rank with a
 ``ROW_NUMBER() OVER (PARTITION BY global_rank ...)`` window, the system
 and process reads by their newest rows.  Every loader accepts an optional ``conn`` to reuse a
@@ -271,3 +272,14 @@ def load_rank_identities(
                     "local_world_size": r["local_world_size"],
                 }
     return identity
+
+
+def load_rank_status(session_dir: Path) -> Dict[str, Any]:
+    """The rank liveness snapshot (per rank: active, stale, lost or
+    finished, last seen, last progress; the thresholds) from
+    ``rank_status.json``, states as the aggregator wrote them; ``{}`` when
+    the file is missing or unreadable."""
+    from traceml_tpu_torch.utils.atomic_io import read_json
+
+    data = read_json(Path(session_dir) / "rank_status.json")
+    return data if isinstance(data, dict) else {}

@@ -1,7 +1,10 @@
 """Run-level primary diagnosis.
 
 Counterpart of ``traceml_tpu/reporting/primary_diagnosis.py`` for the
-four domains the port diagnoses.  Promotes the step-time finding to run
+five domains the port diagnoses.  A non-healthy liveness finding (a lost
+rank) scores its severity rank plus 0.7 and outranks every performance
+finding: the run's world shrank, and the cross-rank metrics past the
+loss cover the survivors only.  Promotes the step-time finding to run
 level (a severity rank plus 0.6); a non-healthy step-memory, system or
 process finding scores its severity rank alone, so a warning there (1.0)
 outranks an info-grade step-time verdict such as COMPUTE_BOUND (0.6) but
@@ -28,8 +31,12 @@ def build_primary_diagnosis(
     system: Optional[DiagnosticResult] = None,
     process: Optional[DiagnosticResult] = None,
     step_time_error: Optional[str] = None,
+    liveness: Optional[DiagnosticResult] = None,
 ) -> Dict[str, Any]:
     candidates = []
+    if liveness is not None and not liveness.healthy:
+        issue = liveness.diagnosis
+        candidates.append((_SEV_ORDER.get(issue.severity, 0) + 0.7, "liveness", issue))
     if step_time is not None:
         issue = step_time.diagnosis
         if issue.kind == "INSUFFICIENT_STEP_TIME_DATA":

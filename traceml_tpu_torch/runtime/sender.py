@@ -7,7 +7,10 @@ encode it once, and ship the whole tick as ONE frame.  Best-effort all
 the way down: a batch the client cannot send is dropped and counted.
 
 Idle ticks cost one ``dirty()`` check per sampler and send nothing but,
-every ``HEARTBEAT_INTERVAL_S``, a ``rank_heartbeat``.
+every ``TRACEML_HEARTBEAT_INTERVAL_SEC`` seconds (default 3, at least
+0.25, as in the JAX package), a ``rank_heartbeat``: the aggregator's
+liveness tracker reads a rank that stays silent past its thresholds as
+stale, then lost.
 
 The publisher observes itself: per sampler the envelopes, bytes and the
 nanoseconds spent collecting and encoding; per run the nanoseconds spent
@@ -23,6 +26,7 @@ them to the aggregator on a non-idle tick at most every
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -33,8 +37,21 @@ from traceml_tpu_torch.transport.tcp_transport import TCPClient
 from traceml_tpu_torch.utils import msgpack_codec
 from traceml_tpu_torch.utils.error_log import get_error_log
 
-HEARTBEAT_INTERVAL_S = 3.0
+ENV_HEARTBEAT_INTERVAL = "TRACEML_HEARTBEAT_INTERVAL_SEC"
+DEFAULT_HEARTBEAT_INTERVAL_S = 3.0
+MIN_HEARTBEAT_INTERVAL_S = 0.25
 STATS_INTERVAL_S = 10.0
+
+
+def heartbeat_interval_from_env() -> float:
+    """Seconds between heartbeats: ``TRACEML_HEARTBEAT_INTERVAL_SEC``, 3.0
+    when unset or malformed, never below 0.25."""
+    raw = os.environ.get(ENV_HEARTBEAT_INTERVAL)
+    try:
+        value = float(raw) if raw is not None else DEFAULT_HEARTBEAT_INTERVAL_S
+    except ValueError:
+        value = DEFAULT_HEARTBEAT_INTERVAL_S
+    return max(MIN_HEARTBEAT_INTERVAL_S, value)
 
 
 class TelemetryPublisher:
@@ -55,6 +72,7 @@ class TelemetryPublisher:
         self._flush_ns = 0
         self._flushes = 0
         self._last_stats_emit = time.monotonic()
+        self._heartbeat_interval = heartbeat_interval_from_env()
         self._last_heartbeat = 0.0  # monotonic; 0 → the first idle tick sends one
         # per-rank monotonic seq with a time_ns base: a restarted rank
         # resumes above every seq its previous incarnation stamped
@@ -114,7 +132,7 @@ class TelemetryPublisher:
 
     def _maybe_heartbeat(self) -> None:
         now = time.monotonic()
-        if now - self._last_heartbeat < HEARTBEAT_INTERVAL_S:
+        if now - self._last_heartbeat < self._heartbeat_interval:
             return
         self._last_heartbeat = now
         hb = build_rank_heartbeat(self._identity.to_meta())

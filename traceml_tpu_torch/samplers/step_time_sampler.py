@@ -145,20 +145,19 @@ class StepTimeSampler(BaseSampler):
             from traceml_tpu_torch.utils.chip_specs import peak_flops_for
 
             st = get_state()
-            flops = st.flops_per_step
-            key = (flops, st.flops_source, st.flops_device_kind, st.flops_device_count)
-            if flops is None or key == self._stats_sent:
+            flops, tokens = st.flops_per_step, st.tokens_per_step
+            key = (flops, st.flops_source, st.flops_device_kind, st.flops_device_count, tokens)
+            if (flops is None and tokens is None) or key == self._stats_sent:
                 return
             self._stats_sent = key
             self.db.add_record(MODEL_STATS_TABLE, {
                 "timestamp": time.time(),
-                "flops_per_step": float(flops),
+                "flops_per_step": float(flops) if flops is not None else None,
                 "flops_source": st.flops_source,
                 "device_kind": st.flops_device_kind,
                 "peak_flops": peak_flops_for(st.flops_device_kind),
                 "device_count": st.flops_device_count,
-                # the JAX package's set_step_tokens has no counterpart yet
-                "tokens_per_step": None,
+                "tokens_per_step": tokens,
             })
         except Exception as exc:  # fail-open: MFU never breaks sampling
             get_error_log().warning("model_stats publish failed", exc)

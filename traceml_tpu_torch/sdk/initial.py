@@ -2,7 +2,8 @@
 
 Counterpart of ``traceml_tpu/sdk/initial.py``.  Modes:
 
-* ``auto``      — apply every patch: ``torch_dataloader``
+* ``auto``      — apply every patch: ``torch_h2d`` (``Tensor.to`` and
+  ``Tensor.cuda``, host→device copies only), ``torch_dataloader``
   (``DataLoader.__iter__``), ``torch_forward`` (``nn.Module.__call__``),
   ``torch_backward`` (``Tensor.backward``, ``torch.autograd.backward``)
   and ``torch_optimizer`` (global ``Optimizer.step`` hooks);
@@ -13,10 +14,10 @@ Counterpart of ``traceml_tpu/sdk/initial.py``.  Modes:
   way).
 
 ``st.patches`` records what was installed.  The JAX package's other
-patches (jax h2d, orbax, torch-xla ``mark_step``, the compile tracker)
-have no counterpart here.  ``device`` sets the trace's device: CUDA by
-default, raising without CUDA (before any patch is installed);
-``device="cpu"`` runs on the CPU.
+patches (orbax, torch-xla ``mark_step``, the compile tracker) have no
+counterpart here; its ``jax_h2d`` patch is ``torch_h2d``.  ``device``
+sets the trace's device: CUDA by default, raising without CUDA (before
+any patch is installed); ``device="cpu"`` runs on the CPU.
 
 Idempotent; a re-``init`` with a *conflicting* mode raises.
 """
@@ -66,6 +67,7 @@ def init(mode: str = "auto", device: Any = None, **kwargs) -> TraceMLInitConfig:
     applied = []
     if mode != "manual":
         from traceml_tpu_torch.instrumentation.dataloader import patch_torch_dataloader
+        from traceml_tpu_torch.instrumentation.patches.torch_h2d_patch import patch_torch_h2d
         from traceml_tpu_torch.instrumentation.patches.torch_patches import (
             install_torch_optimizer_hooks,
             patch_torch_backward,
@@ -74,6 +76,7 @@ def init(mode: str = "auto", device: Any = None, **kwargs) -> TraceMLInitConfig:
         )
 
         for flag, name, install in (
+            (cfg.patch_h2d, "torch_h2d", patch_torch_h2d),
             (cfg.patch_dataloader, "torch_dataloader", patch_torch_dataloader),
             (cfg.patch_forward, "torch_forward", patch_torch_forward),
             (cfg.patch_backward, "torch_backward", patch_torch_backward),
@@ -97,8 +100,10 @@ start = init
 def shutdown_patches() -> None:
     """Remove every auto-patch and forget the init (tests, clean embedding)."""
     from traceml_tpu_torch.instrumentation.dataloader import unpatch_torch_dataloader
+    from traceml_tpu_torch.instrumentation.patches.torch_h2d_patch import unpatch_torch_h2d
     from traceml_tpu_torch.instrumentation.patches.torch_patches import unpatch_all_torch
 
+    unpatch_torch_h2d()
     unpatch_torch_dataloader()
     unpatch_all_torch()
     st = get_state()

@@ -63,6 +63,9 @@ class TraceState:
         self.flops_source: Optional[str] = None
         self.flops_device_kind: Optional[str] = None
         self.flops_device_count: Optional[int] = None
+        # tokens consumed by one training step (set_step_tokens): the
+        # tokens/s numerator, independent of the FLOPs
+        self.tokens_per_step: Optional[float] = None
 
     # -- device ----------------------------------------------------------
     @property

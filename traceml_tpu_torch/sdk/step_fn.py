@@ -5,8 +5,18 @@ function is a ``compute_time`` region.  PyTorch runs eagerly, so there is
 no jit, no compile tracker and no search of the outputs for a handle: the
 device marker is a CUDA event recorded on the device's current stream
 right after the call returns, when all of the call's work is enqueued.
-The model FLOPs of a step come from :func:`estimate_step_flops` or
-``set_step_flops``, not from this wrapper.
+
+The model FLOPs of a step, the MFU numerator: where the JAX wrapper asks
+XLA's cost analysis of the lowered program once, before the first
+in-step call, PyTorch has no lowered program to ask.  So the first
+in-step call itself runs under ``FlopCounterMode`` (the step is not run
+twice) and the count is declared with ``set_step_flops(source=
+"flop_counter")``.  A value declared before that call wins, and an
+out-of-step call (an eval loop) neither counts nor spends the estimate.
+``estimate_flops=False`` turns the count off.  The counter's dispatch
+overhead lands
+on that first step's host time; the report's steady-state window leaves
+the first quarter of the steps out.
 """
 
 from __future__ import annotations
@@ -16,8 +26,8 @@ from typing import Any, Callable, Optional
 from traceml_tpu_torch.sdk.state import TraceState, get_state
 from traceml_tpu_torch.sdk.wrappers import publish_region_marker
 from traceml_tpu_torch.utils.device import resolve_device
+from traceml_tpu_torch.utils.error_log import get_error_log
 from traceml_tpu_torch.utils.timing import COMPUTE_TIME, cuda_marker, timed_region
-
 
 class WrappedStepFn:
     """Callable wrapper; one instance per traced step function."""
@@ -29,22 +39,35 @@ class WrappedStepFn:
         device: Any = None,
         state: Optional[TraceState] = None,
         phase_name: str = COMPUTE_TIME,
+        estimate_flops: bool = True,
     ) -> None:
         self._state = state or get_state()
         self._phase = phase_name
         self._fn = fn
         self.device = self._state.device if device is None else resolve_device(device)
+        self._flops_pending = estimate_flops
         self.__wrapped__ = fn
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         st = self._state
+        counter = None
+        if self._flops_pending and st.tls.in_step:
+            self._flops_pending = False
+            if st.flops_per_step is None:  # a manual value wins
+                from torch.utils.flop_counter import FlopCounterMode
+
+                counter = FlopCounterMode(display=False)
         region = timed_region(self._phase, st.current_step, sink=st.buffer.add)
         # the auto-patched forward, backward and optimizer regions inside
         # stay unrecorded: their work is this region's
         st.tls.compute_depth += 1
         try:
             with region as tr:
-                out = self._fn(*args, **kwargs)
+                if counter is not None:
+                    with counter:
+                        out = self._fn(*args, **kwargs)
+                else:
+                    out = self._fn(*args, **kwargs)
                 if self.device.type == "cuda" and st.markers_enabled():
                     marker = cuda_marker(self.device)
                     # the step function spans ~the whole step: the resolver
@@ -58,13 +81,33 @@ class WrappedStepFn:
             st.tls.compute_depth -= 1
         # envelope hand-off + dispatch-time resolver submission
         publish_region_marker(region.event, st)
+        if counter is not None:
+            self._declare(counter)
         return out
+
+    def _declare(self, counter: Any) -> None:
+        """Declare the counted FLOPs (fail-open: nothing on an error or a
+        count of 0)."""
+        try:
+            from traceml_tpu_torch.sdk.flops import set_step_flops
+
+            flops = float(counter.get_total_flops())
+            if flops > 0:
+                set_step_flops(flops, source="flop_counter")
+        except Exception as exc:
+            get_error_log().warning("wrap_step_fn FLOP count failed", exc)
 
 
 def wrap_step_fn(
-    fn: Callable, *, device: Any = None, state: Optional[TraceState] = None
+    fn: Callable,
+    *,
+    device: Any = None,
+    state: Optional[TraceState] = None,
+    estimate_flops: bool = True,
 ) -> WrappedStepFn:
     """Wrap a torch step function for tracing.  ``device`` is where its
     work runs; it defaults to the trace's device, which is CUDA unless
-    ``init(device="cpu")`` chose the CPU, and raises without CUDA."""
-    return WrappedStepFn(fn, device=device, state=state)
+    ``init(device="cpu")`` chose the CPU, and raises without CUDA.
+    ``estimate_flops`` (default on) counts the model FLOPs of the first
+    in-step call (see the module docstring)."""
+    return WrappedStepFn(fn, device=device, state=state, estimate_flops=estimate_flops)

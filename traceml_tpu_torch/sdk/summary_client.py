@@ -1,15 +1,82 @@
-"""Worker-side live metrics.
+"""Worker-side summary client.
 
-Counterpart of ``live_metrics`` in ``traceml_tpu/sdk/summary_client.py``
-(the final-summary request comes with the aggregator's summary service).
+Counterpart of ``traceml_tpu/sdk/summary_client.py``.
+
+``final_summary()``: file IPC with the aggregator, on the global primary
+rank only — return the existing artifact if present, else drop a request
+file, poll for the response, read ``final_summary.json``.
+
+``summary()``: the final summary flattened into ``traceml/...`` scalars.
+
+``live_metrics()``: this rank's recent telemetry from its own samplers,
+no IPC.
 """
 
 from __future__ import annotations
 
 import statistics
-from typing import Any, Dict
+import time
+from pathlib import Path
+from typing import Any, Dict, Optional
 
+from traceml_tpu_torch.runtime.identity import resolve_runtime_identity
+from traceml_tpu_torch.runtime.settings import settings_from_env
+from traceml_tpu_torch.sdk import protocol
+from traceml_tpu_torch.utils.atomic_io import read_json
 from traceml_tpu_torch.utils.error_log import get_error_log
+
+
+def _session_dir() -> Path:
+    return settings_from_env().session_dir
+
+
+def final_summary(timeout: float = 120.0, session_dir: Optional[Path] = None) -> Optional[Dict[str, Any]]:
+    """Request and fetch the final summary dict (None on failure, and on
+    every rank but the global primary).  The aggregator settles the
+    telemetry in flight and writes the summary of the run so far; the
+    summary written at the end of the run replaces it."""
+    try:
+        sdir = Path(session_dir) if session_dir else _session_dir()
+        identity = resolve_runtime_identity()
+        if not identity.is_global_primary:
+            return None
+        existing = read_json(protocol.get_final_summary_json_path(sdir))
+        if existing is not None:
+            return existing
+        protocol.write_summary_request(sdir, identity.global_rank)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            resp = protocol.read_summary_response(sdir)
+            if resp is not None:
+                if not resp.get("ok"):
+                    get_error_log().warning(f"final summary failed: {resp.get('error')}")
+                    return None
+                return read_json(protocol.get_final_summary_json_path(sdir))
+            time.sleep(0.25)
+        return None
+    except Exception as exc:
+        get_error_log().warning("final_summary client failed", exc)
+        return None
+
+
+def _flatten(prefix: str, obj: Any, out: Dict[str, Any]) -> None:
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            _flatten(f"{prefix}/{k}", v, out)
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        out[prefix] = obj
+
+
+def summary(timeout: float = 120.0, session_dir: Optional[Path] = None) -> Dict[str, Any]:
+    """Flat ``{"traceml/...": scalar}`` dict for W&B/MLflow-style loggers,
+    backed by the final summary (may block up to ``timeout``): call it at
+    the end of the run; per step, :func:`live_metrics`."""
+    data = final_summary(timeout=timeout, session_dir=session_dir)
+    if not data:
+        return {}
+    out: Dict[str, Any] = {}
+    _flatten("traceml", data, out)
+    return out
 
 
 def live_metrics(window: int = 30) -> Dict[str, Any]:

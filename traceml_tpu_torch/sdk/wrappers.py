@@ -87,14 +87,24 @@ def to_device(value: Any, device: Any) -> Any:
 
 def timed_to_device(value: Any, device: Any, st: TraceState) -> Any:
     """Copy ``value`` to ``device`` as a timed ``h2d`` phase, with a CUDA
-    marker recorded right after the copy was enqueued."""
-    region = timed_region(H2D_TIME, st.current_step, sink=st.buffer.add)
-    with region as tr:
-        out = to_device(value, device)
-        if device.type == "cuda" and st.markers_enabled():
-            tr.event.marker = cuda_marker(device)
-    publish_region_marker(region.event, st)
-    return out
+    marker recorded right after the copy was enqueued; untimed when an
+    outer wrapper is timing already.  The TLS gate ``h2d_depth`` stays
+    raised while it copies, so the ``Tensor.to`` auto-patch does not time
+    the copy a second time."""
+    tls = st.tls
+    if tls.h2d_depth > 0:
+        return to_device(value, device)
+    tls.h2d_depth += 1
+    try:
+        region = timed_region(H2D_TIME, st.current_step, sink=st.buffer.add)
+        with region as tr:
+            out = to_device(value, device)
+            if device.type == "cuda" and st.markers_enabled():
+                tr.event.marker = cuda_marker(device)
+        publish_region_marker(region.event, st)
+        return out
+    finally:
+        tls.h2d_depth -= 1
 
 
 def wrap_h2d(value: Any, device: Any = None, state: Optional[TraceState] = None) -> Any:
@@ -103,14 +113,7 @@ def wrap_h2d(value: Any, device: Any = None, state: Optional[TraceState] = None)
     not asked for."""
     st = state or get_state()
     dev = st.device if device is None else resolve_device(device)
-    tls = st.tls
-    if tls.h2d_depth > 0:  # an outer wrapper is already timing
-        return to_device(value, dev)
-    tls.h2d_depth += 1
-    try:
-        return timed_to_device(value, dev, st)
-    finally:
-        tls.h2d_depth -= 1
+    return timed_to_device(value, dev, st)
 
 
 def wrap_forward(fn: Callable, state: Optional[TraceState] = None) -> Callable:
