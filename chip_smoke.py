@@ -91,6 +91,18 @@
    ``train_script.py --kill-after 20`` under short liveness thresholds
    (``killed_run_phase``: RANK_LOST, critical, the primary diagnosis).
 
+7. The live display (``cli_run_phase``): ``run --mode cli`` of
+   ``train_script.py`` at full width, healthy at the 0.1 s tick, held to
+   the healthy train run's gates, and: the rank's lines on the launcher's
+   stdout, then the dashboard's last frame once; ``stdout_samples`` and
+   ``rank_0/stdout.log`` holding those lines in order; the frame's median
+   step within ``FRAME_STEP_REL_TOL`` of ``final_summary.json``'s and its
+   rank-0 output panel showing the script's last line.  Reported: the
+   ``cli`` run's step against the ``summary`` train run's, the same for
+   the forward script (``RUN_FORWARD_STEPS`` steps, not gated), and the
+   live tick's cost (``LiveComputer.payload()`` plus one render) in
+   process on the finished session DB, first, dirty and idle.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
@@ -100,6 +112,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import sqlite3
@@ -730,14 +743,15 @@ def remat_train_phase(cfg, train: dict) -> dict:
 
 def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py",
                steps: int = STEPS, script_args=(), launcher_args=(), env_extra=None,
-               expect_ok: bool = True) -> dict:
-    """One ``python -m traceml_tpu_torch run`` call of a ``dev/`` script;
-    returns its session's artifacts, its system, process and step-memory
-    rows, the launcher's output and the call's wall time.  The call must
-    exit 0, or, with ``expect_ok=False``, must not."""
+               expect_ok: bool = True, mode: str = "summary") -> dict:
+    """One ``python -m traceml_tpu_torch run --mode <mode>`` call of a
+    ``dev/`` script; returns its session's artifacts, its system, process,
+    step-memory (and in ``cli`` mode stdout) rows, the launcher's output
+    and the call's wall time.  The call must exit 0, or, with
+    ``expect_ok=False``, must not."""
     logs = RUN_DIR / name
     shutil.rmtree(logs, ignore_errors=True)
-    argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
+    argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", mode,
             "--logs-dir", str(logs), "--run-name", name, "--sampler-interval", repr(interval_s),
             *launcher_args, str(REPO / "traceml_tpu_torch" / "dev" / script),
             "--", "--steps", str(steps), "--delay-ms", repr(delay_ms), *script_args]
@@ -777,13 +791,15 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
             "SELECT step, clock, events_json FROM step_time_samples ORDER BY step")]
         tables = {t: [dict(r) for r in conn.execute(f"SELECT * FROM {t} ORDER BY id")]
                   for t in ("system_samples", "system_device_samples", "process_samples",
-                            "process_device_samples", "step_memory_samples")}
+                            "process_device_samples", "step_memory_samples")
+                  + (("stdout_samples",) if mode == "cli" else ())}
     finally:
         conn.close()
     return {"summary": read("final_summary.json"), "manifest": read("manifest.json"),
             "ingest": read("ingest_stats.json"),
             "system_manifest": read("system_manifest.json", required=expect_ok),
-            "rows": rows, "tables": tables, "stdout": out, "wall_s": wall_s, "steps": steps}
+            "rows": rows, "tables": tables, "stdout": out, "wall_s": wall_s, "steps": steps,
+            "mode": mode, "session": session, "interval_s": interval_s}
 
 
 def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: int = 1) -> dict:
@@ -827,8 +843,9 @@ def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: 
     if callable(verdict):
         verdict = verdict(summary)
     check(kind == verdict, f"run {name}: final_summary.json says {kind}, not {verdict}")
-    verdict_lines = [l for l in run["stdout"].splitlines() if "VERDICT" in l]
-    check(any(verdict in l for l in verdict_lines), f"run {name}: launcher stdout verdict {verdict_lines}")
+    if run["mode"] == "summary":  # in cli mode the display's last frame is on stdout instead
+        verdict_lines = [l for l in run["stdout"].splitlines() if "VERDICT" in l]
+        check(any(verdict in l for l in verdict_lines), f"run {name}: launcher stdout verdict {verdict_lines}")
     device = [json.loads(r[2])[T.STEP_TIME]["device_ms"] for r in run["rows"]]
     check(all(r[1] == "device" for r in run["rows"]) and all(v is not None for v in device),
           f"run {name}: a stored step row is not on the device clock")
@@ -907,13 +924,14 @@ def check_telemetry(name: str, run: dict) -> dict:
     }
 
 
-def run_phase(main: dict) -> None:
+def run_phase(main: dict) -> dict:
     """``python -m traceml_tpu_torch run`` on the card, healthy with a fast
     sender tick and with the main path's input delay at the default tick,
     held to the gates of ``check_run``.  ``wrap_step_fn`` counts the
     forward's FLOPs on its first in-step call, so the healthy verdict is
     that of the measured MFU's band, and ``flops_per_step`` must lie
-    within ``FLOPS_REL_TOL`` of ``analytic_forward_flops``."""
+    within ``FLOPS_REL_TOL`` of ``analytic_forward_flops``.  Returns the
+    healthy run's numbers."""
     from traceml_tpu_torch.dev.workload import full_width_config
 
     RUN_DIR.mkdir(parents=True, exist_ok=True)
@@ -930,10 +948,12 @@ def run_phase(main: dict) -> None:
         log("run", f"{name} (delay {delay_ms:.3f} ms, sender tick {interval_s} s; analytic {analytic:.6e} "
                    f"FLOPs/step) " + json.dumps(got))
         if name == "healthy":
+            healthy = got
             run_ms, ref_ms = got["step_device_ms"], main["step_ms"]
             log("run", "step device ms under run (stored rows) vs in-process (no sender): " + ", ".join(
                 f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms)
                 + f"; {got['producer']['busy_ticks']} busy sender ticks")
+    return healthy
 
 
 def mfu_verdict(summary: dict) -> str:
@@ -953,48 +973,62 @@ def mfu_verdict(summary: dict) -> str:
     return "COMPUTE_BOUND"
 
 
-def train_run_phase(cfg, train: dict) -> None:
-    """``python -m traceml_tpu_torch run`` of ``dev/train_script.py``:
-    healthy with a 0.1 s sender tick, and with a host input delay of 3x
-    the in-process train step at the default tick.  The forward run's
-    gates, and: the stored rows held to ``check_train_rows``, the loss
-    falling, an ``efficiency`` section with the
-    card's peak, model FLOPs within ``FLOPS_REL_TOL`` of the analytic
-    count and an MFU in (0, 1), and the verdict of the MFU's band."""
+def check_train_run(name: str, run: dict, cfg, verdict) -> dict:
+    """The healthy and delayed train runs' gates: ``check_run``'s, the
+    stored rows held to ``check_train_rows``, the loss falling, and an
+    ``efficiency`` section with the card's peak, model FLOPs within
+    ``FLOPS_REL_TOL`` of the analytic count and an MFU in (0, 1).
+    Returns ``check_run``'s numbers."""
     from traceml_tpu_torch.dev.workload import TRAIN_TOKENS
     from traceml_tpu_torch.utils.chip_specs import peak_flops_for
 
     analytic = analytic_train_flops(cfg, BATCH, TRAIN_TOKENS - 1)
     peak = peak_flops_for(torch.cuda.get_device_name(0))
     check(peak is not None, f"no peak FLOP/s for {torch.cuda.get_device_name(0)}")
+    got = check_run(name, run, cfg.n_layers, verdict)
+    check_train_rows(f"run {name}", [(step, clock, json.loads(ev)) for step, clock, ev in run["rows"]])
+    loss_lines = [l for l in run["stdout"].splitlines() if l.startswith("train_script: ") and "loss first" in l]
+    check(bool(loss_lines), f"run {name}: no loss line")
+    words = loss_lines[-1].split()
+    first, last = float(words[words.index("first") + 1]), float(words[words.index("last") + 1])
+    check(last < first, f"run {name}: loss first {first} last {last}")
+    eff = got["efficiency"] or {}
+    flops = eff.get("flops_per_step")
+    check(flops is not None and abs(flops - analytic) / analytic <= FLOPS_REL_TOL,
+          f"run {name}: flops_per_step {flops} vs analytic {analytic}")
+    check(eff.get("peak_tflops") == peak / 1e12, f"run {name}: peak {eff.get('peak_tflops')} TFLOP/s")
+    mfu = eff.get("mfu_median")
+    check(mfu is not None and 0.0 < mfu < 1.0, f"run {name}: MFU {mfu}")
+    log("run", f"{name} (sender tick {run['interval_s']} s; analytic {analytic:.6e} FLOPs/step; "
+               f"loss first {first} last {last}) " + json.dumps(got))
+    return got
+
+
+def check_healthy_utilization(name: str, got: dict) -> None:
+    util = got["telemetry"]["utilization_pct_recent_mean"]
+    check(util >= UTIL_HEALTHY_MIN_PCT,
+          f"run {name}: NVML utilization {util}% (last 30 samples) below {UTIL_HEALTHY_MIN_PCT}%")
+
+
+def train_run_phase(cfg, train: dict) -> dict:
+    """``python -m traceml_tpu_torch run`` of ``dev/train_script.py``:
+    healthy with a 0.1 s sender tick, and with a host input delay of 3x
+    the in-process train step at the default tick, held to
+    ``check_train_run``, with the verdict of the MFU's band (healthy) or
+    INPUT_BOUND; the healthy run's NVML utilization at least
+    ``UTIL_HEALTHY_MIN_PCT``.  Returns the healthy run's numbers."""
     delay_ms = 3.0 * train["step_ms"]
     for name, delay, interval_s, verdict in (("train_healthy", 0.0, 0.1, mfu_verdict),
                                              ("train_input_delay", delay_ms, 1.0, "INPUT_BOUND")):
-        run = launch_run(name, delay, interval_s, script="train_script.py")
-        got = check_run(name, run, cfg.n_layers, verdict)
-        check_train_rows(
-            f"run {name}", [(step, clock, json.loads(ev)) for step, clock, ev in run["rows"]])
-        loss_lines = [l for l in run["stdout"].splitlines() if "loss first" in l]
-        check(bool(loss_lines), f"run {name}: no loss line")
-        words = loss_lines[-1].split()
-        first, last = float(words[words.index("first") + 1]), float(words[words.index("last") + 1])
-        check(last < first, f"run {name}: loss first {first} last {last}")
-        eff = got["efficiency"] or {}
-        flops = eff.get("flops_per_step")
-        check(flops is not None and abs(flops - analytic) / analytic <= FLOPS_REL_TOL,
-              f"run {name}: flops_per_step {flops} vs analytic {analytic}")
-        check(eff.get("peak_tflops") == peak / 1e12, f"run {name}: peak {eff.get('peak_tflops')} TFLOP/s")
-        mfu = eff.get("mfu_median")
-        check(mfu is not None and 0.0 < mfu < 1.0, f"run {name}: MFU {mfu}")
-        log("run", f"{name} (delay {delay:.3f} ms, sender tick {interval_s} s; analytic {analytic:.6e} "
-                   f"FLOPs/step; loss first {first} last {last}) " + json.dumps(got))
+        log("run", f"{name}: input delay {delay:.3f} ms")
+        got = check_train_run(name, launch_run(name, delay, interval_s, script="train_script.py"), cfg, verdict)
         if name == "train_healthy":
-            util = got["telemetry"]["utilization_pct_recent_mean"]
-            check(util >= UTIL_HEALTHY_MIN_PCT,
-                  f"run {name}: NVML utilization {util}% (last 30 samples) below {UTIL_HEALTHY_MIN_PCT}%")
+            healthy = got
+            check_healthy_utilization(name, got)
             run_ms, ref_ms = got["step_device_ms"], train["step_spread"]
             log("run", "train step device ms under run vs in-process: " + ", ".join(
                 f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms))
+    return healthy
 
 
 def remat_run_phase(cfg, remat: dict) -> dict:
@@ -1049,6 +1083,150 @@ def remat_run_phase(cfg, remat: dict) -> dict:
            "h2d_device_ms_median": statistics.median(e["device_ms"] for e in h2d),
            "in_process_remat": {k: remat[k] for k in ("step_ms", "step_peak_bytes")}}
     log("run", f"{name} " + json.dumps(out))
+    return out
+
+
+FRAME_HEADER = "TraceML (PyTorch) — live · session"
+FRAME_STEP_REL_TOL = 0.05  # the frame's median step vs final_summary.json's (display rounding is 0.1 ms)
+LIVE_TICKS = 200
+
+
+def check_cli_output(name: str, run: dict, got: dict) -> dict:
+    """The ``cli`` mode's gates on one call: the launcher's stdout holds
+    the rank's lines, then the dashboard's last frame once; the session's
+    ``stdout_samples`` rows and ``rank_0/stdout.log`` hold the same lines
+    in the same order; the frame's step-time panel reads a median step
+    within ``FRAME_STEP_REL_TOL`` of the summary's, and its rank-0 output
+    panel shows the script's last line, its header the rank finished."""
+    out = run["stdout"]
+    check(out.count(FRAME_HEADER) == 1, f"run {name}: {out.count(FRAME_HEADER)} dashboard frames on stdout")
+    at = out.index(FRAME_HEADER)
+    printed = [l for l in out[:at].splitlines() if l and not l.startswith("[TraceML]")]
+    check(bool(printed) and printed[-1].startswith("flash_attention.launches"),
+          f"run {name}: the rank's lines before the frame end with {printed[-1:]}")
+    stored = [r["line"] for r in run["tables"]["stdout_samples"] if r["stream"] == "stdout"]
+    check(stored == printed, f"run {name}: stdout_samples {len(stored)} lines, the script printed "
+                             f"{len(printed)}; first difference at "
+                             f"{next((i for i, (a, b) in enumerate(zip(stored, printed)) if a != b), None)}")
+    log_lines = (run["session"] / "rank_0" / "stdout.log").read_text().splitlines()
+    logged = [l[len("[stdout] "):] for l in log_lines if l.startswith("[stdout] ")]
+    check(logged == printed, f"run {name}: rank_0/stdout.log holds {len(logged)} stdout lines, not the "
+                             f"{len(printed)} printed")
+    frame = out[at:]
+    match = re.search(r"│ *step_time +([0-9.]+) (µs|ms|s) ", frame)
+    check(match is not None, f"run {name}: no step_time row in the frame:\n{frame[:2000]}")
+    frame_ms = float(match.group(1)) * {"µs": 1e-3, "ms": 1.0, "s": 1e3}[match.group(2)]
+    summary_ms = got["step_ms_summary"]
+    check(abs(frame_ms - summary_ms) / summary_ms <= FRAME_STEP_REL_TOL,
+          f"run {name}: the frame's median step {frame_ms} ms vs final_summary.json {summary_ms} ms")
+    check("rank 0 output" in frame and printed[-1] in frame.split("rank 0 output", 1)[1],
+          f"run {name}: the rank-0 output panel lacks the script's last line {printed[-1]!r}")
+    check("ranks: 1 finished" in " ".join(frame.split()), f"run {name}: the frame's liveness strip is not "
+                                                          f"'1 finished':\n{frame.splitlines()[:2]}")
+    return {"frame_step_ms": frame_ms, "summary_step_ms": summary_ms, "lines_printed": len(printed),
+            "stdout_rows": len(run["tables"]["stdout_samples"]), "frame_lines": len(frame.splitlines())}
+
+
+def live_tick_cost(db: Path) -> dict:
+    """``LiveComputer.payload()`` plus one render of the dashboard (to a
+    terminal console of 120 columns, styles included), timed in process
+    on a copy of a finished session DB: the first tick, ``LIVE_TICKS``
+    dirty ticks (before each, one step-time, system, process and
+    step-memory row more is committed, as a sender tick brings them), then
+    ``LIVE_TICKS`` idle ticks (no commit; each must return the cached
+    payload)."""
+    import io
+
+    from rich.console import Console
+
+    from traceml_tpu_torch.renderers.compute import LiveComputer
+    from traceml_tpu_torch.renderers.panels import dashboard
+
+    work = RUN_DIR / "live_tick"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    copy = work / "telemetry.sqlite"
+    shutil.copyfile(db, copy)
+    console = Console(file=io.StringIO(), width=120, force_terminal=True, color_system="standard")
+
+    def tick(computer) -> float:
+        t0 = time.perf_counter_ns()
+        payload = computer.payload()
+        console.print(dashboard(payload, "live_tick"))
+        us = (time.perf_counter_ns() - t0) / 1e3
+        console.file.seek(0)
+        console.file.truncate()
+        return us
+
+    conn = sqlite3.connect(copy)
+    conn.row_factory = sqlite3.Row
+    newest = {t: conn.execute(f"SELECT * FROM {t} ORDER BY id DESC LIMIT 1").fetchone()
+              for t in ("step_time_samples", "system_samples", "process_samples", "step_memory_samples")}
+    last = {t: dict(row) for t, row in newest.items() if row is not None}
+    computer = LiveComputer(copy)
+    try:
+        first = tick(computer)
+        dirty = []
+        for i in range(1, LIVE_TICKS + 1):
+            for table, row in last.items():
+                row = {k: v for k, v in row.items() if k != "id"}
+                if "step" in row:
+                    row["step"] += i
+                row["timestamp"] += 0.1 * i
+                conn.execute(f"INSERT INTO {table} ({', '.join(row)}) VALUES ({', '.join('?' * len(row))})",
+                             tuple(row.values()))
+            conn.commit()
+            dirty.append(tick(computer))
+        cached = computer.payload()
+        idle = [tick(computer) for _ in range(LIVE_TICKS)]
+        check(computer.payload() is cached, "an idle live tick did not return the cached payload")
+    finally:
+        computer.close()
+        conn.close()
+    return {"first_tick_us": first, "dirty_tick_us": spread(dirty), "idle_tick_us": spread(idle),
+            "ticks": LIVE_TICKS}
+
+
+def cli_run_phase(cfg, train_healthy: dict, forward_healthy: dict) -> dict:
+    """``python -m traceml_tpu_torch run --mode cli`` of ``dev/
+    train_script.py`` at full width ((8, 1025) tokens, 60 steps, healthy,
+    0.1 s sender tick): the live display redraws from the session SQLite
+    every 0.5 s and, stdout being a pipe, prints its last frame at the
+    end.  Gates: ``check_train_run``'s with the verdict of the MFU's band,
+    the healthy utilization, and ``check_cli_output``'s.  Reported: its
+    step against the ``summary`` train run's; the forward script's
+    (``RUN_FORWARD_STEPS`` steps) under ``cli`` against the ``summary``
+    forward run's (not gated: the forward is paced by the host); the live
+    tick's cost on this run's DB (``live_tick_cost``)."""
+    from traceml_tpu_torch.utils import timing as T
+
+    name = "train_cli"
+    run = launch_run(name, 0.0, 0.1, script="train_script.py", mode="cli")
+    got = check_train_run(name, run, cfg, mfu_verdict)
+    check_healthy_utilization(name, got)
+    out = {"train": {**check_cli_output(name, run, got), "flash_launches": got["flash_launches"],
+                     "verdict": got["verdict"], "step_device_ms_cli": got["step_device_ms"],
+                     "step_device_ms_summary": train_healthy["step_device_ms"],
+                     "mfu_cli": got["efficiency"]["mfu_median"],
+                     "mfu_summary": train_healthy["efficiency"]["mfu_median"],
+                     "wall_s_cli": got["wall_s"], "wall_s_summary": train_healthy["wall_s"]}}
+    fwd = launch_run("forward_cli", 0.0, 0.1, steps=RUN_FORWARD_STEPS, mode="cli")
+    fwd_ms = [json.loads(ev)[T.STEP_TIME]["device_ms"] for _, _, ev in fwd["rows"]]
+    out["forward"] = {"step_device_ms_cli": spread(fwd_ms),
+                      "step_device_ms_summary": forward_healthy["step_device_ms"],
+                      "verdict_cli": fwd["summary"]["primary_diagnosis"]["kind"],
+                      "verdict_summary": forward_healthy["verdict"],
+                      "wall_s_cli": fwd["wall_s"], "wall_s_summary": forward_healthy["wall_s"]}
+    out["live_tick"] = live_tick_cost(run["session"] / "telemetry.sqlite")
+    for path in ("train", "forward"):
+        a, b = out[path]["step_device_ms_cli"], out[path]["step_device_ms_summary"]
+        log("cli", f"{path} step device ms, cli vs summary: " + ", ".join(
+            f"{k} {a[k]:.4f} vs {b[k]:.4f} ({a[k] / b[k]:.4f}x)" for k in a))
+    tick = out["live_tick"]
+    log("cli", f"live tick (payload + render) µs: first {tick['first_tick_us']:.1f}; dirty median "
+               f"{tick['dirty_tick_us']['median']:.1f}, idle median {tick['idle_tick_us']['median']:.1f} "
+               f"over {LIVE_TICKS} ticks each")
+    log("cli", json.dumps(out))
     return out
 
 
@@ -1141,11 +1319,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("time", f"train phases {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    run_phase(main_path)
-    train_run_phase(cfg, train)
+    forward_healthy = run_phase(main_path)
+    train_healthy = train_run_phase(cfg, train)
     remat_run_phase(cfg, remat)
     killed_run_phase()
     log("time", f"run phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    cli = cli_run_phase(cfg, train_healthy, forward_healthy)
+    kernel["launches"] += cli["train"]["flash_launches"]
+    kernel["launches_by_path"]["train_cli_run"] = cli["train"]["flash_launches"]
+    log("time", f"cli run phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,14 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(out["imported"]) >= 30
+    live_display = {  # the modules of the cli mode
+        "traceml_tpu_torch.runtime.stdout_capture", "traceml_tpu_torch.samplers.stdout_stderr_sampler",
+        "traceml_tpu_torch.aggregator.sqlite_writers.stdout_writer", "traceml_tpu_torch.reporting.snapshot_store",
+        "traceml_tpu_torch.diagnostics.model_diagnostics", "traceml_tpu_torch.renderers.views",
+        "traceml_tpu_torch.renderers.compute", "traceml_tpu_torch.renderers.panels",
+        "traceml_tpu_torch.renderers.cli.dashboard", "traceml_tpu_torch.aggregator.display_drivers.cli",
+    }
+    assert live_display <= set(out["imported"])
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 

@@ -8,12 +8,14 @@ ships its rows over TCP, the aggregator stores them in SQLite and writes
 the final summary, which must say INPUT_BOUND, as must the launcher's
 stdout.  Its ``system`` section holds the host rows of rank 0 alone (the
 node's primary rank) and its ``process`` section every rank's rows; on
-the CPU no GPU row is written.  ``--disable-traceml`` passes a script through untraced; any mode
-but ``summary`` is refused.  ``traceml_tpu_torch/dev/train_script.py``
+the CPU no GPU row is written.  ``--disable-traceml`` passes a script through untraced; ``--mode
+dashboard`` is refused, and ``cli`` is the default, as in JAX (its runs
+are held in ``test_torch_live_display.py``).  ``traceml_tpu_torch/dev/train_script.py``
 on the same model under ``run`` (one rank): its rows carry forward,
 backward and optimizer phases from the auto-patches, the summary has an
 ``efficiency`` section with the FLOPs its warm-up step counted and no MFU
-(a CPU has no peak), and the 30 ms input delay makes it INPUT_BOUND.
+(a CPU has no peak), and an input delay of 3x the step's own host time
+(``--delay-x 3``, so it holds on a loaded host) makes it INPUT_BOUND.
 
 Liveness and the summary call: every healthy run's ``liveness`` section
 is OK with each rank finished; a ``--nprocs 2`` forward run whose rank 1
@@ -108,7 +110,7 @@ def test_run_train_script_input_bound(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
          "--logs-dir", str(logs), "--sampler-interval", "0.25", "--finalize-timeout", "30",
-         str(TRAIN_SCRIPT), "--", "--device", "cpu", "--tiny", "--delay-ms", "30", "--steps", str(STEPS)],
+         str(TRAIN_SCRIPT), "--", "--device", "cpu", "--tiny", "--delay-x", "3", "--steps", str(STEPS)],
         env=_env(), capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -151,14 +153,22 @@ def test_run_disabled_passthrough(tmp_path):
     assert "hello untraced" in proc.stdout
 
 
-def test_other_modes_are_refused(tmp_path, capsys):
+def test_other_modes_are_refused(tmp_path, capsys, monkeypatch):
+    """``dashboard`` is refused; ``cli`` is accepted and, as in the JAX
+    launcher, the default of a single-node run."""
+    from traceml_tpu.launcher.commands import resolve_settings as jax_resolve_settings
     from traceml_tpu_torch.launcher.cli import main
+    from traceml_tpu_torch.launcher.commands import SUPPORTED_MODES, resolve_settings
 
     script = tmp_path / "noop.py"
     script.write_text("print('never runs')\n")
-    assert main(["run", "--mode", "cli", "--logs-dir", str(tmp_path / "logs"), str(script)]) == 2
-    assert "use --mode summary" in capsys.readouterr().out
+    assert main(["run", "--mode", "dashboard", "--logs-dir", str(tmp_path / "logs"), str(script)]) == 2
+    assert "use --mode cli or --mode summary" in capsys.readouterr().out
     assert not (tmp_path / "logs").exists()
+    assert SUPPORTED_MODES == ("cli", "summary")
+    monkeypatch.delenv("TRACEML_MODE", raising=False)
+    monkeypatch.chdir(tmp_path)  # no yaml config for the JAX launcher to find
+    assert resolve_settings({}).mode == jax_resolve_settings({}).mode == "cli"
 
 
 def test_rank_sigkill_reported_lost_with_data_gap(tmp_path):
@@ -201,7 +211,7 @@ def test_train_script_final_summary_tokens_and_summary(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary",
          "--logs-dir", str(logs), "--sampler-interval", "0.25", "--finalize-timeout", "30",
-         str(TRAIN_SCRIPT), "--", "--device", "cpu", "--tiny", "--delay-ms", "30", "--steps", str(STEPS),
+         str(TRAIN_SCRIPT), "--", "--device", "cpu", "--tiny", "--delay-x", "3", "--steps", str(STEPS),
          "--remat", "--h2d", "to", "--tokens", "--final-summary"],
         env=_env(), capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
     )

@@ -10,11 +10,12 @@ copies), the DataLoader, ``nn.Module.__call__``, ``backward`` and
 ``Optimizer.step``; ``wrap_step_fn``'s first in-step call,
 ``estimate_step_flops`` or ``set_step_flops`` gives the MFU numerator,
 ``set_step_tokens`` the tokens/s one.
-``python -m traceml_tpu_torch run --mode summary script.py`` runs a
-script under tracing: the ranks ship their rows over TCP to an
-aggregator, which stores them in SQLite, tracks each rank's liveness and
-writes ``final_summary.json``; ``final_summary()`` asks for it from
-inside the script.
+``python -m traceml_tpu_torch run script.py`` runs a script under
+tracing: the ranks ship their rows over TCP to an aggregator, which
+stores them in SQLite, draws the live display from them (``--mode cli``,
+the default; ``--mode summary`` prints the verdict at the end instead),
+tracks each rank's liveness and writes ``final_summary.json``;
+``final_summary()`` asks for it from inside the script.
 
 The JAX package ``traceml_tpu`` is the reference; this package imports
 neither it nor JAX.  The public API is a lazy facade, so importing the

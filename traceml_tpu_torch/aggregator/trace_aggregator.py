@@ -1,24 +1,28 @@
 """The aggregator.
 
 Counterpart of ``traceml_tpu/aggregator/trace_aggregator.py`` for the
-summary mode over TCP (no display drivers, session registry, shm rings
-or restarts yet).
+``summary`` and ``cli`` modes over TCP (no browser display, session
+registry, shm rings or restarts yet).
 
-Owns the TCP ingest server, the SQLite writer, the rank liveness tracker
-and the final-summary service.  Its loop blocks on ``wait_for_data``,
-decodes frames on its own thread, hands telemetry envelopes to the
-writer and handles the control messages inline: ``rank_finished`` (the
+Owns the TCP ingest server, the SQLite writer, the rank liveness tracker,
+the final-summary service and the display driver of the mode (the live
+Rich display in ``cli``, none in ``summary``).  Its loop blocks on
+``wait_for_data``, decodes frames on its own thread, hands telemetry
+envelopes to the writer and handles the control messages inline: ``rank_finished`` (the
 end-of-run barrier), ``rank_heartbeat`` and ``producer_stats`` (kept
 latest-per-rank).  Every envelope and control message feeds the
 liveness tracker (a ``step_time`` envelope is step progress).  Every
 few seconds, and once at the end, it writes ``ingest_stats.json`` and
-``rank_status.json``.  Each loop tick polls the summary service, which
-answers a rank's ``final_summary()`` request.
+``rank_status.json``.  Every 0.5 s (the JAX render interval) the loop
+polls the summary service, which answers a rank's ``final_summary()``
+request, and ticks the display driver; a tick that raises is logged and
+never stops ingest.
 
 ``stop()`` settles the end of the run (drains until every expected rank
 sent ``rank_finished`` or the deadline passes, else writes
 ``finalization_warning.json`` naming the missing ranks and their
-liveness states), finalizes the SQLite writer and generates
+liveness states), draws the display's last frame from everything
+committed and stops it, finalizes the SQLite writer and generates
 ``final_summary.json``/``.txt``.  The liveness states are written as
 they stand at settle-end: a rank killed mid-run reads LOST only if the
 settle window outlasts ``TRACEML_LIVENESS_LOST_SEC``.
@@ -31,6 +35,7 @@ import threading
 import time
 from typing import Any, Dict, Optional, Set
 
+from traceml_tpu_torch.aggregator.display_drivers import resolve_display_driver
 from traceml_tpu_torch.aggregator.liveness import RankLivenessTracker
 from traceml_tpu_torch.aggregator.sqlite_writer import SQLiteWriter
 from traceml_tpu_torch.aggregator.summary_service import FinalSummaryService
@@ -47,7 +52,7 @@ from traceml_tpu_torch.transport.tcp_transport import TCPServer
 from traceml_tpu_torch.utils.atomic_io import atomic_write_json
 from traceml_tpu_torch.utils.error_log import get_error_log
 
-_WAIT_S = 0.5
+_RENDER_INTERVAL = 0.5
 _SETTLE_POLL = 0.1
 _STATS_INTERVAL_S = 5.0
 # frames decoded per drain slice: a backlog burst is worked off in
@@ -77,11 +82,13 @@ class TraceMLAggregator:
         self._finished_ranks: Set[int] = set()
         self._seen_ranks: Set[int] = set()
         self._producer_stats: Dict[int, Dict[str, Any]] = {}
+        self.display = resolve_display_driver(settings.mode)
         self.liveness = RankLivenessTracker()
         self.summary_service = FinalSummaryService(
             settings, generate=self.generate_final_summary, settle=self.settle_telemetry
         )
         self._last_drain_frames = 0
+        self._last_ui_tick = 0.0
         self._last_stats_write = 0.0
         self.envelopes_ingested = 0
         self.started = False
@@ -96,6 +103,10 @@ class TraceMLAggregator:
         self.server.start()
         self.port = self.server.port
         self.writer.start()
+        try:
+            self.display.start(self)
+        except Exception as exc:
+            get_error_log().warning("display start failed", exc)
         self._stop_evt.clear()
         self._thread = threading.Thread(target=self._loop, name="traceml-aggregator", daemon=True)
         self._thread.start()
@@ -114,6 +125,17 @@ class TraceMLAggregator:
         except Exception as exc:
             get_error_log().warning("end-of-run settle failed", exc)
         self.server.stop()
+        try:
+            # the last frame holds every committed row and the ranks'
+            # settled liveness states
+            self._write_rank_status()
+            self.display.tick(self)
+        except Exception as exc:
+            get_error_log().warning("display tick failed", exc)
+        try:
+            self.display.stop()
+        except Exception as exc:
+            get_error_log().warning("display stop failed", exc)
         if not self.writer.finalize(timeout=max(5.0, deadline - time.monotonic())):
             get_error_log().warning("sqlite finalize incomplete within budget")
         try:
@@ -216,10 +238,16 @@ class TraceMLAggregator:
     def _loop(self) -> None:
         while not self._stop_evt.is_set():
             try:
-                self.server.wait_for_data(_WAIT_S)
+                self.server.wait_for_data(_RENDER_INTERVAL)
                 self._drain_all()
-                self.summary_service.poll()
                 now = time.monotonic()
+                if now - self._last_ui_tick >= _RENDER_INTERVAL:
+                    self._last_ui_tick = now
+                    self.summary_service.poll()
+                    try:
+                        self.display.tick(self)
+                    except Exception as exc:
+                        get_error_log().warning("display tick failed", exc)
                 if now - self._last_stats_write >= _STATS_INTERVAL_S:
                     self._last_stats_write = now
                     self._write_ingest_stats()

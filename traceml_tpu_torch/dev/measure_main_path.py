@@ -48,6 +48,15 @@
    runtime ticking every 0.1 s (``[sampler_cost] remat train``): its
    recompute runs Python on autograd's thread, beside the samplers.
 
+8. The live display's cost to the host-paced forward (``--only cli``):
+   ``dev/forward_script.py`` under ``python -m traceml_tpu_torch run``
+   (300 steps, 0.1 s tick) with no live display (``--mode summary``),
+   with it on a pipe (Rich holds the frames and prints the last) and on a
+   terminal (``TTY_COMPATIBLE=1``, 120 columns: Rich redraws the frame 4
+   times a second), in turns A B C C B A; each run's step device median
+   and mean from its stored rows, its wall time and the bytes the
+   launcher printed.
+
 Each untraced run first removes the auto-patches, each traced run
 installs them, so the untraced runs pay nothing of the tracer.
 
@@ -504,6 +513,48 @@ def _remat_compare(cfg, batches, steps: int = 20) -> dict:
     return out
 
 
+def _cli_display_cost(steps: int = 300) -> dict:
+    """Item 8: the forward script under ``run`` in the three display
+    variants, in turns; per variant, one entry a run."""
+    import os
+    import shutil
+    import sqlite3
+    from pathlib import Path
+
+    from traceml_tpu_torch.utils import timing as T
+
+    repo = Path(__file__).resolve().parents[2]
+    work = repo / "traceml_logs" / "measure_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    variants = {"summary": ("summary", {}), "cli_pipe": ("cli", {}),
+                "cli_terminal": ("cli", {"TTY_COMPATIBLE": "1", "COLUMNS": "120"})}
+    out = {name: [] for name in variants}
+    for i, name in enumerate(("summary", "cli_pipe", "cli_terminal", "cli_terminal", "cli_pipe", "summary")):
+        mode, extra = variants[name]
+        logs = work / f"{i}_{name}"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", mode, "--logs-dir", str(logs),
+             "--sampler-interval", "0.1", str(repo / "traceml_tpu_torch" / "dev" / "forward_script.py"),
+             "--", "--steps", str(steps)],
+            env=dict(os.environ, PYTHONPATH=str(repo), **extra), cwd=repo, capture_output=True, text=True,
+            timeout=600,
+        )
+        wall_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"run {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        (session,) = [p for p in logs.iterdir() if p.is_dir()]
+        conn = sqlite3.connect(session / "telemetry.sqlite")
+        try:
+            device = [json.loads(r[0])[T.STEP_TIME]["device_ms"]
+                      for r in conn.execute("SELECT events_json FROM step_time_samples ORDER BY step")]
+        finally:
+            conn.close()
+        out[name].append({"median_ms": statistics.median(device), "mean_ms": statistics.fmean(device),
+                          "wall_s": wall_s, "stdout_bytes": len(proc.stdout.encode())})
+    return out
+
+
 def kernel_group(kernel_name: str) -> str:
     """The group of a CUDA kernel's profiler name; unmatched names are "other"."""
     return next((name for name, rx in _GROUPS if rx.search(kernel_name)), "other")
@@ -536,7 +587,7 @@ def _kernel_breakdown(prof) -> dict:
 
 def main(argv=None) -> int:
     """``--only h2d`` stops after the forward's overhead and ``torch_h2d``
-    measurements."""
+    measurements; ``--only cli`` runs item 8 alone."""
     args = sys.argv[1:] if argv is None else argv
     only = args[args.index("--only") + 1] if "--only" in args else None
     if not torch.cuda.is_available():
@@ -560,6 +611,9 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"[env] {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if only == "cli":
+        print("[cli_display] " + json.dumps(_cli_display_cost()), flush=True)
+        return 0
 
     cfg = full_width_config()
     model = build_model(cfg, SEED)

@@ -18,9 +18,11 @@ S=1024 and every layer's attention goes through the CUDA flash kernel.
         -- --device cpu --tiny --delay-ms 30    # the 2-layer model on the CPU
 
 ``--delay-ms`` sleeps on the host before each batch (an input pipeline
-that cannot keep up).  At the end it prints the loss of the first and the
-last traced step and the flash kernel's launches in the traced loop,
-``flash_attention.launches N``.  Test scaffolding, not features:
+that cannot keep up); ``--delay-x K`` sleeps K times the median host time
+of the last 8 steps (the warm-up step's before the first), so the delay
+follows the step's own speed on a loaded host.  At the end it prints the
+loss of the first and the last traced step and the flash kernel's
+launches in the traced loop, ``flash_attention.launches N``.  Test scaffolding, not features:
 
 * ``--remat`` checkpoints each block (``ModelConfig.remat``);
 * ``--h2d to`` copies each batch inside the step with
@@ -37,8 +39,10 @@ last traced step and the flash kernel's launches in the traced loop,
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
+import statistics
 import time
 from typing import List, Optional
 
@@ -64,6 +68,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=60)
     p.add_argument("--delay-ms", type=float, default=0.0, help="host sleep before each batch")
+    p.add_argument("--delay-x", type=float, default=0.0,
+                   help="host sleep before each batch, as a multiple of the median of the last 8 steps")
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true", help="the 2-layer, 128-wide model on (2, 65) tokens")
     p.add_argument("--remat", action="store_true", help="checkpoint each block")
@@ -88,18 +94,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     host = host_batches(cfg, SEED + 1, batch=batch, seq=n_tokens, pin=on_cuda)
 
     # the warm-up step, outside the trace, counts the step's model FLOPs
+    t0 = time.perf_counter()
     flops = tm.estimate_step_flops(train_step, host[0].to(args.device))
     if on_cuda:
         torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
     print(f"train_script: {flops:.6e} model FLOPs per step (FlopCounterMode)", flush=True)
     if args.tokens:
         tm.set_step_tokens(batch * (n_tokens - 1))
 
     def batches():
+        # the loop's time between two batches is the step's on the host
+        recent = collections.deque([warmup_s], maxlen=8)
         for i in range(args.steps):
-            if args.delay_ms:
-                time.sleep(args.delay_ms / 1000.0)
+            delay_s = args.delay_ms / 1000.0 + args.delay_x * statistics.median(recent)
+            if delay_s:
+                time.sleep(delay_s)
+            t = time.perf_counter()
             yield host[i % len(host)]
+            recent.append(time.perf_counter() - t)
 
     flash_attention.launches = 0
     losses = []

@@ -1,14 +1,16 @@
 """Launch orchestration.
 
-Counterpart of ``traceml_tpu/launcher/commands.py`` for the summary mode
-on one node (no yaml config, code manifest, aggregator restarts or
-multi-node launch yet).
+Counterpart of ``traceml_tpu/launcher/commands.py`` for the ``cli`` (the
+default, as in JAX for a single-node run) and ``summary`` modes on one
+node (no ``dashboard`` mode, yaml config, code manifest, aggregator
+restarts or multi-node launch yet).
 
 ``run``: resolve the settings (CLI > env > defaults), write the run
 manifest, start the aggregator and wait for its ready file, start N rank
 processes (the executor entry, with the ``RANK``/``WORLD_SIZE`` contract),
 supervise them, stop the aggregator gracefully (SIGTERM → it settles,
-writes SQLite and the final summary), then enforce ``final_summary.json``
+draws the live display's last frame in ``cli``, writes SQLite and the
+final summary), then, in ``summary`` mode, enforce ``final_summary.json``
 and print the verdict.  An aggregator that fails to start, or dies
 early, degrades the run (training goes on untraced) instead of failing
 it.  The manifest records ``finalize_sec``: from the last rank's exit to
@@ -46,7 +48,7 @@ from traceml_tpu_torch.runtime.settings import (
 )
 from traceml_tpu_torch.sdk import protocol
 
-SUPPORTED_MODES = ("summary",)
+SUPPORTED_MODES = ("cli", "summary")
 
 
 def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
@@ -63,7 +65,7 @@ def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
     return TraceMLSettings(
         session_id=pick("session_id") or generate_session_id(run_name),
         logs_dir=Path(pick("logs_dir", "./traceml_logs")),
-        mode=str(pick("mode", "summary")),
+        mode=str(pick("mode", "cli")),
         aggregator=AggregatorEndpoint(
             connect_host=str(pick("aggregator_host", "127.0.0.1")),
             bind_host=str(pick("aggregator_bind_host", "127.0.0.1")),
@@ -106,8 +108,8 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
     settings = resolve_settings(cli)
     if settings.mode not in SUPPORTED_MODES and not settings.disabled:
         print(
-            f"[TraceML] --mode {settings.mode} is not available in traceml_tpu_torch yet; "
-            f"use --mode summary (the live displays come later)"
+            f"[TraceML] --mode {settings.mode} is not available in traceml_tpu_torch yet "
+            f"(its browser dashboard comes later); use --mode cli or --mode summary"
         )
         return 2
     nprocs = int(cli.get("nprocs") or 1)
@@ -235,8 +237,9 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
     status = mf.STATUS_COMPLETED if exit_code == 0 else mf.STATUS_FAILED
     mf.update_run_manifest(session_dir, status=status, exit_code=exit_code)
 
-    # 4. summary-mode enforcement: the verdict on stdout
-    if telemetry_ok:
+    # 4. summary-mode enforcement: the verdict on stdout (in cli mode the
+    #    display's last frame is on stdout instead, as in JAX)
+    if telemetry_ok and settings.mode == "summary":
         summary_path = protocol.get_final_summary_json_path(session_dir)
         if not summary_path.exists():
             print(f"[TraceML] WARNING: expected summary missing: {summary_path}")

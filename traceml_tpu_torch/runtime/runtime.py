@@ -6,10 +6,14 @@ that ``runtime/sampler_registry.build_samplers`` gives this rank (system on
 the node's primary rank, process, step time, step memory), a daemon tick
 thread at ``sampler_interval_sec`` and, when the settings name an
 aggregator port,
-the TCP client and the publisher.  Every tick samples, and publishes
-when there is a publisher.  Lifecycle: start → tick loop → stop (join
-the thread, final drain, final publish with the ``rank_finished``
-marker, close the client, stop the marker resolver).  Without a port
+the TCP client and the publisher.  In the ``cli`` mode it also tees the
+script's stdout and stderr through a :class:`StreamCapture`, which the
+stdout/stderr sampler drains, as the JAX runtime does.  Every tick
+samples, and publishes when there is a publisher.  Lifecycle: start
+(capture first, so the samplers see the script's first line) → tick
+loop → stop (join the thread, final drain, final publish with the
+``rank_finished`` marker, restore the streams, close the client, stop
+the marker resolver).  Without a port
 nothing is collected or encoded for sending: the rows stay in each
 sampler's ``Database``.
 """
@@ -23,6 +27,7 @@ from traceml_tpu_torch.runtime.identity import resolve_runtime_identity
 from traceml_tpu_torch.runtime.sampler_registry import build_samplers
 from traceml_tpu_torch.runtime.sender import TelemetryPublisher
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
+from traceml_tpu_torch.runtime.stdout_capture import StreamCapture
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 from traceml_tpu_torch.sdk.state import get_state
 from traceml_tpu_torch.telemetry.control import build_rank_finished
@@ -35,6 +40,7 @@ class TraceMLRuntime:
         self.settings = settings or TraceMLSettings()
         self.runtime_identity = resolve_runtime_identity()
         self.identity = self.runtime_identity.to_sender_identity(self.settings.session_id)
+        self.capture: Optional[StreamCapture] = StreamCapture() if self.settings.mode == "cli" else None
         self.samplers: List[BaseSampler] = []
         self.client: Optional[TCPClient] = None
         self.publisher: Optional[TelemetryPublisher] = None
@@ -48,7 +54,9 @@ class TraceMLRuntime:
             if self._started:
                 return
             self._started = True
-        self.samplers = build_samplers(self.settings, self.runtime_identity)
+        if self.capture is not None:
+            self.capture.start()
+        self.samplers = build_samplers(self.settings, self.runtime_identity, self.capture)
         agg = self.settings.aggregator
         if agg.port:
             self.client = TCPClient(agg.connect_host, agg.port)
@@ -70,6 +78,8 @@ class TraceMLRuntime:
             self._final_drain()
         except Exception as exc:
             get_error_log().warning("final drain failed", exc)
+        if self.capture is not None:
+            self.capture.stop()
         if self.client is not None:
             self.client.close()
         from traceml_tpu_torch.utils.marker_resolver import get_marker_resolver

@@ -7,18 +7,21 @@ primary rank only.  The JAX spec's ``drain_on_recording_stop`` has no
 counterpart yet: the port has no recording stop (``--trace-max-steps``),
 so every sampler drains once, at shutdown, as the step-time and
 step-memory samplers did before this registry.  The JAX package's
-collectives and serving samplers come with ROADMAP queue 1 items 5 and 6,
-its stdout/stderr sampler with the ``cli`` mode (queue 1 item 3c): they
-are not registered yet.
+collectives and serving samplers come with ROADMAP queue 1 items 4 and 5:
+they are not registered yet.  As in JAX, the stdout/stderr sampler is
+wired apart from the registry, in the ``cli`` mode only, because it
+needs the runtime's :class:`StreamCapture`: it writes every rank's
+``stdout.log`` and ships rows from the global primary rank alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 from traceml_tpu_torch.runtime.identity import RuntimeIdentity
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
+from traceml_tpu_torch.runtime.stdout_capture import StreamCapture
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 
 
@@ -49,7 +52,9 @@ def register_default_samplers() -> None:
         SAMPLER_REGISTRY.setdefault(spec.key, spec)
 
 
-def build_samplers(settings: TraceMLSettings, identity: RuntimeIdentity) -> List[BaseSampler]:
+def build_samplers(
+    settings: TraceMLSettings, identity: RuntimeIdentity, capture: Optional[StreamCapture] = None
+) -> List[BaseSampler]:
     """Instantiate the samplers this rank should run."""
     register_default_samplers()
     out: List[BaseSampler] = []
@@ -60,4 +65,12 @@ def build_samplers(settings: TraceMLSettings, identity: RuntimeIdentity) -> List
         if key == "system":
             kwargs["manifest_path"] = settings.session_dir / "system_manifest.json"
         out.append(spec.factory(**kwargs))
+    if capture is not None and settings.mode == "cli":
+        from traceml_tpu_torch.samplers.stdout_stderr_sampler import StdoutStderrSampler
+
+        out.append(StdoutStderrSampler(
+            capture,
+            log_path=settings.rank_dir(identity.global_rank) / "stdout.log",
+            mirror_to_db=identity.is_global_primary,
+        ))
     return out

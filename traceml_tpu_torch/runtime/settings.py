@@ -1,8 +1,13 @@
 """Frozen run settings and the ``TRACEML_*`` environment contract.
 
 Counterpart of ``traceml_tpu/runtime/settings.py``, trimmed to what the
-TCP transport and the summary mode use (no disk backup, stdout capture,
-max-steps, retention, serving or transport-tier fields yet).  The
+TCP transport and the ``summary`` and ``cli`` modes use (no disk backup,
+``TRACEML_CAPTURE_STDERR`` opt-out, max-steps, retention, serving or transport-tier fields yet).  The mode
+defaults to ``summary`` here, where the JAX settings default to ``cli``:
+the launcher always names the mode (``cli`` by default, as the JAX
+launcher does), so the default only reaches a runtime started in process,
+which has no live display to feed and so does not tee the script's
+stdout.  The
 environment is the ONLY contract between the launcher and its child
 processes: the launcher writes it with :func:`settings_to_env`, the
 aggregator and every rank read it back with :func:`settings_from_env`,
