@@ -103,12 +103,32 @@
    live tick's cost (``LiveComputer.payload()`` plus one render) in
    process on the finished session DB, first, dirty and idle.
 
+8. The HTML report and the browser dashboard.  Every ``run`` call above
+   (forward, train, remat, the killed run, ``cli``) and the one below
+   must leave a ``final_summary.html`` that parses with ``html.parser``,
+   whose banner holds ``final_summary.json``'s primary kind, whose
+   step-time phase table, step chart, device-memory and process tables
+   have one row (line) per phase or rank of the JSON, and that names no
+   JAX or TPU word (``check_html``).  ``dashboard_run_phase``: ``run
+   --mode dashboard`` of ``train_script.py`` at full width for
+   ``DASHBOARD_STEPS`` steps (healthy, 0.1 s tick), read while the rank
+   trains by a ``DashboardProbe`` (``/healthz``, ``/``, ``/api/live``
+   with its ETag, ``?since=`` delta and gzip paths, ``/api/stream``, and
+   one stream held open across the run's end), held to the healthy train
+   run's gates and the dashboard's.  Reported: its step against the
+   ``summary`` train run's, the serving tier's poll cost on its finished
+   DB (``serving_cost``) and ``render_html_summary``'s on the ``summary``
+   train run's payload.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
 
 from __future__ import annotations
 
+import gzip
+import html.parser
+import http.client
 import json
 import math
 import os
@@ -119,7 +139,9 @@ import sqlite3
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import traceback
 from pathlib import Path
 from unittest import mock
 
@@ -743,12 +765,14 @@ def remat_train_phase(cfg, train: dict) -> dict:
 
 def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py",
                steps: int = STEPS, script_args=(), launcher_args=(), env_extra=None,
-               expect_ok: bool = True, mode: str = "summary") -> dict:
+               expect_ok: bool = True, mode: str = "summary", probe=None) -> dict:
     """One ``python -m traceml_tpu_torch run --mode <mode>`` call of a
     ``dev/`` script; returns its session's artifacts, its system, process,
-    step-memory (and in ``cli`` mode stdout) rows, the launcher's output
+    step-memory (and in the live modes stdout) rows, the launcher's output
     and the call's wall time.  The call must exit 0, or, with
-    ``expect_ok=False``, must not."""
+    ``expect_ok=False``, must not.  Every call's ``final_summary.html`` is
+    held to ``check_html``.  A ``probe`` (``DashboardProbe``) runs on a
+    thread beside the call, from its start to its end."""
     logs = RUN_DIR / name
     shutil.rmtree(logs, ignore_errors=True)
     argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", mode,
@@ -759,8 +783,17 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     t0 = time.perf_counter()
     proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
+    probe_thread = None
+    if probe is not None:
+        probe_thread = threading.Thread(target=probe.run, args=(logs,), name=f"probe-{name}", daemon=True)
+        probe_thread.start()
     try:
         out, err = proc.communicate(timeout=RUN_TIMEOUT_S)
+        if probe_thread is not None:
+            probe.run_ended_at = time.monotonic()
+            probe.done.set()
+            probe_thread.join(timeout=60)
+            check(not probe_thread.is_alive(), f"run {name}: the dashboard probe did not end")
     except subprocess.TimeoutExpired:
         # SIGTERM lets the launcher stop its rank and aggregator first
         os.killpg(proc.pid, signal.SIGTERM)
@@ -792,14 +825,89 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
         tables = {t: [dict(r) for r in conn.execute(f"SELECT * FROM {t} ORDER BY id")]
                   for t in ("system_samples", "system_device_samples", "process_samples",
                             "process_device_samples", "step_memory_samples")
-                  + (("stdout_samples",) if mode == "cli" else ())}
+                  + (("stdout_samples",) if mode in ("cli", "dashboard") else ())}
     finally:
         conn.close()
-    return {"summary": read("final_summary.json"), "manifest": read("manifest.json"),
+    summary = read("final_summary.json")
+    html_gate = check_html(name, session, summary)
+    return {"summary": summary, "html": html_gate, "manifest": read("manifest.json"),
             "ingest": read("ingest_stats.json"),
             "system_manifest": read("system_manifest.json", required=expect_ok),
             "rows": rows, "tables": tables, "stdout": out, "wall_s": wall_s, "steps": steps,
             "mode": mode, "session": session, "interval_s": interval_s}
+
+
+#: a word of the JAX package's platform, which no page or report of the port may hold
+JAX_WORDS = re.compile(r"\b(?:jax|tpus?|libtpu|xla|ici)\b", re.IGNORECASE)
+
+
+class _HTMLTables(html.parser.HTMLParser):
+    """The tables of ``final_summary.html``, each under the ``<h2>`` before
+    it, as lists of rows of cell texts; the banner's text; the step
+    chart's polylines."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.tables, self.heading, self.banner, self.polylines = [], None, "", 0
+        self._in = None
+        self._row = None
+
+    def handle_starttag(self, tag, attrs):
+        attrs = dict(attrs)
+        if tag == "h2":
+            self._in, self.heading = "h2", ""
+        elif tag == "div" and attrs.get("class") == "verdict":
+            self._in = "banner"
+        elif tag == "table":
+            self.tables.append((self.heading, []))
+        elif tag == "tr":
+            self._row = []
+            self.tables[-1][1].append(self._row)
+        elif tag in ("td", "th") and self._row is not None:
+            self._row.append("")
+        elif tag == "polyline":
+            self.polylines += 1
+
+    def handle_endtag(self, tag):
+        if tag == "h2" or (tag == "div" and self._in == "banner"):
+            self._in = None
+
+    def handle_data(self, data):
+        if self._in == "h2":
+            self.heading += data
+        elif self._in == "banner":
+            self.banner += data
+        elif self._row:
+            self._row[-1] += data
+
+
+def check_html(name: str, session: Path, summary: dict) -> dict:
+    """``final_summary.html`` of one call: it parses with ``html.parser``;
+    its banner holds the primary diagnosis's kind; its step-time phase
+    table has one row per phase of the JSON, its step chart one line per
+    rank, its device-memory and process tables one row per rank; it names
+    no JAX or TPU word."""
+    path = session / "final_summary.html"
+    check(path.exists(), f"run {name}: final_summary.html missing")
+    text = path.read_text()
+    parsed = _HTMLTables()
+    parsed.feed(text)
+    parsed.close()
+    kind = summary["primary_diagnosis"]["kind"]
+    check(kind in parsed.banner, f"run {name}: the HTML banner {parsed.banner[:200]!r} lacks {kind}")
+    tables = {heading: rows for heading, rows in parsed.tables}
+    sections = summary["sections"]
+    st = (sections["step_time"].get("global") or {})
+    want = {"Step time": len(st.get("phases") or {}),
+            "Device memory": len((sections["step_memory"].get("global") or {}).get("per_rank") or {}),
+            "Processes": len((sections["process"].get("global") or {}).get("per_rank") or {})}
+    got = {heading: len(tables.get(heading, [None])) - 1 for heading in want}
+    check(got == want and want["Step time"] > 0, f"run {name}: HTML table rows {got}, the JSON's {want}")
+    ranks = len(st.get("step_series_ms") or {})
+    check(parsed.polylines == ranks and ranks > 0, f"run {name}: {parsed.polylines} step-chart lines, {ranks} ranks")
+    words = sorted(set(JAX_WORDS.findall(text)))
+    check(not words, f"run {name}: final_summary.html names {words}")
+    return {"bytes": len(text.encode()), "rows": got, "banner_kind": kind}
 
 
 def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: int = 1) -> dict:
@@ -1127,6 +1235,29 @@ def check_cli_output(name: str, run: dict, got: dict) -> dict:
             "stdout_rows": len(run["tables"]["stdout_samples"]), "frame_lines": len(frame.splitlines())}
 
 
+def _row_appender(db: Path):
+    """A connection to a copy of a finished session DB and a function that
+    commits the i-th sender tick's rows: one step-time, system, process
+    and step-memory row more, copies of the newest, 0.1 s later each."""
+    conn = sqlite3.connect(db)
+    conn.row_factory = sqlite3.Row
+    newest = {t: conn.execute(f"SELECT * FROM {t} ORDER BY id DESC LIMIT 1").fetchone()
+              for t in ("step_time_samples", "system_samples", "process_samples", "step_memory_samples")}
+    last = {t: dict(row) for t, row in newest.items() if row is not None}
+
+    def append(i: int) -> None:
+        for table, row in last.items():
+            row = {k: v for k, v in row.items() if k != "id"}
+            if "step" in row:
+                row["step"] += i
+            row["timestamp"] += 0.1 * i
+            conn.execute(f"INSERT INTO {table} ({', '.join(row)}) VALUES ({', '.join('?' * len(row))})",
+                         tuple(row.values()))
+        conn.commit()
+
+    return conn, append
+
+
 def live_tick_cost(db: Path) -> dict:
     """``LiveComputer.payload()`` plus one render of the dashboard (to a
     terminal console of 120 columns, styles included), timed in process
@@ -1158,24 +1289,13 @@ def live_tick_cost(db: Path) -> dict:
         console.file.truncate()
         return us
 
-    conn = sqlite3.connect(copy)
-    conn.row_factory = sqlite3.Row
-    newest = {t: conn.execute(f"SELECT * FROM {t} ORDER BY id DESC LIMIT 1").fetchone()
-              for t in ("step_time_samples", "system_samples", "process_samples", "step_memory_samples")}
-    last = {t: dict(row) for t, row in newest.items() if row is not None}
+    conn, append = _row_appender(copy)
     computer = LiveComputer(copy)
     try:
         first = tick(computer)
         dirty = []
         for i in range(1, LIVE_TICKS + 1):
-            for table, row in last.items():
-                row = {k: v for k, v in row.items() if k != "id"}
-                if "step" in row:
-                    row["step"] += i
-                row["timestamp"] += 0.1 * i
-                conn.execute(f"INSERT INTO {table} ({', '.join(row)}) VALUES ({', '.join('?' * len(row))})",
-                             tuple(row.values()))
-            conn.commit()
+            append(i)
             dirty.append(tick(computer))
         cached = computer.payload()
         idle = [tick(computer) for _ in range(LIVE_TICKS)]
@@ -1227,6 +1347,333 @@ def cli_run_phase(cfg, train_healthy: dict, forward_healthy: dict) -> dict:
                f"{tick['dirty_tick_us']['median']:.1f}, idle median {tick['idle_tick_us']['median']:.1f} "
                f"over {LIVE_TICKS} ticks each")
     log("cli", json.dumps(out))
+    return out
+
+
+DASHBOARD_STEPS = 100  # ~12 s of the full-width train step: the probe reads the page while the rank trains
+STREAM_WINDOW_S = 5.0  # /api/stream must yield two events within this
+POLL_TIMES = 200
+
+
+def _http_get(port: int, path: str, headers=None, timeout: float = 10.0):
+    """(status, lower-cased headers, body) of one GET to the dashboard."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def _read_sse_event(resp) -> dict:
+    """One server-sent event as {field: value}; {} at the stream's end."""
+    event = {}
+    while True:
+        line = resp.fp.readline()
+        if not line:
+            return event
+        line = line.decode().rstrip("\n")
+        if line == "":
+            if event:
+                return event
+            continue
+        field, _, value = line.partition(": ")
+        event[field] = value
+
+
+def _canon(payload: dict) -> str:
+    return json.dumps({k: v for k, v in payload.items() if k != "ts"}, sort_keys=True)
+
+
+def _live_step_ms(live: dict):
+    rows = [p for p in ((live.get("step_time") or {}).get("phases") or []) if p.get("key") == "step_time"]
+    return rows[0]["median_ms"] if rows else None
+
+
+class DashboardProbe:
+    """Reads the dashboard of a ``--mode dashboard`` call while its rank
+    trains, from a thread beside ``launch_run``: it waits for
+    ``display_port`` in the session's ``aggregator_ready.json``; gets
+    ``/healthz`` and ``/``; reads ``/api/live`` until its step time, the
+    NVML device rows and the script's stdout have arrived; takes one
+    ``If-None-Match`` read, one ``?since=`` delta between two full reads
+    that share its token, one gzip read beside a plain one with the same
+    token, and ``STREAM_WINDOW_S`` of ``/api/stream``; then holds one
+    stream open across the run's end (on its own thread) and reads
+    ``/api/live`` every 0.5 s until the server is gone.  It records what
+    it read; ``dashboard_run_phase`` gates it.  An exception ends the
+    probe and is kept for the gate."""
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.run_ended_at = None
+        self.error = None
+        self.port = None
+        self.reads = {}
+        self.last_live = None
+        self.held = {"events": 0, "closed_at": None}
+
+    def run(self, logs: Path) -> None:
+        try:
+            self._run(logs)
+        except Exception as exc:
+            self.error = "".join(traceback.format_exception(type(exc), exc, exc.__traceback__))
+
+    @staticmethod
+    def ready(live: dict) -> bool:
+        """The payload holds the rank's steps, the GPU rows and its stdout."""
+        devices = [d for n in ((live.get("system") or {}).get("nodes") or []) for d in n.get("devices") or []]
+        return ((live.get("step_time") or {}).get("n_steps") or 0) >= 5 and bool(devices) and bool(live.get("stdout"))
+
+    def _full(self):
+        code, headers, body = _http_get(self.port, "/api/live")
+        check(code == 200, f"/api/live answered {code}")
+        return headers["x-traceml-token"], json.loads(body)
+
+    def _hold_stream(self) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=120)
+        try:
+            conn.request("GET", "/api/stream")
+            resp = conn.getresponse()
+            while _read_sse_event(resp):
+                self.held["events"] += 1
+        finally:
+            self.held["closed_at"] = time.monotonic()
+            conn.close()
+
+    def _run(self, logs: Path) -> None:
+        deadline = time.monotonic() + RUN_TIMEOUT_S
+        while self.port is None:
+            check(not self.done.is_set() and time.monotonic() < deadline,
+                  "no display_port in aggregator_ready.json while the run lasted")
+            for path in logs.glob("*/aggregator_ready.json"):
+                self.port = json.loads(path.read_text()).get("display_port")
+            time.sleep(0.05)
+        code, headers, body = _http_get(self.port, "/healthz")
+        self.reads["healthz"] = {"code": code, "body": json.loads(body)}
+        code, headers, body = _http_get(self.port, "/")
+        self.reads["page"] = {"code": code, "type": headers.get("content-type"), "text": body.decode()}
+        while True:
+            check(not self.done.is_set(), "the run ended before /api/live held steps, GPU rows and stdout")
+            token, live = self._full()
+            if self.ready(live):
+                self.reads["live"] = live
+                break
+            time.sleep(0.25)
+        token, _ = self._full()
+        code, headers, _ = _http_get(self.port, "/api/live", {"If-None-Match": f'"{token}"'})
+        self.reads["etag"] = {"sent": f'"{token}"', "code": code, "etag": headers.get("etag")}
+        for attempt in range(1, 31):  # a delta between two full reads that share its token
+            token_a, full_a = self._full()
+            code, headers, body = _http_get(self.port, f"/api/live?since={token_a}")
+            token_c, full_c = self._full()
+            if headers["x-traceml-token"] == token_c:
+                self.reads["delta"] = {"attempt": attempt, "code": code, "since": token_a,
+                                       "token": headers["x-traceml-token"], "full_a": full_a,
+                                       "body": json.loads(body) if code == 200 else None, "full_c": full_c}
+                break
+        for attempt in range(1, 31):
+            token_p, plain = self._full()
+            code, headers, body = _http_get(self.port, "/api/live", {"Accept-Encoding": "gzip"})
+            if headers["x-traceml-token"] == token_p:
+                self.reads["gzip"] = {"attempt": attempt, "code": code, "encoding": headers.get("content-encoding"),
+                                      "same": _canon(json.loads(gzip.decompress(body))) == _canon(plain)}
+                break
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=STREAM_WINDOW_S)
+        events, t0 = [], time.monotonic()
+        try:
+            conn.request("GET", "/api/stream")
+            resp = conn.getresponse()
+            while len(events) < 2 and time.monotonic() - t0 < STREAM_WINDOW_S:
+                event = _read_sse_event(resp)
+                if event.get("event") == "fragment":
+                    events.append({"id": event.get("id"), "at_s": time.monotonic() - t0,
+                                   "token": json.loads(event["data"])["token"]})
+        except OSError:
+            pass  # the window's timeout: the gate counts the events
+        finally:
+            conn.close()
+        self.reads["stream"] = events
+        held = threading.Thread(target=self._hold_stream, name="held-stream", daemon=True)
+        held.start()
+        while True:  # the last read before the server stops
+            try:
+                self.last_live = self._full()[1]
+            except OSError:
+                break
+            time.sleep(0.5)
+        held.join(timeout=60)
+        check(not held.is_alive(), "the held SSE stream outlived the dashboard")
+
+
+def serving_cost(session: Path) -> dict:
+    """The serving tier's cost, in process on a copy of a finished session
+    (its DB, ingest stats and rank status): ``publisher.poll()`` plus
+    ``full_body()`` (µs) the first time, ``POLL_TIMES`` times dirty (one
+    sender tick's rows committed before each, as in ``live_tick_cost``)
+    and ``POLL_TIMES`` times idle (nothing new: the token must not move);
+    the full body's bytes, raw and gzip; the publisher's counts of polls,
+    fragment builds and publishes, and full-body assemblies."""
+    from traceml_tpu_torch.renderers.serving import SessionPublisher
+
+    work = RUN_DIR / "serving_cost"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    for fname in ("telemetry.sqlite", "ingest_stats.json", "rank_status.json"):
+        shutil.copyfile(session / fname, work / fname)
+    conn, append = _row_appender(work / "telemetry.sqlite")
+    pub = SessionPublisher(work / "telemetry.sqlite", "serving_cost")
+    pub.min_poll_interval = 0.0
+
+    def poll() -> float:
+        t0 = time.perf_counter_ns()
+        pub.poll()
+        pub.full_body()
+        return (time.perf_counter_ns() - t0) / 1e3
+
+    try:
+        first = poll()
+        dirty = []
+        for i in range(1, POLL_TIMES + 1):
+            append(i)
+            dirty.append(poll())
+        token = pub.token
+        idle = [poll() for _ in range(POLL_TIMES)]
+        check(pub.token == token, f"idle polls moved the token {token} -> {pub.token}")
+        raw, _, _ = pub.full_body()
+        gz, _, enc = pub.full_body(accept_gzip=True)
+        check(enc == "gzip" and gzip.decompress(gz) == raw, "the gzip body does not decode to the raw one")
+    finally:
+        pub.close()
+        conn.close()
+    return {"first_us": first, "dirty_us": spread(dirty), "idle_us": spread(idle), "polls": POLL_TIMES,
+            "full_body_bytes": len(raw), "full_body_gzip_bytes": len(gz), "publisher": pub.stats}
+
+
+def html_render_cost(summary: dict, repeats: int = 20) -> dict:
+    """``render_html_summary`` on one run's final payload: ms (median of
+    ``repeats``) and the document's bytes."""
+    from traceml_tpu_torch.reporting.html.writer import render_html_summary
+
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter_ns()
+        text = render_html_summary(summary)
+        times.append((time.perf_counter_ns() - t0) / 1e6)
+    return {"ms_median": statistics.median(times), "ms_min": min(times), "bytes": len(text.encode()),
+            "repeats": repeats}
+
+
+def dashboard_run_phase(cfg, train_healthy: dict) -> dict:
+    """``python -m traceml_tpu_torch run --mode dashboard`` of ``dev/
+    train_script.py`` at full width ((8, 1025) tokens, ``DASHBOARD_STEPS``
+    steps, healthy, 0.1 s sender tick), read by a ``DashboardProbe`` while
+    the rank trains.  Gates: ``check_train_run``'s with the verdict of the
+    MFU's band and the healthy utilization; ``/healthz`` 200 with the
+    session; ``/`` HTML naming "TraceML (PyTorch)" and no JAX word;
+    ``/api/live`` at version 3 with the session, its step time on the
+    device clock with a median above 0, NVML utilization on every device
+    row, the script's lines so far in order; ``If-None-Match`` 304 (or 200
+    with a new ETag); the ``?since=`` delta a 204 with the same token or
+    only the fragments whose versions moved, merged equal to a full read;
+    the gzip body equal to the plain one; two ``/api/stream`` events with
+    ids within ``STREAM_WINDOW_S``; the last live median step within
+    ``FRAME_STEP_REL_TOL`` of the summary's; a stream held open across
+    the run's end, closed before the launcher exited; the URL line on the
+    launcher's stdout.  Reported: the step against the ``summary`` train
+    run's, ``serving_cost`` on this run's session, ``html_render_cost`` on
+    the ``summary`` train run's payload."""
+    from traceml_tpu_torch.renderers.web_payload import FRAGMENT_ORDER
+
+    name = "train_dashboard"
+    probe = DashboardProbe()
+    run = launch_run(name, 0.0, 0.1, script="train_script.py", steps=DASHBOARD_STEPS, mode="dashboard",
+                     probe=probe)
+    got = check_train_run(name, run, cfg, mfu_verdict)
+    check_healthy_utilization(name, got)
+    check(probe.error is None, f"run {name}: the dashboard probe failed: {probe.error}")
+    session_id = run["session"].name
+    reads = probe.reads
+    check(f"[TraceML] dashboard: http://127.0.0.1:{probe.port}/" in run["stdout"],
+          f"run {name}: no dashboard URL line on the launcher's stdout")
+    health = reads["healthz"]
+    check(health["code"] == 200 and health["body"].get("ok") is True and health["body"].get("session") == session_id,
+          f"run {name}: /healthz {health}")
+    page = reads["page"]
+    words = sorted(set(JAX_WORDS.findall(page["text"])))
+    check(page["code"] == 200 and page["type"].startswith("text/html") and "TraceML (PyTorch)" in page["text"]
+          and not words, f"run {name}: / answered {page['code']} {page['type']}, JAX words {words}")
+    live = reads["live"]
+    st = live["step_time"]
+    devices = [d for n in live["system"]["nodes"] for d in n.get("devices") or []]
+    check(live["version"] == 3 and live["session"] == session_id, f"run {name}: /api/live header {live['version']}"
+                                                                    f" {live['session']}")
+    check(st["clock"] == "device" and (_live_step_ms(live) or 0) > 0,
+          f"run {name}: /api/live step time on the {st['clock']} clock, median {_live_step_ms(live)}")
+    check(bool(devices) and all(d.get("utilization_pct") is not None for d in devices),
+          f"run {name}: /api/live GPU rows without NVML utilization: {devices}")
+    printed = [r["line"] for r in run["tables"]["stdout_samples"] if r["stream"] == "stdout"]
+    live_lines = [l["line"] for l in live["stdout"] if l["stream"] == "stdout"]
+    at = printed.index(live_lines[0]) if live_lines and live_lines[0] in printed else -1
+    check(at >= 0 and printed[at:at + len(live_lines)] == live_lines,
+          f"run {name}: /api/live stdout {live_lines} is not the script's lines {printed} in order")
+    etag = reads["etag"]
+    check(etag["code"] == 304 or (etag["code"] == 200 and etag["etag"] != etag["sent"]),
+          f"run {name}: If-None-Match {etag}")
+    delta = reads.get("delta")
+    check(delta is not None, f"run {name}: no ?since= delta between two full reads with its token in 30 tries")
+    if delta["code"] == 204:
+        check(delta["token"] == delta["since"], f"run {name}: a 204 delta moved the token {delta['since']} -> "
+                                                f"{delta['token']}")
+        merged = delta["full_a"]
+    else:
+        check(delta["code"] == 200, f"run {name}: ?since= answered {delta['code']}")
+        before = dict(zip(FRAGMENT_ORDER, delta["since"].split(":")[1].split(".")))
+        after = dict(zip(FRAGMENT_ORDER, delta["token"].split(":")[1].split(".")))
+        moved = {f for f in FRAGMENT_ORDER if before[f] != after[f]}
+        check(set(delta["body"]["fragments"]) == moved,
+              f"run {name}: the delta holds {sorted(delta['body']['fragments'])}, the versions moved {sorted(moved)}")
+        merged = dict(delta["full_a"])
+        for frag in delta["body"]["fragments"].values():
+            merged.update(frag)
+    check(_canon(merged) == _canon(delta["full_c"]), f"run {name}: the merged delta differs from a full read")
+    gz = reads.get("gzip")
+    check(gz is not None and gz["code"] == 200 and gz["encoding"] == "gzip" and gz["same"],
+          f"run {name}: gzip read {gz}")
+    events = reads["stream"]
+    check(len(events) >= 2 and all(e["id"] and e["id"] == e["token"] for e in events),
+          f"run {name}: /api/stream gave {events} within {STREAM_WINDOW_S} s")
+    last_ms, summary_ms = _live_step_ms(probe.last_live or {}), got["step_ms_summary"]
+    check(last_ms is not None and abs(last_ms - summary_ms) / summary_ms <= FRAME_STEP_REL_TOL,
+          f"run {name}: the last live median step {last_ms} ms vs final_summary.json {summary_ms} ms")
+    held = probe.held
+    check(held["closed_at"] is not None and held["closed_at"] <= probe.run_ended_at and held["events"] >= 1,
+          f"run {name}: the SSE stream held across the run's end: {held}")
+    train_summary = json.loads(next((RUN_DIR / "train_healthy").glob("*/final_summary.json")).read_text())
+    out = {"flash_launches": got["flash_launches"], "verdict": got["verdict"],
+           "step_device_ms_dashboard": got["step_device_ms"],
+           "step_device_ms_summary": train_healthy["step_device_ms"],
+           "mfu_dashboard": got["efficiency"]["mfu_median"], "mfu_summary": train_healthy["efficiency"]["mfu_median"],
+           "wall_s_dashboard": got["wall_s"], "wall_s_summary": train_healthy["wall_s"],
+           "live_step_ms_last": last_ms, "summary_step_ms": summary_ms,
+           "live_n_steps_first": st["n_steps"], "live_n_steps_last": probe.last_live["step_time"]["n_steps"],
+           "delta": {"code": delta["code"], "attempt": delta["attempt"]}, "stream_events_at_s": [
+               e["at_s"] for e in events], "held_stream_events": held["events"],
+           "held_stream_closed_before_exit_s": probe.run_ended_at - held["closed_at"],
+           "html": run["html"], "serving": serving_cost(run["session"]),
+           "html_render": html_render_cost(train_summary)}
+    a, b = out["step_device_ms_dashboard"], out["step_device_ms_summary"]
+    log("dashboard", "train step device ms, dashboard vs summary: " + ", ".join(
+        f"{k} {a[k]:.4f} vs {b[k]:.4f} ({a[k] / b[k]:.4f}x)" for k in a))
+    cost = out["serving"]
+    log("dashboard", f"poll + full_body µs: first {cost['first_us']:.1f}; dirty median "
+                     f"{cost['dirty_us']['median']:.1f} p90 {cost['dirty_us']['p90']:.1f}, idle median "
+                     f"{cost['idle_us']['median']:.1f} p90 {cost['idle_us']['p90']:.1f} over {POLL_TIMES} each; "
+                     f"full body {cost['full_body_bytes']} bytes, gzip {cost['full_body_gzip_bytes']}")
+    log("dashboard", f"render_html_summary on the summary train run's payload: "
+                     f"{out['html_render']['ms_median']:.3f} ms, {out['html_render']['bytes']} bytes")
+    log("dashboard", json.dumps(out))
     return out
 
 
@@ -1329,6 +1776,11 @@ def main() -> int:
     kernel["launches"] += cli["train"]["flash_launches"]
     kernel["launches_by_path"]["train_cli_run"] = cli["train"]["flash_launches"]
     log("time", f"cli run phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dashboard = dashboard_run_phase(cfg, train_healthy)
+    kernel["launches"] += dashboard["flash_launches"]
+    kernel["launches_by_path"]["train_dashboard_run"] = dashboard["flash_launches"]
+    log("time", f"dashboard run phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

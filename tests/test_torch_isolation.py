@@ -61,6 +61,17 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "traceml_tpu_torch.renderers.cli.dashboard", "traceml_tpu_torch.aggregator.display_drivers.cli",
     }
     assert live_display <= set(out["imported"])
+    dashboard = {  # the modules of the dashboard mode and the HTML report
+        "traceml_tpu_torch.reporting.html.style", "traceml_tpu_torch.reporting.html.svg",
+        "traceml_tpu_torch.reporting.html.sections", "traceml_tpu_torch.reporting.html.writer",
+        "traceml_tpu_torch.renderers.web_payload", "traceml_tpu_torch.renderers.serving",
+        "traceml_tpu_torch.aggregator.display_drivers.browser",
+    } | {
+        f"traceml_tpu_torch.aggregator.display_drivers.browser_sections.{m}"
+        for m in ("theme", "hero", "summary", "step_time", "memory", "system", "process", "diagnostics",
+                  "cluster", "pages")
+    }
+    assert dashboard <= set(out["imported"])
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 

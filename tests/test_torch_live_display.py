@@ -337,11 +337,12 @@ class _Context:
 
 def test_cli_driver_prints_the_last_frame_and_closes_its_connection(tmp_path, monkeypatch, capsys):
     from traceml_tpu_torch.aggregator.display_drivers import SummaryDisplayDriver, resolve_display_driver
+    from traceml_tpu_torch.aggregator.display_drivers.browser import BrowserDisplayDriver
     from traceml_tpu_torch.aggregator.display_drivers.cli import CLIDisplayDriver
 
     assert isinstance(resolve_display_driver("cli"), CLIDisplayDriver)
-    for mode in ("summary", "dashboard"):
-        assert type(resolve_display_driver(mode)) is SummaryDisplayDriver
+    assert isinstance(resolve_display_driver("dashboard"), BrowserDisplayDriver)
+    assert type(resolve_display_driver("summary")) is SummaryDisplayDriver
     db, writer = _seed(tmp_path, "input_bound")
     driver = CLIDisplayDriver()
     driver.start(_Context(db))

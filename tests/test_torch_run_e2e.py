@@ -8,9 +8,12 @@ ships its rows over TCP, the aggregator stores them in SQLite and writes
 the final summary, which must say INPUT_BOUND, as must the launcher's
 stdout.  Its ``system`` section holds the host rows of rank 0 alone (the
 node's primary rank) and its ``process`` section every rank's rows; on
-the CPU no GPU row is written.  ``--disable-traceml`` passes a script through untraced; ``--mode
-dashboard`` is refused, and ``cli`` is the default, as in JAX (its runs
-are held in ``test_torch_live_display.py``).  ``traceml_tpu_torch/dev/train_script.py``
+the CPU no GPU row is written.  Every run writes ``final_summary.html``
+beside the ``.json`` and ``.txt``, the killed one too.
+``--disable-traceml`` passes a script through untraced; ``--mode`` takes
+the three JAX modes, and ``cli`` is the default, as in JAX (its runs are
+held in ``test_torch_live_display.py``, the ``dashboard`` runs in
+``test_torch_dashboard.py``).  ``traceml_tpu_torch/dev/train_script.py``
 on the same model under ``run`` (one rank): its rows carry forward,
 backward and optimizer phases from the auto-patches, the summary has an
 ``efficiency`` section with the FLOPs its warm-up step counted and no MFU
@@ -97,6 +100,7 @@ def test_run_summary_mode_input_bound(tmp_path, nprocs):
     assert sorted(process["global"]["per_rank"]) == [str(r) for r in range(nprocs)]
     assert all(v["rss_bytes"] > 0 for v in process["global"]["per_rank"].values())
     assert (session / "final_summary.txt").exists()
+    assert "INPUT_BOUND" in (session / "final_summary.html").read_text()
     assert "INPUT_BOUND" in proc.stdout
     assert "flash_attention.launches 0" in proc.stdout  # S=64 < the kernel's threshold
     assert not (session / "finalization_warning.json").exists()
@@ -153,19 +157,29 @@ def test_run_disabled_passthrough(tmp_path):
     assert "hello untraced" in proc.stdout
 
 
-def test_other_modes_are_refused(tmp_path, capsys, monkeypatch):
-    """``dashboard`` is refused; ``cli`` is accepted and, as in the JAX
-    launcher, the default of a single-node run."""
+def _mode_choices(parser):
+    run = next(a for a in parser._actions if a.dest == "command").choices["run"]
+    return next(a for a in run._actions if a.dest == "mode").choices
+
+
+def test_supported_modes_are_the_jax_modes_and_cli_is_the_default(tmp_path, capsys, monkeypatch):
+    """The launcher takes the JAX launcher's three modes (``cli``,
+    ``summary``, ``dashboard``) and, as the JAX launcher, defaults to
+    ``cli`` on a single node; any other mode is refused before a session
+    is made."""
+    from traceml_tpu.launcher.cli import _build_parser as jax_parser
     from traceml_tpu.launcher.commands import resolve_settings as jax_resolve_settings
-    from traceml_tpu_torch.launcher.cli import main
+    from traceml_tpu_torch.launcher.cli import _build_parser, main
     from traceml_tpu_torch.launcher.commands import SUPPORTED_MODES, resolve_settings
 
+    assert SUPPORTED_MODES == ("cli", "summary", "dashboard")
+    assert tuple(_mode_choices(_build_parser())) == tuple(_mode_choices(jax_parser())) == SUPPORTED_MODES
     script = tmp_path / "noop.py"
     script.write_text("print('never runs')\n")
-    assert main(["run", "--mode", "dashboard", "--logs-dir", str(tmp_path / "logs"), str(script)]) == 2
-    assert "use --mode cli or --mode summary" in capsys.readouterr().out
+    monkeypatch.setenv("TRACEML_MODE", "bogus")
+    assert main(["run", "--logs-dir", str(tmp_path / "logs"), str(script)]) == 2
+    assert "unknown --mode bogus" in capsys.readouterr().out
     assert not (tmp_path / "logs").exists()
-    assert SUPPORTED_MODES == ("cli", "summary")
     monkeypatch.delenv("TRACEML_MODE", raising=False)
     monkeypatch.chdir(tmp_path)  # no yaml config for the JAX launcher to find
     assert resolve_settings({}).mode == jax_resolve_settings({}).mode == "cli"
@@ -201,6 +215,7 @@ def test_rank_sigkill_reported_lost_with_data_gap(tmp_path):
     assert summary["primary_diagnosis"]["kind"] in ("RANK_LOST", "LIKELY_PREEMPTED"), summary["primary_diagnosis"]
     status = json.loads((session / "rank_status.json").read_text())
     assert status["thresholds"] == {"stale_after_sec": 1.0, "lost_after_sec": 3.0}
+    assert summary["primary_diagnosis"]["kind"] in (session / "final_summary.html").read_text()
 
 
 def test_train_script_final_summary_tokens_and_summary(tmp_path):

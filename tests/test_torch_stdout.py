@@ -148,8 +148,11 @@ def test_writer_stores_the_same_table_as_jax(tmp_path, columnar):
     assert max(len(r[-1]) for r in rows_p) == 4096
 
 
-@pytest.mark.parametrize("mode", ["cli", "summary"])
+@pytest.mark.parametrize("mode", ["cli", "summary", "dashboard"])
 def test_runtime_wires_the_capture_in_cli_mode_only(tmp_path, mode):
+    """As in JAX, the capture and its sampler are wired in the live modes,
+    ``cli`` and ``dashboard`` (whose page shows rank 0's output too), and
+    not in ``summary``."""
     from traceml_tpu_torch.runtime.runtime import TraceMLRuntime
     from traceml_tpu_torch.runtime.settings import TraceMLSettings
     from traceml_tpu_torch.sdk.state import reset_state_for_tests
@@ -167,7 +170,7 @@ def test_runtime_wires_the_capture_in_cli_mode_only(tmp_path, mode):
     assert sys.stdout is before  # restored at stop
     names = [s.name for s in rt.samplers]
     log = tmp_path / "s" / "rank_0" / "stdout.log"
-    if mode == "cli":
+    if mode in ("cli", "dashboard"):
         assert teed and names[-1] == "stdout_stderr"
         assert "[stdout] hello from the script" in log.read_text().splitlines()
     else:

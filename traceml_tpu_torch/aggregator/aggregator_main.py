@@ -3,7 +3,8 @@
 Counterpart of ``traceml_tpu/aggregator/aggregator_main.py``.  Launched
 as ``python -m traceml_tpu_torch.aggregator.aggregator_main`` with the
 ``TRACEML_*`` environment: binds the TCP server (port 0 → ephemeral,
-advertised in ``aggregator_ready.json``), then runs until SIGTERM or
+advertised in ``aggregator_ready.json`` with the dashboard's HTTP port
+in ``dashboard`` mode), then runs until SIGTERM or
 SIGINT, or until its parent dies, and finalizes on the way out.  A fatal
 error lands in ``aggregator_error.log``.
 """
@@ -37,7 +38,7 @@ def main() -> int:
     try:
         agg = TraceMLAggregator(settings)
         agg.start()
-        write_ready_file(settings, agg.port)
+        write_ready_file(settings, agg.port, display_port=getattr(agg.display, "port", None))
         while not stop_evt.wait(0.25):
             pass
         agg.stop()

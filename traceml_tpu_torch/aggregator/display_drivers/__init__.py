@@ -1,8 +1,8 @@
 """Display drivers.
 
-Counterpart of ``traceml_tpu/aggregator/display_drivers/``.  The browser
-driver of the ``dashboard`` mode comes in a later slice (ROADMAP queue 1
-item 2), so ``dashboard`` resolves to no live UI here.
+Counterpart of ``traceml_tpu/aggregator/display_drivers/``: ``cli`` is
+the live Rich display, ``dashboard`` the browser dashboard, and any other
+mode has no live UI.
 """
 
 from traceml_tpu_torch.aggregator.display_drivers.base import (  # noqa: F401
@@ -12,13 +12,20 @@ from traceml_tpu_torch.aggregator.display_drivers.base import (  # noqa: F401
 
 
 def resolve_display_driver(mode: str):
-    """cli → the live Rich display; summary and any other mode → no
-    live UI."""
+    """cli → the live Rich display; dashboard → the browser server;
+    summary and any other mode → no live UI."""
     if mode == "cli":
         try:
             from traceml_tpu_torch.aggregator.display_drivers.cli import CLIDisplayDriver
 
             return CLIDisplayDriver()
+        except Exception:
+            return SummaryDisplayDriver()
+    if mode == "dashboard":
+        try:
+            from traceml_tpu_torch.aggregator.display_drivers.browser import BrowserDisplayDriver
+
+            return BrowserDisplayDriver()
         except Exception:
             return SummaryDisplayDriver()
     return SummaryDisplayDriver()

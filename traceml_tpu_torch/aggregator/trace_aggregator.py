@@ -1,12 +1,13 @@
 """The aggregator.
 
 Counterpart of ``traceml_tpu/aggregator/trace_aggregator.py`` for the
-``summary`` and ``cli`` modes over TCP (no browser display, session
+``summary``, ``cli`` and ``dashboard`` modes over TCP (no session
 registry, shm rings or restarts yet).
 
 Owns the TCP ingest server, the SQLite writer, the rank liveness tracker,
 the final-summary service and the display driver of the mode (the live
-Rich display in ``cli``, none in ``summary``).  Its loop blocks on
+Rich display in ``cli``, the browser dashboard's HTTP server in
+``dashboard``, none in ``summary``).  Its loop blocks on
 ``wait_for_data``, decodes frames on its own thread, hands telemetry
 envelopes to the writer and handles the control messages inline: ``rank_finished`` (the
 end-of-run barrier), ``rank_heartbeat`` and ``producer_stats`` (kept
@@ -303,9 +304,11 @@ class TraceMLAggregator:
         )
 
 
-def write_ready_file(settings: TraceMLSettings, port: int) -> None:
-    """The launcher polls this file for the bound (ephemeral) port."""
-    atomic_write_json(
-        settings.session_dir / "aggregator_ready.json",
-        {"port": port, "pid": os.getpid(), "ts": time.time()},
-    )
+def write_ready_file(settings: TraceMLSettings, port: int, display_port: Optional[int] = None) -> None:
+    """The launcher polls this file for the bound (ephemeral) ports: the
+    ingest port always, the dashboard's HTTP port when a browser driver
+    is serving."""
+    payload: Dict[str, Any] = {"port": port, "pid": os.getpid(), "ts": time.time()}
+    if display_port is not None:
+        payload["display_port"] = display_port
+    atomic_write_json(settings.session_dir / "aggregator_ready.json", payload)

@@ -1,11 +1,12 @@
 """``python -m traceml_tpu_torch`` command line.
 
 Counterpart of ``traceml_tpu/launcher/cli.py`` with the ``run``
-subcommand (``view``, ``compare``, ``inspect``, ``watch`` and the browser
-dashboard come later).  ``--mode`` takes ``cli`` (the live display, the
-default) and ``summary`` (the verdict on stdout at the end).
+subcommand (``view``, ``compare``, ``inspect``, ``watch`` and ``fleet``
+come later).  ``--mode`` takes the three JAX modes: ``cli`` (the live
+display, the default), ``summary`` (the verdict on stdout at the end) and
+``dashboard`` (the browser dashboard, its URL on stdout).
 
-    python -m traceml_tpu_torch run [--mode cli|summary] [options] script.py [-- script args]
+    python -m traceml_tpu_torch run [--mode cli|summary|dashboard] [options] script.py [-- script args]
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ def _build_parser() -> argparse.ArgumentParser:
     run = sub.add_parser("run", help="launch a training script under tracing")
     run.add_argument("script", help="path to the training script")
     run.add_argument("script_args", nargs=argparse.REMAINDER, default=[])
-    run.add_argument("--mode", default=None,
-                     help="display mode: cli (the live display, the default) or summary")
+    run.add_argument("--mode", choices=("cli", "summary", "dashboard"), default=None,
+                     help="display mode: cli (the live display, the default), summary, or "
+                          "dashboard (the browser dashboard; its URL is printed)")
     run.add_argument("--run-name", dest="run_name", default=None)
     run.add_argument("--logs-dir", dest="logs_dir", default=None)
     run.add_argument("--nprocs", type=int, default=1, help="rank processes to start")

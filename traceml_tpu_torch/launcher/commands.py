@@ -1,15 +1,16 @@
 """Launch orchestration.
 
 Counterpart of ``traceml_tpu/launcher/commands.py`` for the ``cli`` (the
-default, as in JAX for a single-node run) and ``summary`` modes on one
-node (no ``dashboard`` mode, yaml config, code manifest, aggregator
-restarts or multi-node launch yet).
+default, as in JAX for a single-node run), ``summary`` and ``dashboard``
+modes on one node (no yaml config, code manifest, aggregator restarts or
+multi-node launch yet).
 
 ``run``: resolve the settings (CLI > env > defaults), write the run
 manifest, start the aggregator and wait for its ready file, start N rank
 processes (the executor entry, with the ``RANK``/``WORLD_SIZE`` contract),
 supervise them, stop the aggregator gracefully (SIGTERM → it settles,
-draws the live display's last frame in ``cli``, writes SQLite and the
+draws the live display's last frame in ``cli`` or stops the dashboard's
+server in ``dashboard``, writes SQLite and the
 final summary), then, in ``summary`` mode, enforce ``final_summary.json``
 and print the verdict.  An aggregator that fails to start, or dies
 early, degrades the run (training goes on untraced) instead of failing
@@ -48,7 +49,7 @@ from traceml_tpu_torch.runtime.settings import (
 )
 from traceml_tpu_torch.sdk import protocol
 
-SUPPORTED_MODES = ("cli", "summary")
+SUPPORTED_MODES = ("cli", "summary", "dashboard")
 
 
 def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
@@ -107,10 +108,7 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
         return 2
     settings = resolve_settings(cli)
     if settings.mode not in SUPPORTED_MODES and not settings.disabled:
-        print(
-            f"[TraceML] --mode {settings.mode} is not available in traceml_tpu_torch yet "
-            f"(its browser dashboard comes later); use --mode cli or --mode summary"
-        )
+        print(f"[TraceML] unknown --mode {settings.mode}; use one of {', '.join(SUPPORTED_MODES)}")
         return 2
     nprocs = int(cli.get("nprocs") or 1)
     session_dir = settings.session_dir

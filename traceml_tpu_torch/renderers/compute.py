@@ -101,6 +101,15 @@ class LiveComputer:
             self._cache = out
             return out
 
+    def payload_with_versions(self) -> Tuple[Dict[str, Any], Dict[str, int]]:
+        """The payload and the store versions it was computed at, read
+        together under the lock: the serving tier keys its cache of
+        serialized fragments on these, so the pair must agree.  (The JAX
+        method also exports the incremental window's build stats, which
+        the port's scalar arm does not keep.)"""
+        with self._lock:
+            return self.payload(), dict(self._store.versions)
+
     def _attach_rank_status(self, out: Dict[str, Any]) -> None:
         """The liveness strip, refreshed on every tick (never
         dirty-gated): a lost rank's state changes exactly when its DB

@@ -6,17 +6,18 @@ projections through ``reporting/loaders.py``, builds the step-time
 window with the scalar ``utils/step_time_window.py`` (the JAX package's
 golden reference arm),
 runs each domain's diagnosis, promotes a run-level primary diagnosis,
-and writes ``final_summary.json`` and ``final_summary.txt`` atomically.
-A failed section degrades to a NO_DATA payload: the report never fails
-because one domain did.
+and writes ``final_summary.json``, ``final_summary.txt`` and
+``final_summary.html`` atomically.  A failed section degrades to a
+NO_DATA payload: the report never fails because one domain did, nor
+because the HTML artifact did (its failure goes to the error log).  As
+in JAX, a session without a telemetry DB gets the JSON and text only.
 
 The liveness section reads the aggregator's ``rank_status.json`` and
 ``finalization_warning.json``, not the database: a rank killed mid-run
 left no closing rows.  The ``collectives`` section is a NO_DATA stub (its
 sampler comes later), and the payload leaves out what the JAX report adds
 only when it has something for it: the cross-run ``regressions``, the
-stitched ``history`` and ``meta.window_build``; no HTML artifact is
-written yet.
+stitched ``history`` and ``meta.window_build``.
 """
 
 from __future__ import annotations
@@ -699,7 +700,7 @@ def generate_summary(
     settings: Any = None,
     mode: Optional[str] = None,
 ) -> bool:
-    """Build and write final_summary.{json,txt}; True on success."""
+    """Build and write final_summary.{json,txt,html}; True on success."""
     db_path = Path(db_path)
     session_dir = Path(session_dir)
     mode = mode or (getattr(settings, "mode", None) or "summary")
@@ -810,4 +811,10 @@ def generate_summary(
     }
     attach_section_cards(payload)
     _write(session_dir, payload)
+    try:
+        from traceml_tpu_torch.reporting.html.writer import write_html_summary
+
+        write_html_summary(payload, protocol.get_final_summary_html_path(session_dir))
+    except Exception as exc:  # the HTML artifact is best-effort
+        get_error_log().warning("final_summary.html write failed", exc)
     return True

@@ -283,3 +283,13 @@ def load_rank_status(session_dir: Path) -> Dict[str, Any]:
 
     data = read_json(Path(session_dir) / "rank_status.json")
     return data if isinstance(data, dict) else {}
+
+
+def load_ingest_stats(session_dir: Path) -> Dict[str, Any]:
+    """The aggregator's self-metrics (queue depths and high-water marks,
+    per-domain drops, group commit) from ``ingest_stats.json``; ``{}``
+    when the file is missing or unreadable."""
+    from traceml_tpu_torch.utils.atomic_io import read_json
+
+    data = read_json(Path(session_dir) / "ingest_stats.json")
+    return data if isinstance(data, dict) else {}

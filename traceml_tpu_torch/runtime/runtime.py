@@ -6,7 +6,8 @@ that ``runtime/sampler_registry.build_samplers`` gives this rank (system on
 the node's primary rank, process, step time, step memory), a daemon tick
 thread at ``sampler_interval_sec`` and, when the settings name an
 aggregator port,
-the TCP client and the publisher.  In the ``cli`` mode it also tees the
+the TCP client and the publisher.  In the ``cli`` and ``dashboard``
+modes it also tees the
 script's stdout and stderr through a :class:`StreamCapture`, which the
 stdout/stderr sampler drains, as the JAX runtime does.  Every tick
 samples, and publishes when there is a publisher.  Lifecycle: start
@@ -27,7 +28,7 @@ from traceml_tpu_torch.runtime.identity import resolve_runtime_identity
 from traceml_tpu_torch.runtime.sampler_registry import build_samplers
 from traceml_tpu_torch.runtime.sender import TelemetryPublisher
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
-from traceml_tpu_torch.runtime.stdout_capture import StreamCapture
+from traceml_tpu_torch.runtime.stdout_capture import CAPTURE_MODES, StreamCapture
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 from traceml_tpu_torch.sdk.state import get_state
 from traceml_tpu_torch.telemetry.control import build_rank_finished
@@ -40,7 +41,7 @@ class TraceMLRuntime:
         self.settings = settings or TraceMLSettings()
         self.runtime_identity = resolve_runtime_identity()
         self.identity = self.runtime_identity.to_sender_identity(self.settings.session_id)
-        self.capture: Optional[StreamCapture] = StreamCapture() if self.settings.mode == "cli" else None
+        self.capture: Optional[StreamCapture] = StreamCapture() if self.settings.mode in CAPTURE_MODES else None
         self.samplers: List[BaseSampler] = []
         self.client: Optional[TCPClient] = None
         self.publisher: Optional[TelemetryPublisher] = None

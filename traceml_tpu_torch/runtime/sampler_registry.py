@@ -9,7 +9,8 @@ so every sampler drains once, at shutdown, as the step-time and
 step-memory samplers did before this registry.  The JAX package's
 collectives and serving samplers come with ROADMAP queue 1 items 4 and 5:
 they are not registered yet.  As in JAX, the stdout/stderr sampler is
-wired apart from the registry, in the ``cli`` mode only, because it
+wired apart from the registry, in the ``cli`` and ``dashboard`` modes
+only, because it
 needs the runtime's :class:`StreamCapture`: it writes every rank's
 ``stdout.log`` and ships rows from the global primary rank alone.
 """
@@ -21,7 +22,7 @@ from typing import Callable, Dict, List, Optional
 
 from traceml_tpu_torch.runtime.identity import RuntimeIdentity
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
-from traceml_tpu_torch.runtime.stdout_capture import StreamCapture
+from traceml_tpu_torch.runtime.stdout_capture import CAPTURE_MODES, StreamCapture
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 
 
@@ -65,7 +66,7 @@ def build_samplers(
         if key == "system":
             kwargs["manifest_path"] = settings.session_dir / "system_manifest.json"
         out.append(spec.factory(**kwargs))
-    if capture is not None and settings.mode == "cli":
+    if capture is not None and settings.mode in CAPTURE_MODES:
         from traceml_tpu_torch.samplers.stdout_stderr_sampler import StdoutStderrSampler
 
         out.append(StdoutStderrSampler(

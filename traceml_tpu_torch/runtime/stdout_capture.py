@@ -3,8 +3,10 @@
 Counterpart of ``traceml_tpu/runtime/stdout_capture.py`` (copied, less
 the ``capture_stderr`` switch: the port has no ``TRACEML_CAPTURE_STDERR``
 opt-out, so stderr is always teed, the JAX default).  The runtime
-installs it in the ``cli`` mode only: the live display's rank-0 output
-panel and each rank's ``stdout.log`` are fed from its buffer.
+installs it in the live modes only, ``CAPTURE_MODES`` (the JAX runtime's
+``("cli", "dashboard")``): the rank-0 output panel of the CLI display
+and of the browser dashboard, and each rank's ``stdout.log``, are fed
+from its buffer.
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ from __future__ import annotations
 import sys
 import threading
 from typing import List, Optional, Tuple
+
+#: the modes whose live display shows rank 0's output
+CAPTURE_MODES = ("cli", "dashboard")
 
 
 class StreamCapture:

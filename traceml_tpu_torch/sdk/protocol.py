@@ -1,7 +1,6 @@
 """The final summary's file protocol.
 
-Counterpart of ``traceml_tpu/sdk/protocol.py`` (without the HTML path:
-the port writes no HTML report yet).  A rank and the aggregator share
+Counterpart of ``traceml_tpu/sdk/protocol.py`` (copied).  A rank and the aggregator share
 only the session directory: the final-summary request and response are a
 pair of atomic JSON files in ``<session>/control/``, and the artifacts
 live at canonical paths.
@@ -19,6 +18,7 @@ REQUEST_FILE = "final_summary_request.json"
 RESPONSE_FILE = "final_summary_response.json"
 SUMMARY_JSON = "final_summary.json"
 SUMMARY_TXT = "final_summary.txt"
+SUMMARY_HTML = "final_summary.html"
 
 
 def control_dir(session_dir: Path) -> Path:
@@ -39,6 +39,10 @@ def get_final_summary_json_path(session_dir: Path) -> Path:
 
 def get_final_summary_txt_path(session_dir: Path) -> Path:
     return Path(session_dir) / SUMMARY_TXT
+
+
+def get_final_summary_html_path(session_dir: Path) -> Path:
+    return Path(session_dir) / SUMMARY_HTML
 
 
 def write_summary_request(session_dir: Path, requester_rank: int = 0) -> None:
