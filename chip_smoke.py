@@ -120,6 +120,22 @@
    DB (``serving_cost``) and ``render_html_summary``'s on the ``summary``
    train run's payload.
 
+9. The aggregator's crash-resume (``aggregator_restart_phase``): ``run
+   --mode summary`` of ``train_script.py`` at full width (one rank, 60
+   steps, 0.1 s tick) whose aggregator a ``TRACEML_FAULT_PLAN`` kill9
+   rule SIGKILLs ``RESTART_KILL_AT`` of the way into the loop (counted in
+   payloads from the healthy ``summary`` train run).  The launcher
+   restarts it on the pinned port, the rank replays its spool, the
+   writer drops duplicates by seq.  Gates: the healthy train run's
+   (device clock, 12 x 60 launches, the MFU's band, the HTML) with the
+   manifest ``completed`` / ``restarted`` / one restart; ``restarting``
+   on stdout; the stored (rank, step) pairs each once and equal to the
+   healthy run's; every rank in the summary's ``ranks_seen``; the kill
+   and the restart inside the loop.  Reported:
+   the kill's step, the time from the launcher's notice to the new ready
+   file, reconnects, replayed envelopes, spool bytes, replay duplicates,
+   and the step against the healthy run's.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
@@ -910,11 +926,16 @@ def check_html(name: str, session: Path, summary: dict) -> dict:
     return {"bytes": len(text.encode()), "rows": got, "banner_kind": kind}
 
 
-def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: int = 1) -> dict:
+def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: int = 1,
+              telemetry_status: str = "ok") -> dict:
     """The run phase's gates on one call; returns its reported numbers.
     ``verdict`` is the expected primary verdict, or a function of the
     summary that gives it; the flash kernel must launch
-    ``launches_per_layer`` times a layer and a step."""
+    ``launches_per_layer`` times a layer and a step.  With
+    ``telemetry_status="restarted"`` the manifest must say so with one
+    aggregator restart, and the batches the client could not send must
+    all have gone through the rank's spool: none it could not hold, none
+    evicted, none left in it."""
     from traceml_tpu_torch.utils import timing as T
 
     summary, manifest, ingest = run["summary"], run["manifest"], run["ingest"]
@@ -924,13 +945,20 @@ def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: 
     check(st["global"]["n_steps"] >= 50, f"run {name}: {st['global']['n_steps']} steps in the window")
     check(sm["status"] == "OK" and sm["global"]["rollup"]["max_peak_bytes"] > 0,
           f"run {name}: no positive step-memory peak")
-    check((manifest["status"], manifest["telemetry_status"]) == ("completed", "ok"),
+    check((manifest["status"], manifest["telemetry_status"]) == ("completed", telemetry_status),
           f"run {name}: manifest {manifest['status']}/{manifest['telemetry_status']}")
     producer = (ingest.get("producers") or {}).get("0") or {}
+    transport = producer.get("transport") or {}
     drops = {"rows_dropped": ingest["rows_dropped"], "decode_errors": ingest["decode_errors"],
              "corrupt_frame_drops": sum(ingest["corrupt_frame_drops"].values()),
-             "unknown_domain_drops": sum(ingest["unknown_domain_drops"].values()),
-             "batches_dropped": (producer.get("transport") or {}).get("batches_dropped")}
+             "unknown_domain_drops": sum(ingest["unknown_domain_drops"].values())}
+    if telemetry_status == "restarted":
+        check(manifest.get("aggregator_restarts") == 1,
+              f"run {name}: aggregator_restarts {manifest.get('aggregator_restarts')}")
+        drops.update({k: transport.get(k) for k in ("spool_send_failures", "spool_evicted_envelopes",
+                                                     "spool_frames")})
+    else:
+        drops["batches_dropped"] = transport.get("batches_dropped")
     check(drops == {k: 0 for k in drops}, f"run {name}: telemetry dropped {drops}")
     check(ingest["finished_ranks"] == [0], f"run {name}: finished ranks {ingest['finished_ranks']}")
     n = run["steps"]
@@ -983,6 +1011,7 @@ def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: 
         "envelopes_ingested": ingest["envelopes_ingested"],
         "finalize_s": manifest.get("finalize_sec"),
         "wall_s": run["wall_s"],
+        "session": str(run["session"]),
         "telemetry": check_telemetry(name, run),
     }
 
@@ -1081,7 +1110,7 @@ def mfu_verdict(summary: dict) -> str:
     return "COMPUTE_BOUND"
 
 
-def check_train_run(name: str, run: dict, cfg, verdict) -> dict:
+def check_train_run(name: str, run: dict, cfg, verdict, telemetry_status: str = "ok") -> dict:
     """The healthy and delayed train runs' gates: ``check_run``'s, the
     stored rows held to ``check_train_rows``, the loss falling, and an
     ``efficiency`` section with the card's peak, model FLOPs within
@@ -1093,7 +1122,7 @@ def check_train_run(name: str, run: dict, cfg, verdict) -> dict:
     analytic = analytic_train_flops(cfg, BATCH, TRAIN_TOKENS - 1)
     peak = peak_flops_for(torch.cuda.get_device_name(0))
     check(peak is not None, f"no peak FLOP/s for {torch.cuda.get_device_name(0)}")
-    got = check_run(name, run, cfg.n_layers, verdict)
+    got = check_run(name, run, cfg.n_layers, verdict, telemetry_status=telemetry_status)
     check_train_rows(f"run {name}", [(step, clock, json.loads(ev)) for step, clock, ev in run["rows"]])
     loss_lines = [l for l in run["stdout"].splitlines() if l.startswith("train_script: ") and "loss first" in l]
     check(bool(loss_lines), f"run {name}: no loss line")
@@ -1712,6 +1741,103 @@ def killed_run_phase() -> dict:
     return out
 
 
+RESTART_KILL_AT = 0.4  # where in the healthy run's loop the restart run's aggregator is killed
+
+
+def _payloads_before(session: Path, t: float) -> int:
+    """About how many payloads the aggregator of ``session`` (one rank,
+    every sampler publishing each tick) had drained by wall time ``t``:
+    the system and process envelopes carry one row a tick, the step-time
+    and step-memory ones a step or two; the few control messages are
+    left out."""
+    conn = sqlite3.connect(session / "telemetry.sqlite")
+    try:
+        return sum(conn.execute(f"SELECT COUNT(*) FROM {table} WHERE timestamp < ?", (t,)).fetchone()[0]
+                   for table in ("system_samples", "process_samples", "step_time_samples",
+                                 "step_memory_samples"))
+    finally:
+        conn.close()
+
+
+def _step_times(session: Path) -> list:
+    """(global_rank, step, timestamp) of every stored step row, in id order."""
+    conn = sqlite3.connect(session / "telemetry.sqlite")
+    try:
+        return [tuple(r) for r in conn.execute(
+            "SELECT global_rank, step, timestamp FROM step_time_samples ORDER BY id")]
+    finally:
+        conn.close()
+
+
+def aggregator_restart_phase(cfg, train_healthy: dict) -> dict:
+    """``run --mode summary`` of ``dev/train_script.py`` at full width (one
+    rank, 60 steps, 0.1 s tick) whose aggregator is SIGKILLed mid-loop by
+    ``TRACEML_FAULT_PLAN=[{"point": "aggregator.ingest", "action":
+    "kill9", "after": N}]``; N is the number of payloads the healthy
+    ``summary`` train run had ingested ``RESTART_KILL_AT`` of the way into
+    its loop.  The launcher restarts the aggregator on the pinned port,
+    the rank replays its spool and the writer drops the duplicates by
+    seq.  Gates: ``check_train_run``'s (device clock, 12 x 60 launches,
+    the verdict of the MFU's band, the HTML) with the manifest
+    ``completed`` / ``restarted`` / one restart and nothing lost in the
+    spool; ``restarting`` on the launcher's stdout; the stored (rank,
+    step) pairs each once and equal to the healthy run's; rank 0 in the
+    summary's ``meta.topology.ranks_seen``; the launcher's
+    notice of the death (the crash log's mtime, within one 0.1 s
+    supervise poll of the kill) and the new ready file both before the
+    rank's last stored step, and the notice after its first.  Reported:
+    the time from that notice to the new ready file, the rank's
+    reconnects, replayed envelopes and spool bytes, the writer's replay
+    duplicates, and the step's device median against the healthy
+    ``summary`` run's."""
+    healthy_session = Path(train_healthy["session"])
+    healthy_steps = _step_times(healthy_session)
+    stamps = sorted(ts for _, _, ts in healthy_steps)
+    after = _payloads_before(healthy_session, stamps[int(RESTART_KILL_AT * len(stamps))])
+    name = "train_restart"
+    plan = json.dumps([{"point": "aggregator.ingest", "action": "kill9", "after": after}])
+    log("restart", f"{name}: kill9 after {after} payloads ({RESTART_KILL_AT:.0%} into the healthy run's loop; "
+                   f"it ingested {train_healthy['envelopes_ingested']} envelopes in all)")
+    run = launch_run(name, 0.0, 0.1, script="train_script.py", launcher_args=("--finalize-timeout", "60"),
+                     env_extra={"TRACEML_FAULT_PLAN": plan})
+    got = check_train_run(name, run, cfg, mfu_verdict, telemetry_status="restarted")
+    check("restarting" in run["stdout"], f"run {name}: no 'restarting' on the launcher's stdout")
+    session = run["session"]
+    steps = _step_times(session)
+    pairs = [(r, st) for r, st, _ in steps]
+    check(len(pairs) == len(set(pairs)), f"run {name}: {len(pairs) - len(set(pairs))} duplicate step rows")
+    check(set(pairs) == {(r, st) for r, st, _ in healthy_steps},
+          f"run {name}: stored steps differ from the healthy run's")
+    ranks_seen = run["summary"]["meta"]["topology"]["ranks_seen"]
+    check(ranks_seen == [0], f"run {name}: ranks_seen {ranks_seen}")
+    crash_logs = [Path(c) for c in run["manifest"].get("crash_logs") or [] if "aggregator" in c]
+    check(len(crash_logs) == 1 and crash_logs[0].exists(), f"run {name}: aggregator crash logs {crash_logs}")
+    noticed = crash_logs[0].stat().st_mtime
+    ready = json.loads((session / "aggregator_ready.json").read_text())["ts"]
+    first, last = min(ts for _, _, ts in steps), max(ts for _, _, ts in steps)
+    killed_at_step = sum(1 for _, _, ts in steps if ts <= noticed)
+    check(first < noticed < ready < last,
+          f"run {name}: the kill (noticed {noticed}) or the restart (ready {ready}) fell outside the loop "
+          f"({first} .. {last})")
+    transport = run["ingest"]["producers"]["0"]["transport"]
+    out = {
+        "after": after, "killed_at_step": killed_at_step, "steps": len(pairs),
+        "notice_to_ready_s": ready - noticed, "ready_to_last_step_s": last - ready,
+        "reconnects": transport["reconnects"], "replayed_envelopes": transport["replayed_envelopes"],
+        "spooled_envelopes": transport["spooled_envelopes"], "spool_bytes": transport["spool_bytes"],
+        "batches_dropped": transport["batches_dropped"],
+        "replay_duplicates": run["ingest"]["replay_duplicates"],
+        "step_device_ms": got["step_device_ms"], "step_device_ms_healthy": train_healthy["step_device_ms"],
+        "verdict": got["verdict"], "flash_launches": got["flash_launches"], "wall_s": got["wall_s"],
+        "finalize_s": got["finalize_s"],
+    }
+    log("restart", f"{name} " + json.dumps(out))
+    run_ms, ref_ms = got["step_device_ms"], train_healthy["step_device_ms"]
+    log("restart", "train step device ms, restarted vs healthy summary run: " + ", ".join(
+        f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms))
+    return out
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -1781,6 +1907,11 @@ def main() -> int:
     kernel["launches"] += dashboard["flash_launches"]
     kernel["launches_by_path"]["train_dashboard_run"] = dashboard["flash_launches"]
     log("time", f"dashboard run phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    restart = aggregator_restart_phase(cfg, train_healthy)
+    kernel["launches"] += restart["flash_launches"]
+    kernel["launches_by_path"]["train_restart_run"] = restart["flash_launches"]
+    log("time", f"aggregator restart phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

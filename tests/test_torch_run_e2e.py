@@ -3,7 +3,8 @@
 Modelled on ``tests/launcher/test_run_e2e.py``: the launcher spawns the
 aggregator and the ranks (one, then two), each the executor running
 ``traceml_tpu_torch/dev/forward_script.py`` on the 2-layer, 128-wide
-DecoderLM with ``device="cpu"`` and a 30 ms host input delay; each rank
+DecoderLM with ``device="cpu"`` and a host input delay of 3x the step's
+own host time (``--delay-x 3``, so it holds on a loaded host); each rank
 ships its rows over TCP, the aggregator stores them in SQLite and writes
 the final summary, which must say INPUT_BOUND, as must the launcher's
 stdout.  Its ``system`` section holds the host rows of rank 0 alone (the
@@ -61,7 +62,7 @@ def test_run_summary_mode_input_bound(tmp_path, nprocs):
         [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary", "--nprocs", str(nprocs),
          "--logs-dir", str(logs), "--run-name", "cpu", "--sampler-interval", "0.25",
          "--finalize-timeout", "30", str(SCRIPT), "--",
-         "--device", "cpu", "--tiny", "--delay-ms", "30", "--steps", str(STEPS)],
+         "--device", "cpu", "--tiny", "--delay-x", "3", "--steps", str(STEPS)],
         env=_env(), capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]

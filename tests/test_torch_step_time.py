@@ -8,9 +8,15 @@ schema, with ``clock: "host"`` on the port's side (no CUDA markers).
 ``wrap_step_fn``'s FLOPs: the same decisions as the JAX wrapper's
 cost-analysis estimate (first in-step call only, a manual value wins, an
 out-of-step call publishes nothing), the flash op counted under
-``torch.inference_mode()``, and the switch that turns it off.
+``torch.inference_mode()``, the switch that turns it off, and the
+counter's one-off set-up paid when the wrapper is built, not in a step.
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -360,3 +366,31 @@ def test_wrap_step_fn_estimate_can_be_turned_off():
         assert st.flops_per_step is None
     finally:
         state.reset_state_for_tests()
+
+
+def test_wrap_step_fn_pays_the_counter_set_up_outside_the_step():
+    """``FlopCounterMode``'s first op imports DTensor, dynamo and sympy
+    (seconds): built in a fresh process, ``wrap_step_fn`` pays that before
+    any step, so the counted step imports nothing and stays short."""
+    code = textwrap.dedent("""
+        import sys, torch
+        import traceml_tpu_torch.sdk.state as state
+        from traceml_tpu_torch.sdk.instrumentation import trace_step
+        from traceml_tpu_torch.sdk.step_fn import wrap_step_fn
+
+        st = state.reset_state_for_tests(device="cpu")
+        x = torch.ones(8, 8)
+        with trace_step(st):  # the trace's own first-use imports
+            wrap_step_fn(lambda a: a @ a, estimate_flops=False)(x)
+        step = wrap_step_fn(lambda a: a @ a)
+        before = set(sys.modules)
+        with trace_step(st):
+            step(x)
+        print(st.flops_source, st.flops_per_step, sorted(set(sys.modules) - before))
+    """)
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=120, cwd=str(root))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["flop_counter", "1024.0", "[]"]

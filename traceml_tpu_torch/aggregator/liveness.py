@@ -25,9 +25,9 @@ The aggregator persists :meth:`snapshot` to ``rank_status.json`` on
 the ingest-stats cadence and once more at settle-end.  Readers consume
 the states **as written** — at report time every rank is silent, so
 re-deriving from wall-clock would mark the whole world LOST.
-:meth:`seed` re-loads such a file, so that a restarted aggregator keeps a
-rank that finished before the crash FINISHED (the port's launcher does
-not restart its aggregator yet).
+:meth:`seed` re-loads such a file, so that an aggregator the launcher
+restarts after a crash keeps a rank that finished before it FINISHED
+(``TraceMLAggregator._reseed_from_prior_run``).
 """
 
 from __future__ import annotations

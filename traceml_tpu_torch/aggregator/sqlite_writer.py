@@ -2,7 +2,7 @@
 
 Counterpart of ``traceml_tpu/aggregator/sqlite_writer.py``, trimmed to
 one bounded queue and a writer thread with group commit (no priority
-lanes, retention prune, rollup tiers or replay dedup yet).
+lanes, retention prune or rollup tiers yet).
 
 One dedicated thread owns the connection.  Drained envelopes coalesce
 into one transaction once ``_GROUP_COMMIT_ENVS`` are pending or the
@@ -12,6 +12,21 @@ domain; an envelope whose sampler has no projection writer is counted
 too, never silently skipped.  ``force_flush`` is a barrier: it returns
 once everything enqueued before it is committed.  ``finalize`` flushes,
 checkpoints the WAL and closes.
+
+Replay dedup, as in JAX: the ``rank_seq`` table holds the highest
+committed ``seq`` per (session, rank, lane), where the lane is the JAX
+writer's priority lane of the envelope's sampler (``PRIORITY_NAMES[
+ingest_priority(sampler)]``), so the table equals the JAX one on the
+same stream although this writer drains one queue.  An envelope whose
+``seq`` is at or below its lane's maximum is a replay of rows already
+stored (a rank's spool re-sends what a dead aggregator may not have
+committed) and is dropped and counted in ``replay_duplicates``, a
+duplicate inside the same batch too; an envelope without a ``seq``
+bypasses dedup.  The new maxima commit in the same transaction as the
+rows they cover, and the in-memory maxima advance only after that
+commit.  On open (a restarted aggregator reopening the session's
+database, its WAL possibly never checkpointed: SQLite recovers it) the
+maxima are seeded from the table.
 """
 
 from __future__ import annotations
@@ -21,7 +36,7 @@ import sqlite3
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from traceml_tpu_torch.aggregator.sqlite_writers import ALL_WRITERS, writer_for
 from traceml_tpu_torch.telemetry.envelope import TelemetryEnvelope
@@ -30,6 +45,18 @@ from traceml_tpu_torch.utils.error_log import get_error_log
 _QUEUE_MAX = 50_000
 _GROUP_COMMIT_ENVS = 512
 _GROUP_COMMIT_INTERVAL_S = 0.2
+
+# the JAX writer's lanes: the samplers whose rows drive diagnosis are
+# "high", everything else "low"; here they only key the dedup table
+HIGH_PRIORITY_SAMPLERS = frozenset({"step_time", "step_memory", "collectives", "serving"})
+PRIORITY_NAMES = ("high", "low")
+
+# per (session, rank, lane) max committed seq (replay dedup)
+RANK_SEQ_TABLE = "rank_seq"
+
+
+def ingest_priority(sampler: str) -> int:
+    return 0 if sampler in HIGH_PRIORITY_SAMPLERS else 1
 
 
 class _FlushBarrier:
@@ -55,6 +82,10 @@ class SQLiteWriter:
         self._drop_by_domain: Dict[str, int] = {}
         self._unknown_by_domain: Dict[str, int] = {}
         self._queue_hwm = 0
+        # (session_id, global_rank, lane) -> committed max seq; the
+        # writer thread's alone, seeded from rank_seq on open
+        self._seq_max: Dict[Tuple[str, int, str], int] = {}
+        self.replay_duplicates = 0
 
     # -- producer side (aggregator loop) --------------------------------
     def start(self) -> None:
@@ -110,6 +141,7 @@ class SQLiteWriter:
                 "enqueued_by_domain": dict(self._enq_by_domain),
                 "dropped_by_domain": dict(self._drop_by_domain),
                 "unknown_domain_drops": dict(self._unknown_by_domain),
+                "replay_duplicates": self.replay_duplicates,
                 "queue": {
                     "depth": self._queue.qsize(),
                     "hwm": self._queue_hwm,
@@ -125,8 +157,31 @@ class SQLiteWriter:
         conn.execute("PRAGMA synchronous=NORMAL")
         for w in ALL_WRITERS:
             w.init_schema(conn)
+        conn.execute(
+            f"""CREATE TABLE IF NOT EXISTS {RANK_SEQ_TABLE} (
+                session_id TEXT,
+                global_rank INTEGER,
+                lane TEXT,
+                max_seq INTEGER,
+                PRIMARY KEY (session_id, global_rank, lane)
+            )"""
+        )
         conn.commit()
+        self._seed_seq_max(conn)
         return conn
+
+    def _seed_seq_max(self, conn: sqlite3.Connection) -> None:
+        """Crash-resume: reload the committed per-lane maxima, so a
+        restarted aggregator drops the ranks' replay of everything its
+        previous incarnation committed."""
+        try:
+            rows = conn.execute(
+                f"SELECT session_id, global_rank, lane, max_seq FROM {RANK_SEQ_TABLE}"
+            ).fetchall()
+        except sqlite3.Error:
+            return
+        for session_id, rank, lane, mx in rows:
+            self._seq_max[(str(session_id), int(rank), str(lane))] = int(mx)
 
     def _run(self) -> None:
         try:
@@ -186,7 +241,22 @@ class SQLiteWriter:
         # parameter tuples for the whole batch first, grouped by insert
         # statement: one executemany per (table, batch) in one transaction
         grouped: Dict[str, List[tuple]] = {}
+        seq_touched: Dict[Tuple[str, int, str], int] = {}
+        duplicates = 0
         for env in batch:
+            seq = env.seq
+            if seq is not None:
+                # seq_touched covers a duplicate inside this batch (the
+                # original and its replay drained together)
+                skey = (
+                    str(env.meta.get("session_id", "unknown")),
+                    env.global_rank,
+                    PRIORITY_NAMES[ingest_priority(env.sampler)],
+                )
+                if seq <= seq_touched.get(skey, self._seq_max.get(skey, -1)):
+                    duplicates += 1
+                    continue
+                seq_touched[skey] = seq
             writer = writer_for(env.sampler)
             if writer is None:
                 with self._stats_lock:
@@ -200,13 +270,27 @@ class SQLiteWriter:
             for table, rows in table_rows.items():
                 if rows:
                     grouped.setdefault(writer.insert_sql(table), []).extend(rows)
+        if duplicates:
+            with self._stats_lock:
+                self.replay_duplicates += duplicates
         try:
             with conn:  # one transaction: commit, or roll back on error
                 for sql, rows in grouped.items():
                     conn.executemany(sql, rows)
+                if seq_touched:
+                    # the maxima commit with the rows they cover: a crash
+                    # between the two cannot drop a replay never stored
+                    conn.executemany(
+                        f"INSERT OR REPLACE INTO {RANK_SEQ_TABLE}"
+                        " (session_id, global_rank, lane, max_seq) VALUES (?,?,?,?)",
+                        [(k[0], k[1], k[2], mx) for k, mx in seq_touched.items()],
+                    )
         except sqlite3.Error as exc:
             get_error_log().warning("sqlite batch write failed", exc)
             return
+        # only after the commit: on a rollback the rows are gone, so
+        # their replay must pass
+        self._seq_max.update(seq_touched)
         with self._stats_lock:
             self.written += sum(len(rows) for rows in grouped.values())
             self.commits += 1

@@ -2,7 +2,16 @@
 
 Counterpart of ``traceml_tpu/aggregator/trace_aggregator.py`` for the
 ``summary``, ``cli`` and ``dashboard`` modes over TCP (no session
-registry, shm rings or restarts yet).
+registry or shm rings yet).
+
+Crash-resume, as in JAX: an aggregator the launcher restarts after a
+crash binds the same port (``TRACEML_AGGREGATOR_PORT``, pinned by the
+launcher) and reopens the session's database, where the SQLite writer
+re-seeds its seq-dedup maxima; ``start()`` restores what lived only in
+the dead incarnation's memory (the finished and seen ranks and their
+liveness history) from the last ``rank_status.json`` of the same
+session.  Each drained payload is the ``aggregator.ingest`` chaos point
+(``dev/chaos.py``).
 
 Owns the TCP ingest server, the SQLite writer, the rank liveness tracker,
 the final-summary service and the display driver of the mode (the live
@@ -31,6 +40,7 @@ settle window outlasts ``TRACEML_LIVENESS_LOST_SEC``.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -40,6 +50,7 @@ from traceml_tpu_torch.aggregator.display_drivers import resolve_display_driver
 from traceml_tpu_torch.aggregator.liveness import RankLivenessTracker
 from traceml_tpu_torch.aggregator.sqlite_writer import SQLiteWriter
 from traceml_tpu_torch.aggregator.summary_service import FinalSummaryService
+from traceml_tpu_torch.dev import chaos
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
 from traceml_tpu_torch.telemetry.control import (
     PRODUCER_STATS,
@@ -101,6 +112,7 @@ class TraceMLAggregator:
             return
         self.started = True
         self.settings.session_dir.mkdir(parents=True, exist_ok=True)
+        self._reseed_from_prior_run()
         self.server.start()
         self.port = self.server.port
         self.writer.start()
@@ -155,6 +167,34 @@ class TraceMLAggregator:
                 {"error": error, "ts": time.time()},
             )
 
+    def _reseed_from_prior_run(self) -> None:
+        """Crash-resume: a restarted aggregator (same session dir) picks
+        up where its predecessor left off.  The SQLite writer re-seeds its
+        seq-dedup maxima from the reopened database; here the finished
+        and seen ranks and their liveness history come back from the
+        last ``rank_status.json``, unless it belongs to another session."""
+        path = self.settings.session_dir / "rank_status.json"
+        if not path.exists():
+            return
+        try:
+            snap = json.loads(path.read_text())
+        except (OSError, ValueError) as exc:
+            get_error_log().warning("rank_status reseed failed", exc)
+            return
+        if snap.get("session_id") not in (None, self.settings.session_id):
+            return  # a stale file from another session sharing the dir
+        self.liveness.seed(snap)
+        ranks = snap.get("ranks")
+        if isinstance(ranks, dict):
+            for rank_s, info in ranks.items():
+                try:
+                    rank = int(rank_s)
+                except (TypeError, ValueError):
+                    continue
+                self._seen_ranks.add(rank)
+                if isinstance(info, dict) and info.get("finished"):
+                    self._finished_ranks.add(rank)
+
     # -- ingest ----------------------------------------------------------
     def _drain_once(self) -> int:
         with self._drain_lock:
@@ -162,6 +202,8 @@ class TraceMLAggregator:
             self._last_drain_frames = len(frames)
             n = 0
             for p in self.server.decode_tagged(frames) if frames else ():
+                if chaos.active():
+                    chaos.fire("aggregator.ingest")  # a kill9 rule ends the process here
                 if is_control_message(p):
                     self._handle_control(p)
                     continue
@@ -217,6 +259,7 @@ class TraceMLAggregator:
                 "enqueued_by_domain": w["enqueued_by_domain"],
                 "dropped_by_domain": w["dropped_by_domain"],
                 "unknown_domain_drops": w["unknown_domain_drops"],
+                "replay_duplicates": w["replay_duplicates"],
                 "queues": w["queue"],
                 "group_commit": w["group_commit"],
                 "finished_ranks": sorted(self._finished_ranks),

@@ -11,10 +11,12 @@ the card, so every layer's attention goes through the CUDA flash kernel.
     python -m traceml_tpu_torch run --mode summary traceml_tpu_torch/dev/forward_script.py \\
         [-- --delay-ms 60]                      # on the card
     python -m traceml_tpu_torch run --mode summary traceml_tpu_torch/dev/forward_script.py \\
-        -- --device cpu --tiny --delay-ms 30    # the 2-layer model on the CPU
+        -- --device cpu --tiny --delay-x 3      # the 2-layer model on the CPU
 
 ``--delay-ms`` sleeps on the host before each batch (an input pipeline
-that cannot keep up).  ``--kill-after N`` sends the process SIGKILL after
+that cannot keep up); ``--delay-x K`` sleeps K times the median of the
+last 8 steps' host time, so the delay dominates the step whatever the
+host's load.  ``--kill-after N`` sends the process SIGKILL after
 N steps on the rank ``--kill-rank`` names (test scaffolding).  At the
 end it prints the flash kernel's launches in the traced loop,
 ``flash_attention.launches N``.
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 import traceml_tpu_torch as tm
-from traceml_tpu_torch.dev.workload import BATCH, SEQ, build_model, full_width_config, kill_after
+from traceml_tpu_torch.dev.workload import BATCH, SEQ, build_model, full_width_config, kill_after, paced_batches
 from traceml_tpu_torch.models.transformer import ModelConfig
 from traceml_tpu_torch.ops.flash_attention import flash_attention
 
@@ -43,6 +45,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=60)
     p.add_argument("--delay-ms", type=float, default=0.0, help="host sleep before each batch")
+    p.add_argument("--delay-x", type=float, default=0.0,
+                   help="host sleep before each batch, as a multiple of the median of the last 8 steps")
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true", help="the 2-layer, 128-wide model at B=2, S=64")
     p.add_argument("--kill-after", type=int, default=0, help="SIGKILL this process after N steps")
@@ -66,21 +70,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         with torch.inference_mode():
             return model(tokens)
 
+    warmup_s = []
     for tokens in host[:WARMUP_STEPS]:  # warm-up outside the trace
+        t0 = time.perf_counter()
         forward(tokens.to(args.device))
-    if on_cuda:
-        torch.cuda.synchronize()
-
-    def batches():
-        for i in range(args.steps):
-            if args.delay_ms:
-                time.sleep(args.delay_ms / 1000.0)
-            yield host[i % len(host)]
+        if on_cuda:
+            torch.cuda.synchronize()
+        warmup_s.append(time.perf_counter() - t0)
 
     step = tm.wrap_step_fn(forward)
     flash_attention.launches = 0
     t0 = time.perf_counter()
-    for i, tokens in enumerate(tm.wrap_dataloader(batches(), to_device=True)):
+    batches = paced_batches(host, args.steps, args.delay_ms, args.delay_x, warmup_s)
+    for i, tokens in enumerate(tm.wrap_dataloader(batches, to_device=True)):
         with tm.trace_step():
             logits = step(tokens)
         kill_after(i + 1, args.kill_after, args.kill_rank)

@@ -39,10 +39,8 @@ launches in the traced loop, ``flash_attention.launches N``.  Test scaffolding, 
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
 import json
-import statistics
 import time
 from typing import List, Optional
 
@@ -56,6 +54,7 @@ from traceml_tpu_torch.dev.workload import (
     full_width_config,
     host_batches,
     kill_after,
+    paced_batches,
 )
 from traceml_tpu_torch.models.transformer import ModelConfig, make_train_step
 from traceml_tpu_torch.ops.flash_attention import flash_attention
@@ -103,24 +102,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.tokens:
         tm.set_step_tokens(batch * (n_tokens - 1))
 
-    def batches():
-        # the loop's time between two batches is the step's on the host
-        recent = collections.deque([warmup_s], maxlen=8)
-        for i in range(args.steps):
-            delay_s = args.delay_ms / 1000.0 + args.delay_x * statistics.median(recent)
-            if delay_s:
-                time.sleep(delay_s)
-            t = time.perf_counter()
-            yield host[i % len(host)]
-            recent.append(time.perf_counter() - t)
-
     flash_attention.launches = 0
     losses = []
     copy_in_step = args.h2d == "to"
     print("train_script: batches copied by "
           + ("Tensor.to in the step" if copy_in_step else "wrap_dataloader(to_device=True)"), flush=True)
+    batches = paced_batches(host, args.steps, args.delay_ms, args.delay_x, [warmup_s])
     t0 = time.perf_counter()
-    for i, tokens in enumerate(tm.wrap_dataloader(batches(), to_device=not copy_in_step)):
+    for i, tokens in enumerate(tm.wrap_dataloader(batches, to_device=not copy_in_step)):
         with tm.trace_step():
             if copy_in_step:
                 tokens = tokens.to(args.device, non_blocking=True)

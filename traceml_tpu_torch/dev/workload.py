@@ -11,8 +11,9 @@ train step, whose model sees ``tokens[:, :-1]`` at S=1024.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
+import collections
 import statistics
 import time
 
@@ -144,6 +145,23 @@ def sampler_cost_summary(costs: Dict[str, List[float]]) -> Dict[str, Any]:
     ticks = [sum(t) for t in zip(*(v for v in costs.values() if v))]
     out["all_samplers_median_us_per_tick"] = statistics.median(ticks) * 1e6 if ticks else None
     return out
+
+
+def paced_batches(host: Sequence[Any], steps: int, delay_ms: float, delay_x: float,
+                  warmup_s: Sequence[float]) -> Iterator[Any]:
+    """Yield ``steps`` batches from ``host`` in turn, sleeping before each
+    ``delay_ms`` plus ``delay_x`` times the median host time of the last 8
+    steps (the warm-up steps' ``warmup_s`` before the first): an input
+    pipeline that cannot keep up, whose delay dominates the step whatever
+    the host's load.  The time between two batches is the step's."""
+    recent = collections.deque(warmup_s, maxlen=8)
+    for i in range(steps):
+        delay_s = delay_ms / 1000.0 + delay_x * statistics.median(recent)
+        if delay_s:
+            time.sleep(delay_s)
+        t = time.perf_counter()
+        yield host[i % len(host)]
+        recent.append(time.perf_counter() - t)
 
 
 def kill_after(step: int, after: int, rank: int) -> None:

@@ -2,8 +2,8 @@
 
 Counterpart of ``traceml_tpu/launcher/commands.py`` for the ``cli`` (the
 default, as in JAX for a single-node run), ``summary`` and ``dashboard``
-modes on one node (no yaml config, code manifest, aggregator restarts or
-multi-node launch yet).
+modes on one node (no yaml config, code manifest or multi-node launch
+yet).
 
 ``run``: resolve the settings (CLI > env > defaults), write the run
 manifest, start the aggregator and wait for its ready file, start N rank
@@ -12,10 +12,17 @@ supervise them, stop the aggregator gracefully (SIGTERM → it settles,
 draws the live display's last frame in ``cli`` or stops the dashboard's
 server in ``dashboard``, writes SQLite and the
 final summary), then, in ``summary`` mode, enforce ``final_summary.json``
-and print the verdict.  An aggregator that fails to start, or dies
-early, degrades the run (training goes on untraced) instead of failing
-it.  The manifest records ``finalize_sec``: from the last rank's exit to
-the aggregator's exit, with the summary written.
+and print the verdict.  An aggregator that fails to start degrades the
+run (training goes on untraced) instead of failing it.  One that dies
+mid-run is restarted, as in JAX, up to ``TRACEML_AGG_MAX_RESTARTS`` times
+(default 3) on the port it had bound, where the ranks' clients redial and
+replay their spools; the manifest then reads ``telemetry_status:
+"restarted"`` and ``aggregator_restarts``.  Once the restarts are spent,
+or a restart fails, the run degrades.  In ``dashboard`` mode the
+restarted aggregator serves the page on the HTTP port its display binds
+and prints the new URL, as the JAX one does.  The manifest records
+``finalize_sec``: from the last rank's exit to the aggregator's exit,
+with the summary written.
 """
 
 from __future__ import annotations
@@ -50,6 +57,19 @@ from traceml_tpu_torch.runtime.settings import (
 from traceml_tpu_torch.sdk import protocol
 
 SUPPORTED_MODES = ("cli", "summary", "dashboard")
+
+# bounded aggregator crash-resume: how many times the launcher respawns a
+# dead aggregator (on its original port, so the ranks' redials land)
+# before the run degrades to untraced
+ENV_AGG_MAX_RESTARTS = "TRACEML_AGG_MAX_RESTARTS"
+DEFAULT_AGG_MAX_RESTARTS = 3
+
+
+def _max_restarts() -> int:
+    try:
+        return int(os.environ.get(ENV_AGG_MAX_RESTARTS, "").strip() or DEFAULT_AGG_MAX_RESTARTS)
+    except ValueError:
+        return DEFAULT_AGG_MAX_RESTARTS
 
 
 def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
@@ -98,6 +118,37 @@ def _start_aggregator(
             crash_logs.append(str(log))
     terminate(child.proc, grace_sec=2)
     return None, 0
+
+
+def _restart_aggregator(session_dir: Path, base_env: Dict[str, str], port: int) -> Optional[SupervisedChild]:
+    """Respawn the aggregator after a crash, on the port the dead one
+    had bound (the ranks keep dialing it; ``SO_REUSEADDR`` makes the
+    rebind safe).  The stale ready file goes first: it still names the
+    dead pid, and waiting on it would succeed at once.  The new process
+    reopens the session's database (re-seeding the dedup maxima) and
+    re-seeds the finished ranks and their liveness from
+    ``rank_status.json``."""
+    ready_path = session_dir / "aggregator_ready.json"
+    try:
+        ready_path.unlink()
+    except OSError:
+        pass
+    env = dict(base_env)
+    env[ENV_AGG_PORT] = str(port)
+    # a fault plan's counters are per process: a restarted aggregator
+    # would parse the inherited plan anew and a kill9 rule would fire
+    # again on the replayed backlog.  The plan described the incarnation
+    # it killed; restarts run clean.  Cleared to "", not popped: spawn
+    # merges over os.environ, where the launcher's own copy would return.
+    env["TRACEML_FAULT_PLAN"] = ""
+    child = spawn_supervised(
+        python_argv("traceml_tpu_torch.aggregator.aggregator_main"), label="aggregator", env=env
+    )
+    ready = wait_for_ready_file(ready_path, timeout=20.0)
+    if ready is None or child.poll() is not None:
+        terminate(child.proc, grace_sec=2)
+        return None
+    return child
 
 
 def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: Any) -> int:
@@ -177,6 +228,8 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
     exit_code = 0
     stopped_by_us: set = set()  # pids WE terminated: victims, not crashes
     ranks_done_at: Optional[float] = None
+    agg_restarts = 0
+    agg_max_restarts = _max_restarts()
     try:
         while True:
             alive = [p for p in procs if p.poll() is None]
@@ -189,13 +242,24 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
                         print(f"[TraceML] {p.label} {p.describe_exit()}; stderr tail: {log}")
                         crash_logs.append(str(log))
             if agg_child is not None and agg_child.poll() is not None:
+                # the aggregator died mid-run: bounded restarts on the
+                # same port (the ranks spool and redial), then degrade
                 log = agg_child.write_crash_log(session_dir)
                 if log is not None:
                     crash_logs.append(str(log))
                 agg_child = None
-                telemetry_ok = False
-                print("[TraceML] aggregator exited early; telemetry degraded")
-                mf.update_run_manifest(session_dir, telemetry_status="degraded")
+                if agg_restarts < agg_max_restarts:
+                    agg_restarts += 1
+                    print(f"[TraceML] aggregator exited mid-run; restarting "
+                          f"({agg_restarts}/{agg_max_restarts}) on port {agg_port}", flush=True)
+                    agg_child = _restart_aggregator(session_dir, base_env, agg_port)
+                if agg_child is not None:
+                    mf.update_run_manifest(session_dir, telemetry_status="restarted",
+                                           aggregator_restarts=agg_restarts)
+                else:
+                    telemetry_ok = False
+                    print("[TraceML] aggregator exited early; telemetry degraded")
+                    mf.update_run_manifest(session_dir, telemetry_status="degraded")
             if not alive:
                 ranks_done_at = time.monotonic()
                 break

@@ -4,7 +4,8 @@ Counterpart of the run-manifest half of ``traceml_tpu/launcher/manifest.py``
 (the code manifest and its AST scan come later).  ``manifest.json`` in
 the session directory records what was launched and how the run ended:
 ``status`` (starting → running → completed | failed) and
-``telemetry_status`` (ok | degraded).
+``telemetry_status`` (ok | restarted | degraded; with ``restarted`` the
+count ``aggregator_restarts``).
 """
 
 from __future__ import annotations

@@ -274,22 +274,44 @@ def load_rank_identities(
     return identity
 
 
+def _load_cached_json(path: Path, cache: Dict[str, Tuple[Tuple[float, int], Dict[str, Any]]]) -> Dict[str, Any]:
+    """``path``'s JSON object, re-read only when its (mtime, size)
+    changed; ``{}`` when the file is missing or unreadable."""
+    from traceml_tpu_torch.utils.atomic_io import read_json
+
+    try:
+        st = path.stat()
+    except OSError:
+        return {}
+    stamp = (st.st_mtime, st.st_size)
+    cached = cache.get(str(path))
+    if cached is not None and cached[0] == stamp:
+        return cached[1]
+    data = read_json(path)
+    if not isinstance(data, dict):
+        return {}
+    cache[str(path)] = (stamp, data)
+    return data
+
+
+# rank_status.json and ingest_stats.json are rewritten atomically every
+# few seconds by the aggregator loop; as in the JAX loaders, each is
+# cached on (mtime, size) so a live poller does not parse an unchanged
+# file on every tick.
+_RANK_STATUS_CACHE: Dict[str, Tuple[Tuple[float, int], Dict[str, Any]]] = {}
+_INGEST_STATS_CACHE: Dict[str, Tuple[Tuple[float, int], Dict[str, Any]]] = {}
+
+
 def load_rank_status(session_dir: Path) -> Dict[str, Any]:
     """The rank liveness snapshot (per rank: active, stale, lost or
     finished, last seen, last progress; the thresholds) from
     ``rank_status.json``, states as the aggregator wrote them; ``{}`` when
     the file is missing or unreadable."""
-    from traceml_tpu_torch.utils.atomic_io import read_json
-
-    data = read_json(Path(session_dir) / "rank_status.json")
-    return data if isinstance(data, dict) else {}
+    return _load_cached_json(Path(session_dir) / "rank_status.json", _RANK_STATUS_CACHE)
 
 
 def load_ingest_stats(session_dir: Path) -> Dict[str, Any]:
     """The aggregator's self-metrics (queue depths and high-water marks,
     per-domain drops, group commit) from ``ingest_stats.json``; ``{}``
     when the file is missing or unreadable."""
-    from traceml_tpu_torch.utils.atomic_io import read_json
-
-    data = read_json(Path(session_dir) / "ingest_stats.json")
-    return data if isinstance(data, dict) else {}
+    return _load_cached_json(Path(session_dir) / "ingest_stats.json", _INGEST_STATS_CACHE)

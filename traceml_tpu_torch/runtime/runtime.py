@@ -5,18 +5,18 @@ resolves the rank's identity (``runtime/identity.py``), owns the samplers
 that ``runtime/sampler_registry.build_samplers`` gives this rank (system on
 the node's primary rank, process, step time, step memory), a daemon tick
 thread at ``sampler_interval_sec`` and, when the settings name an
-aggregator port,
-the TCP client and the publisher.  In the ``cli`` and ``dashboard``
-modes it also tees the
-script's stdout and stderr through a :class:`StreamCapture`, which the
-stdout/stderr sampler drains, as the JAX runtime does.  Every tick
-samples, and publishes when there is a publisher.  Lifecycle: start
-(capture first, so the samplers see the script's first line) → tick
-loop → stop (join the thread, final drain, final publish with the
-``rank_finished`` marker, restore the streams, close the client, stop
-the marker resolver).  Without a port
-nothing is collected or encoded for sending: the rows stay in each
-sampler's ``Database``.
+aggregator port, the TCP client and the publisher, whose failed sends
+wait in ``rank_dir(rank)/"spool"`` for the aggregator to come back.  In
+the ``cli`` and ``dashboard`` modes it also tees the script's stdout and
+stderr through a :class:`StreamCapture`, which the stdout/stderr sampler
+drains, as the JAX runtime does.  Every tick samples, and publishes when
+there is a publisher; each tick is the ``rank.tick`` chaos point
+(``dev/chaos.py``).  Lifecycle: start (capture first, so the samplers see
+the script's first line) → tick loop → stop (join the thread, final
+drain, final publish with the ``rank_finished`` marker, restore the
+streams, close the spool and the client, stop the marker resolver).
+Without a port nothing is collected or encoded for sending: the rows stay
+in each sampler's ``Database``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from __future__ import annotations
 import threading
 from typing import List, Optional
 
+from traceml_tpu_torch.dev import chaos
 from traceml_tpu_torch.runtime.identity import resolve_runtime_identity
 from traceml_tpu_torch.runtime.sampler_registry import build_samplers
 from traceml_tpu_torch.runtime.sender import TelemetryPublisher
@@ -61,7 +62,12 @@ class TraceMLRuntime:
         agg = self.settings.aggregator
         if agg.port:
             self.client = TCPClient(agg.connect_host, agg.port)
-            self.publisher = TelemetryPublisher(self.samplers, self.client, self.identity)
+            # failed sends wait in the rank's replay spool for the
+            # (restarted) aggregator, which drops what it holds by seq
+            self.publisher = TelemetryPublisher(
+                self.samplers, self.client, self.identity,
+                spool_dir=self.settings.rank_dir(self.identity.global_rank) / "spool",
+            )
         self._stop_evt.clear()
         self._thread = threading.Thread(target=self._sampler_loop, name="traceml-runtime", daemon=True)
         self._thread.start()
@@ -81,6 +87,8 @@ class TraceMLRuntime:
             get_error_log().warning("final drain failed", exc)
         if self.capture is not None:
             self.capture.stop()
+        if self.publisher is not None:
+            self.publisher.close()
         if self.client is not None:
             self.client.close()
         from traceml_tpu_torch.utils.marker_resolver import get_marker_resolver
@@ -91,6 +99,8 @@ class TraceMLRuntime:
         return next((s for s in self.samplers if s.name == name), None)
 
     def _tick(self) -> None:
+        if chaos.active():
+            chaos.fire("rank.tick")  # a kill9 rule ends the process inside fire()
         for s in self.samplers:
             s.sample()
         if self.publisher is not None:

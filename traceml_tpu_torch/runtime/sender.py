@@ -1,23 +1,36 @@
 """Telemetry publisher.
 
-Counterpart of ``traceml_tpu/runtime/sender.py`` without the durable
-spool, the disk backup and compression.  Per tick: collect each
-sampler's incremental payload, stamp it with the rank's next ``seq``,
-encode it once, and ship the whole tick as ONE frame.  Best-effort all
-the way down: a batch the client cannot send is dropped and counted.
+Counterpart of ``traceml_tpu/runtime/sender.py`` without the disk
+backup and compression.  Per tick: collect each sampler's incremental
+payload, stamp it with the rank's next ``seq``, encode it once, and ship
+the whole tick as ONE frame.
+
+Fault tolerance, as in JAX: with a spool directory (the runtime gives
+``rank_dir(rank)/"spool"``) every batch goes through
+:class:`~traceml_tpu_torch.transport.spool.DurableSender`.  A batch the
+client cannot send lands in the rank's bounded on-disk replay spool, with
+the ring of recent sends that the dead aggregator may not have committed,
+and replays on reconnect; the aggregator's SQLite writer drops what it
+already holds by ``seq``.  Without a spool a batch the client cannot send
+is dropped and counted.  ``seq`` is one counter per rank across every
+sampler and control message, with a ``time_ns`` base, so a restarted
+rank resumes above every seq its previous incarnation stamped.
 
 Idle ticks cost one ``dirty()`` check per sampler and send nothing but,
 every ``TRACEML_HEARTBEAT_INTERVAL_SEC`` seconds (default 3, at least
 0.25, as in the JAX package), a ``rank_heartbeat``: the aggregator's
 liveness tracker reads a rank that stays silent past its thresholds as
-stale, then lost.
+stale, then lost.  A heartbeat is never spooled (a replayed one says
+nothing of liveness), but it first tries a replay, so an idle rank
+drains its spool as soon as the link heals.
 
 The publisher observes itself: per sampler the envelopes, bytes and the
 nanoseconds spent collecting and encoding; per run the nanoseconds spent
 handing frames to the socket (``flush_us``: the port has no disk backup,
 so the socket send is the tick's flush) and the number of sends that
-time covers (``flushes``), the idle-tick count, the codec and the
-client's counters.  A ``producer_stats`` message rides in the batch it
+time covers (``flushes``), the idle-tick count, the codec, the client's
+counters and the spool's (``reconnects``, ``replayed_envelopes``,
+``spool_bytes``, ...).  A ``producer_stats`` message rides in the batch it
 reports on, so its own send is in neither ``flush_us`` nor ``flushes``:
 the flush cost per send is ``flush_us / flushes``.  A ``producer_stats`` control message carries
 them to the aggregator on a non-idle tick at most every
@@ -28,11 +41,13 @@ from __future__ import annotations
 
 import os
 import time
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 from traceml_tpu_torch.telemetry.control import build_producer_stats, build_rank_heartbeat
 from traceml_tpu_torch.telemetry.envelope import SenderIdentity
+from traceml_tpu_torch.transport.spool import DurableSender, ReplaySpool
 from traceml_tpu_torch.transport.tcp_transport import TCPClient
 from traceml_tpu_torch.utils import msgpack_codec
 from traceml_tpu_torch.utils.error_log import get_error_log
@@ -60,10 +75,17 @@ class TelemetryPublisher:
         samplers: List[BaseSampler],
         client: TCPClient,
         identity: SenderIdentity,
+        spool_dir: Optional[Path] = None,
     ) -> None:
         self._samplers = samplers
         self._client = client
         self._identity = identity
+        self._durable: Optional[DurableSender] = None
+        if spool_dir is not None:
+            try:
+                self._durable = DurableSender(client, ReplaySpool(spool_dir))
+            except Exception as exc:
+                get_error_log().warning("replay spool unavailable", exc)
         for s in samplers:
             s.sender.set_identity(identity)
         self.ticks = 0
@@ -122,12 +144,17 @@ class TelemetryPublisher:
             batch.append(msg)
         if batch:
             t0 = perf()
-            sent = self._client.send_batch(batch)
+            if self._durable is not None:
+                sent = self._durable.send(batch)
+                self._last_heartbeat = time.monotonic()
+            else:
+                sent = self._client.send_batch(batch)
+                if sent:
+                    self._last_heartbeat = time.monotonic()
             self._flush_ns += perf() - t0
             self._flushes += 1
             if sent:
                 self.payloads_sent += len(batch)
-                self._last_heartbeat = time.monotonic()
         return len(batch)
 
     def _maybe_heartbeat(self) -> None:
@@ -137,7 +164,14 @@ class TelemetryPublisher:
         self._last_heartbeat = now
         hb = build_rank_heartbeat(self._identity.to_meta())
         self._stamp_seq(hb)
-        self._client.send_batch([hb])
+        if self._durable is not None:
+            self._durable.send_transient([hb])
+        else:
+            self._client.send_batch([hb])
+
+    def close(self) -> None:
+        if self._durable is not None:
+            self._durable.close()
 
     def stats(self) -> Dict[str, Any]:
         """Per-sampler producer cost (microseconds), idle ratio, codec and
@@ -164,5 +198,6 @@ class TelemetryPublisher:
                 "reconnects": self._client.reconnects,
                 "batches_sent": self._client.batches_sent,
                 "batches_dropped": self._client.batches_dropped,
+                **(self._durable.stats() if self._durable is not None else {}),
             },
         }

@@ -13,21 +13,47 @@ in-step call itself runs under ``FlopCounterMode`` (the step is not run
 twice) and the count is declared with ``set_step_flops(source=
 "flop_counter")``.  A value declared before that call wins, and an
 out-of-step call (an eval loop) neither counts nor spends the estimate.
-``estimate_flops=False`` turns the count off.  The counter's dispatch
-overhead lands
-on that first step's host time; the report's steady-state window leaves
-the first quarter of the steps out.
+``estimate_flops=False`` turns the count off.
+
+The counter's first op pays a one-off set-up (it imports DTensor, dynamo
+and sympy: 1.5 s on an idle CPU host, far more on a loaded one).  Inside
+the step that set-up would inflate step 1 until the step-time rules,
+which read per-rank means, misjudge a short run, so the wrapper pays it
+when it is built, outside any step (``_prime_flop_counter``).  The
+counted step then carries only the counter's dispatch overhead.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+from traceml_tpu_torch.sdk.flops import set_step_flops
 from traceml_tpu_torch.sdk.state import TraceState, get_state
 from traceml_tpu_torch.sdk.wrappers import publish_region_marker
 from traceml_tpu_torch.utils.device import resolve_device
 from traceml_tpu_torch.utils.error_log import get_error_log
 from traceml_tpu_torch.utils.timing import COMPUTE_TIME, cuda_marker, timed_region
+
+_flop_counter_primed = False
+
+
+def _prime_flop_counter() -> None:
+    """Run one CPU op under ``FlopCounterMode`` once per process, so the
+    counter's lazy imports happen here and not in a traced step
+    (fail-open: on an error the counted step pays them)."""
+    global _flop_counter_primed
+    if _flop_counter_primed:
+        return
+    _flop_counter_primed = True
+    try:
+        import torch
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False):
+            torch.zeros(1) + 1
+    except Exception as exc:
+        get_error_log().warning("wrap_step_fn FLOP counter set-up failed", exc)
+
 
 class WrappedStepFn:
     """Callable wrapper; one instance per traced step function."""
@@ -46,6 +72,8 @@ class WrappedStepFn:
         self._fn = fn
         self.device = self._state.device if device is None else resolve_device(device)
         self._flops_pending = estimate_flops
+        if estimate_flops:
+            _prime_flop_counter()
         self.__wrapped__ = fn
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
@@ -89,8 +117,6 @@ class WrappedStepFn:
         """Declare the counted FLOPs (fail-open: nothing on an error or a
         count of 0)."""
         try:
-            from traceml_tpu_torch.sdk.flops import set_step_flops
-
             flops = float(counter.get_total_flops())
             if flops > 0:
                 set_step_flops(flops, source="flop_counter")

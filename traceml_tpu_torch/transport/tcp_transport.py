@@ -18,7 +18,10 @@ client.
 
 The client is best-effort and never raises into training code: it
 connects lazily, drops a batch it cannot send (``send_batch`` returns
-False) and redials after a capped, jittered exponential backoff.
+False; the publisher's ``DurableSender`` spools it) and redials after a
+capped, jittered exponential backoff (1 s doubling to 15 s, the wait
+drawn from [window/2, window], as in JAX).  Every send attempt is the
+``client.send`` chaos point.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from traceml_tpu_torch.dev import chaos
 from traceml_tpu_torch.utils import msgpack_codec
 from traceml_tpu_torch.utils.error_log import get_error_log
 
@@ -342,13 +346,43 @@ class TCPClient:
             with self._lock:
                 self.batches_dropped += 1
             return False
-        frame = _LEN.pack(len(body)) + body
+        return self.send_encoded_body(body)
+
+    def send_encoded_body(self, body: bytes) -> bool:
+        """Send an assembled wire body as one frame.  The replay path
+        (``transport/spool.py``) splices spooled envelope bodies into a
+        batch body itself and ships it here: the same framing, counters
+        and failure rules as :meth:`send_batch`.  Each attempt is the
+        ``client.send`` chaos point (``dev/chaos.py``)."""
+        fault = chaos.fire("client.send")
+        if fault is not None:
+            if fault.action == "stall":
+                time.sleep(float(fault.arg or 0.2))
+                fault = None
+            elif fault.action == "reset":
+                with self._lock:
+                    self._teardown_locked()
+                    self.batches_dropped += 1
+                return False
+        frame = bytearray(_LEN.pack(len(body)))
+        frame += body
+        if fault is not None and fault.action == "corrupt":
+            # flip one byte past the length prefix: the framing holds, the
+            # receiver's decode fails and its connection survives
+            frame[4 + len(body) // 2] ^= 0xFF
         with self._lock:
             sock = self._ensure_connected_locked()
             if sock is None:
                 self.batches_dropped += 1
                 return False
             try:
+                if fault is not None and fault.action == "truncate":
+                    # a prefix, then a reset: the receiver's stream
+                    # desyncs (a bad length next) and it evicts the client
+                    sock.sendall(bytes(frame[: max(5, len(frame) // 2)]))
+                    self.batches_dropped += 1
+                    self._teardown_locked()
+                    return False
                 sock.sendall(frame)
             except OSError:
                 self.batches_dropped += 1

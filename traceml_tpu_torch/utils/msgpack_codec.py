@@ -25,6 +25,9 @@ from typing import Any, List
 
 _MSGPACK_PREFIX = b"\x01"
 _JSON_PREFIX = b"\x02"
+# public alias: the replay spool stores bare msgpack bodies and puts the
+# prefix back when it splices them into a batch
+MSGPACK_PREFIX = _MSGPACK_PREFIX
 
 try:
     import msgpack as _msgpack
@@ -79,6 +82,12 @@ class EncodedPayload:
         self.obj = obj
         self.body = encode(obj)
 
+    @property
+    def raw(self) -> "bytes | None":
+        """The bare msgpack body (no codec prefix), or None for a JSON
+        body: what the replay spool stores."""
+        return self.body[1:] if self.body[:1] == _MSGPACK_PREFIX else None
+
     def size(self) -> int:
         return len(self.body)
 
@@ -87,7 +96,7 @@ def preencode(obj: Any) -> EncodedPayload:
     return EncodedPayload(obj)
 
 
-def _array_header(n: int) -> bytes:
+def pack_array_header(n: int) -> bytes:
     """msgpack array header for ``n`` elements (fixarray/array16/32)."""
     if n <= 0x0F:
         return bytes((0x90 | n,))
@@ -106,7 +115,7 @@ def encode_batch(payloads: List[Any]) -> bytes:
     ]
     prefixes = {b[:1] for b in bodies}
     if prefixes == {_MSGPACK_PREFIX}:
-        return _MSGPACK_PREFIX + _array_header(len(bodies)) + b"".join(b[1:] for b in bodies)
+        return _MSGPACK_PREFIX + pack_array_header(len(bodies)) + b"".join(b[1:] for b in bodies)
     if prefixes == {_JSON_PREFIX}:
         return _JSON_PREFIX + b"[" + b", ".join(b[1:] for b in bodies) + b"]"
     return encode([p.obj if isinstance(p, EncodedPayload) else p for p in payloads])
