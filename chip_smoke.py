@@ -136,6 +136,24 @@
    file, reconnects, replayed envelopes, spool bytes, replay duplicates,
    and the step against the healthy run's.
 
+10. A long run kept bounded (``bounded_run_phase``): ``run --mode cli``
+   of ``train_script.py`` at full width for ``BOUNDED_STEPS`` steps with
+   ``--trace-max-steps BOUNDED_CAP --summary-window-rows BOUNDED_WINDOW
+   --disk-backup --no-capture-stderr``.  Gates: the run's (exit 0, the
+   MFU's band, the device clock, 12 launches a step, system and process,
+   the HTML); the recording stop as the JAX runtime does it (every step
+   in the rank's disk backup once, steps past the drain tick from the
+   final drain, no system or process row while recording is stopped,
+   ``rank_finished`` before the loop's end); retention (no partition
+   over its retention after ``finalize``, an online prune during the
+   loop, the 10 s tier plus the raw survivors equal to the backup's
+   steps in count and ``step_ms`` sum); the report's ``history`` block
+   and "History:" line; ``view`` and ``inspect`` (every backup frame
+   decodes, ``--domain rollup`` lists the tiers); the stderr marker on
+   the launcher's stderr and nowhere in the captured output.  Reported:
+   the step against the healthy ``summary`` train run's, backup bytes per
+   step, prune counts and p99, tier rows, the read commands' wall time.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
@@ -849,7 +867,7 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     return {"summary": summary, "html": html_gate, "manifest": read("manifest.json"),
             "ingest": read("ingest_stats.json"),
             "system_manifest": read("system_manifest.json", required=expect_ok),
-            "rows": rows, "tables": tables, "stdout": out, "wall_s": wall_s, "steps": steps,
+            "rows": rows, "tables": tables, "stdout": out, "stderr": err, "wall_s": wall_s, "steps": steps,
             "mode": mode, "session": session, "interval_s": interval_s}
 
 
@@ -1838,6 +1856,255 @@ def aggregator_restart_phase(cfg, train_healthy: dict) -> dict:
     return out
 
 
+BOUNDED_STEPS = 400  # ~47 s of the full-width train step: several 10 s rollup buckets
+BOUNDED_CAP = 340  # --trace-max-steps: the 340 live step rows pass retention + slack (60 + 256)
+BOUNDED_WINDOW = 40  # --summary-window-rows: retention 60 raw rows, past the summary's 50 aligned steps
+BOUNDED_LATE_STEPS = 5  # steps the drain tick may ship past the cap (flushed before it ran)
+STDERR_MARKER = "train_script: stderr marker, loop ended at "
+
+
+class IngestProbe:
+    """Reads the session's ``ingest_stats.json`` every 0.2 s while a
+    ``run`` call goes, from a thread beside ``launch_run``; it keeps the
+    ``ts`` of the first snapshot whose ``finished_ranks`` holds rank 0
+    (the aggregator writes one every 5 s)."""
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.run_ended_at = None
+        self.error = None
+        self.finished_ts = None
+
+    def run(self, logs: Path) -> None:
+        try:
+            while not self.done.wait(0.2):
+                for path in logs.glob("*/ingest_stats.json"):
+                    try:
+                        stats = json.loads(path.read_text())
+                    except (OSError, ValueError):
+                        continue  # written atomically, but the session may be new
+                    if self.finished_ts is None and 0 in stats.get("finished_ranks", []) and not stats.get("final"):
+                        self.finished_ts = stats["ts"]
+        except Exception as exc:
+            self.error = "".join(traceback.format_exception(type(exc), exc, exc.__traceback__))
+
+
+def _walk_backup(path: Path) -> int:
+    """Every frame of one backup file, v1 or v2, decoded with the wire
+    codec; the walk must end exactly at the end of the file.  Returns the
+    frames."""
+    from traceml_tpu_torch.database.database_writer import V2_MAGIC
+    from traceml_tpu_torch.utils import msgpack_codec
+
+    data, pos, frames = path.read_bytes(), 0, 0
+    while pos < len(data):
+        if data[pos:pos + 4] == V2_MAGIC:
+            pos += 4
+        check(pos + 4 <= len(data), f"{path}: torn frame header at byte {pos}")
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        check(pos + 4 + n <= len(data), f"{path}: torn frame body at byte {pos}")
+        msgpack_codec.decode(data[pos + 4:pos + 4 + n])  # raises CodecError on a bad frame
+        pos, frames = pos + 4 + n, frames + 1
+    return frames
+
+
+def _timed_cli(*args) -> tuple:
+    """One ``python -m traceml_tpu_torch`` read command: its stdout and
+    wall seconds; it must exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "traceml_tpu_torch", *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(args[:1])} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def bounded_run_phase(cfg, train_healthy: dict) -> dict:
+    """A long run kept bounded: ``run --mode cli`` of ``dev/train_script.py``
+    at full width, ``BOUNDED_STEPS`` steps at the 0.1 s tick, with
+    ``--trace-max-steps BOUNDED_CAP --summary-window-rows BOUNDED_WINDOW
+    --disk-backup --no-capture-stderr``; the script prints one marker line
+    to stderr when its loop ends.  Gates:
+
+    * the run: exit 0, manifest ``completed`` / ``ok``, the verdict of the
+      MFU's band, every stored step row on the device clock, 12 flash
+      launches a step over all ``BOUNDED_STEPS``, the system and process
+      gates of ``check_telemetry``, the HTML (``check_html``);
+    * the recording stop: the rank's disk backup holds every step once;
+      the steps stamped before the loop's end are 1..k with k from
+      ``BOUNDED_CAP`` to ``BOUNDED_CAP + BOUNDED_LATE_STEPS`` (the drain
+      tick ships what was flushed before it ran), the rest come after it,
+      in the final drain, as in JAX; no system or process row is stamped
+      later than one tick after step ``BOUNDED_CAP``'s row until the loop
+      ends; ``rank_finished`` reached the aggregator (``ingest_stats``)
+      before the loop ended;
+    * retention and rollups: after ``finalize`` no partition of a
+      retention table holds more than 1.5 x ``BOUNDED_WINDOW`` rows; a
+      ``retention_watermarks`` row of ``step_time_samples`` stamped before
+      the loop's end (an online prune); the 10 s tier's rank-grain
+      ``step_ms`` count plus the raw survivors equals the backup's step
+      rows, and their sum the backup's sum of ``step_ms`` within 1e-9;
+    * the report: ``history.step_time.step_ms`` from the first step's
+      10 s bucket to the last one's, one rank; "History:" in the text;
+    * ``view`` prints ``final_summary.txt``, ``view --format json`` the
+      JSON; ``inspect`` of ``rank_0/data`` exits 0 and every backup frame
+      decodes, the walk ending at each file's end; ``inspect --domain
+      rollup`` lists the step_time and step_memory tiers;
+    * ``--no-capture-stderr``: the marker is on the launcher's stderr, in
+      no ``stdout_samples`` row and not in ``rank_0/stdout.log``.
+
+    Reported: the step's device median (all backed-up steps) against the
+    healthy ``summary`` train run's, backup bytes per step and the sender's
+    backup writes per busy tick, the prunes and their p99, the tier rows,
+    the wall time of each read command."""
+    from traceml_tpu_torch.aggregator.sqlite_writers import ALL_WRITERS
+    from traceml_tpu_torch.database.database_writer import iter_backup_tables
+    from traceml_tpu_torch.utils import timing as T
+
+    name, retention, interval = "train_bounded", int(BOUNDED_WINDOW * 1.5), 0.1
+    probe = IngestProbe()
+    run = launch_run(name, 0.0, interval, script="train_script.py", steps=BOUNDED_STEPS, mode="cli",
+                     script_args=("--stderr-marker",), probe=probe,
+                     launcher_args=("--trace-max-steps", str(BOUNDED_CAP), "--summary-window-rows",
+                                    str(BOUNDED_WINDOW), "--disk-backup", "--no-capture-stderr"))
+    check(probe.error is None, f"run {name}: the ingest probe failed: {probe.error}")
+    session, summary, manifest, ingest = run["session"], run["summary"], run["manifest"], run["ingest"]
+    check((manifest["status"], manifest["telemetry_status"]) == ("completed", "ok"),
+          f"run {name}: manifest {manifest['status']}/{manifest['telemetry_status']}")
+    kind = summary["primary_diagnosis"]["kind"]
+    check(kind == mfu_verdict(summary), f"run {name}: verdict {kind}, not {mfu_verdict(summary)}")
+    launch_lines = [l for l in run["stdout"].splitlines() if l.startswith("flash_attention.launches ")]
+    launches = int(launch_lines[-1].split()[1]) if launch_lines else None
+    check(launches == cfg.n_layers * BOUNDED_STEPS,
+          f"run {name}: rank reports {launches} flash launches, not {cfg.n_layers} x {BOUNDED_STEPS}")
+    telemetry = check_telemetry(name, run)
+
+    # the recording stop, read from the rank's disk backup (the database
+    # keeps the last `retention` rows only)
+    marker = [l for l in run["stderr"].splitlines() if l.startswith(STDERR_MARKER)]
+    check(len(marker) == 1, f"run {name}: {len(marker)} stderr marker lines on the launcher's stderr")
+    loop_end = float(marker[0][len(STDERR_MARKER):])
+    data = session / "rank_0" / "data"
+    backed = {t: [] for t in ("step_time", "system", "system_device", "process", "process_device")}
+    for sampler in ("step_time", "system", "process"):
+        for table, row in iter_backup_tables(data / sampler / "envelopes.msgpack"):
+            if table in backed:
+                backed[table].append(row)
+    steps = sorted(r["step"] for r in backed["step_time"])
+    check(steps == list(range(1, BOUNDED_STEPS + 1)), f"run {name}: the backup holds steps {steps[:3]}... "
+                                                       f"({len(steps)} rows) for {BOUNDED_STEPS}")
+    by_step = {r["step"]: r for r in backed["step_time"]}
+    live = sorted(s for s, r in by_step.items() if r["timestamp"] < loop_end)
+    k = len(live)
+    host_steps = sorted(s for s, r in by_step.items() if r["clock"] != "device")
+    log("bounded", f"{name}: {k} steps stamped before the loop's end, host-clock steps {host_steps}; "
+                   f"rank_finished in ingest_stats at {probe.finished_ts}, loop end {loop_end}, "
+                   f"step {BOUNDED_CAP} stamped {by_step[BOUNDED_CAP]['timestamp'] - loop_end:+.3f} s from it")
+    check(all(r[1] == "device" and json.loads(r[2])[T.STEP_TIME]["device_ms"] is not None for r in run["rows"])
+          and not host_steps, f"run {name}: step rows off the device clock: {host_steps}")
+    check(live == list(range(1, k + 1)) and BOUNDED_CAP <= k <= BOUNDED_CAP + BOUNDED_LATE_STEPS,
+          f"run {name}: {k} steps stamped before the loop's end (cap {BOUNDED_CAP}), not 1..k")
+    cap_ts = by_step[BOUNDED_CAP]["timestamp"]
+    late = [(t, r["timestamp"]) for t in ("system", "system_device", "process", "process_device")
+            for r in backed[t] if cap_ts + interval < r["timestamp"] < loop_end]
+    check(not late, f"run {name}: {len(late)} system/process rows while recording was stopped: {late[:3]}")
+    check(probe.finished_ts is not None and probe.finished_ts < loop_end,
+          f"run {name}: rank_finished seen at {probe.finished_ts}, the loop ended at {loop_end}")
+    check(ingest["finished_ranks"] == [0], f"run {name}: finished ranks {ingest['finished_ranks']}")
+
+    def step_ms(row):
+        ev = row["events"][T.STEP_TIME]
+        return ev["device_ms"] if row["clock"] == "device" and ev.get("device_ms") is not None else ev["cpu_ms"]
+
+    # retention and the rollup tiers
+    conn = sqlite3.connect(session / "telemetry.sqlite")
+    try:
+        fullest = {}
+        for table in sorted({t for w in ALL_WRITERS for t in w.RETENTION_TABLES}):
+            fullest[table] = max((n for (n,) in conn.execute(
+                f"SELECT COUNT(*) FROM {table} GROUP BY session_id, global_rank")), default=0)
+        online = conn.execute("SELECT MIN(ts) FROM retention_watermarks WHERE table_name='step_time_samples'"
+                              ).fetchone()[0]
+        raw = [json.loads(ev) for (ev,) in conn.execute("SELECT events_json FROM step_time_samples")]
+        clocks = [c for (c,) in conn.execute("SELECT clock FROM step_time_samples")]
+        tier_n, tier_sum = conn.execute(
+            "SELECT SUM(count), SUM(sum) FROM rollup_samples_10s WHERE source_table='step_time_samples'"
+            " AND grain='rank' AND grain_key='0' AND metric='step_ms'").fetchone()
+        tier_rows = {t: conn.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+                     for t in ("rollup_samples_10s", "rollup_samples_1m")}
+        stdout_lines = [l for (l,) in conn.execute("SELECT line FROM stdout_samples")]
+    finally:
+        conn.close()
+    check(max(fullest.values()) <= retention and fullest["step_time_samples"] == retention,
+          f"run {name}: rows per partition after finalize {fullest}, retention {retention}")
+    check(online is not None and online < loop_end,
+          f"run {name}: no step_time_samples prune before the loop's end (first at {online}, end {loop_end})")
+    raw_ms = [ev[T.STEP_TIME]["device_ms"] if c == "device" else ev[T.STEP_TIME]["cpu_ms"]
+              for ev, c in zip(raw, clocks)]
+    backup_sum = math.fsum(step_ms(r) for r in backed["step_time"])
+    check(tier_n is not None and tier_n + len(raw_ms) == len(backed["step_time"]),
+          f"run {name}: 10 s tier {tier_n} + raw {len(raw_ms)} != {len(backed['step_time'])} backed-up steps")
+    check(abs(tier_sum + math.fsum(raw_ms) - backup_sum) <= 1e-9 * backup_sum,
+          f"run {name}: tier + raw step_ms sum {tier_sum + math.fsum(raw_ms)} vs backup {backup_sum}")
+
+    # the history block and line
+    hist = (summary.get("history") or {}).get("step_time", {}).get("step_ms") or {}
+    pts = hist.get("points") or []
+    first_bucket = math.floor(by_step[1]["timestamp"] / 10.0) * 10.0
+    last_bucket = math.floor(by_step[BOUNDED_STEPS]["timestamp"] / 10.0) * 10.0
+    check(hist.get("ranks") == 1 and pts and pts[0]["t"] == round(first_bucket, 3)
+          and pts[-1]["t"] == round(last_bucket, 3),
+          f"run {name}: history {len(pts)} points from {pts[0]['t'] if pts else None} "
+          f"({first_bucket} .. {last_bucket} wanted), ranks {hist.get('ranks')}")
+    txt = (session / "final_summary.txt").read_text()
+    history_line = [l for l in txt.splitlines() if l.startswith("History:")]
+    check(len(history_line) == 1, f"run {name}: {len(history_line)} History lines in final_summary.txt")
+
+    # view and inspect, as a user calls them
+    view_txt, view_s = _timed_cli("view", str(session))
+    check(view_txt == txt + "\n", f"run {name}: view printed something else than final_summary.txt")
+    view_json, view_json_s = _timed_cli("view", str(session), "--format", "json")
+    check(json.loads(view_json) == summary, f"run {name}: view --format json differs from final_summary.json")
+    dump, inspect_s = _timed_cli("inspect", str(data))
+    files = sorted(data.rglob("*.msgpack"))
+    frames = {str(f.relative_to(data)): _walk_backup(f) for f in files}
+    check(all(f"── {f}" in dump for f in files) and all(frames.values()),
+          f"run {name}: inspect listed {dump.count('── ')} of {len(files)} backup files; frames {frames}")
+    tiers_out, rollup_s = _timed_cli("inspect", "--domain", "rollup", str(session))
+    check("step_time.step_ms" in tiers_out and "step_memory.current_bytes" in tiers_out,
+          f"run {name}: inspect --domain rollup printed {tiers_out[:400]!r}")
+
+    # --no-capture-stderr
+    stdout_log = (session / "rank_0" / "stdout.log").read_text()
+    check(not any(STDERR_MARKER in l for l in stdout_lines) and STDERR_MARKER not in stdout_log,
+          f"run {name}: the stderr marker reached the captured output")
+    check(any(l.startswith("train_script: ") for l in stdout_lines), f"run {name}: no script stdout captured")
+
+    device = [r["events"][T.STEP_TIME]["device_ms"] for r in backed["step_time"]]
+    backup_bytes = sum(f.stat().st_size for f in files)
+    prune = ingest["prune"]
+    producer = ingest["producers"]["0"]
+    busy = producer["ticks"] - producer["idle_ticks"]
+    out = {
+        "verdict": kind, "flash_launches": launches, "steps_live": k, "loop_end_to_last_step_s":
+            by_step[BOUNDED_STEPS]["timestamp"] - loop_end, "rank_finished_ingest_ts_before_loop_end_s":
+            loop_end - probe.finished_ts, "first_prune_before_loop_end_s": loop_end - online,
+        "step_device_ms": spread(device), "step_device_ms_healthy": train_healthy["step_device_ms"],
+        "backup_bytes": backup_bytes, "backup_bytes_per_step": backup_bytes / BOUNDED_STEPS,
+        "backup_frames": frames, "backup_ms_per_busy_tick":
+            sum(v["backup_us"] for v in producer["samplers"].values()) / busy / 1e3, "prune": prune, "rollup": ingest.get("rollup"), "tier_rows": tier_rows,
+        "rows_per_partition_max": fullest, "history_points": len(pts), "history_line": history_line[0],
+        "view_s": view_s, "view_json_s": view_json_s, "inspect_s": inspect_s, "inspect_rollup_s": rollup_s,
+        "wall_s": run["wall_s"], "finalize_s": manifest.get("finalize_sec"),
+        "nvml_utilization_pct_recent_mean": telemetry["utilization_pct_recent_mean"],
+    }
+    log("bounded", f"{name} " + json.dumps(out))
+    run_ms, ref_ms = out["step_device_ms"], train_healthy["step_device_ms"]
+    log("bounded", "train step device ms, bounded cli run (all backed-up steps) vs healthy summary run: " + ", ".join(
+        f"{key} {run_ms[key]:.4f} vs {ref_ms[key]:.4f} ({run_ms[key] / ref_ms[key]:.4f}x)" for key in run_ms))
+    return out
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -1912,6 +2179,11 @@ def main() -> int:
     kernel["launches"] += restart["flash_launches"]
     kernel["launches_by_path"]["train_restart_run"] = restart["flash_launches"]
     log("time", f"aggregator restart phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    bounded = bounded_run_phase(cfg, train_healthy)
+    kernel["launches"] += bounded["flash_launches"]
+    kernel["launches_by_path"]["train_bounded_run"] = bounded["flash_launches"]
+    log("time", f"bounded run phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,11 +21,14 @@ federation pages, which the port leaves out) and
   consistent bodies; ``stop()`` returns promptly with a stream open.
 * **Page contracts.**  Every JS element id exists in the markup, every
   phase key has a color, every payload path a section reads resolves in
-  the view schema and is present in a real port payload (the history
-  strip's paths aside: the port has no rollup tiers, so its payload, like
-  a JAX one before the first fold, has no ``history``), every
-  interpolation is escaped or vetted, and the page names no JAX or TPU
-  word.
+  the view schema and is present in a real port payload: the history
+  strip's paths in the payload of a database whose writer pruned and
+  folded rows (a payload before the first fold has no ``history``, as a
+  JAX one), the others in the two-rank one; every interpolation is
+  escaped or vetted, and the page names no JAX or TPU word.
+* **History.**  On a database with folds (the retention stream of
+  ``tests/test_torch_retention.py``) the whole payload, its ``history``
+  fragment among it, equals the JAX payload's.
 * **Routes the port leaves out.**  ``/fleet``, ``/api/sessions`` and a
   ``?session=`` naming another session answer 404.
 * **End to end.**  A tiny CPU ``run --mode dashboard``: a probe reads
@@ -458,8 +461,8 @@ _EFFICIENCY_KEYS = {
     "flops_source", "mfu_median", "peak_flops", "peak_tflops", "tokens_per_step", "tokens_per_sec_median",
 }
 _ISSUE_KEYS = {"kind", "severity", "summary", "action", "domain", "confidence", "confidence_label"}
-# the history strip's schema (the JAX rollup tiers'); the port's payload
-# has no history yet
+# the history strip's schema (the stitched rollup tiers'); a payload has
+# it once the writer's first prune folded rows
 _HISTORY_SCHEMA = {"step_time": {"points": {"t", "mean_ms", "min_ms", "max_ms", "res"}, "ranks": True}}
 _ROOTS = {
     "ts": None, "step_time": V.StepTimeView, "memory": V.MemoryView, "system": V.SystemView,
@@ -544,6 +547,41 @@ def real_payload(tmp_path_factory):
         serving.close_all_publishers()
 
 
+@pytest.fixture(scope="module")
+def folded_payload(tmp_path_factory):
+    """A port payload of a database whose writer pruned and folded rows
+    (two ranks, retention 12; the retention tests' stream)."""
+    from tests.test_torch_retention import WINDOW, _stream
+    from traceml_tpu_torch.aggregator.sqlite_writer import SQLiteWriter
+    from traceml_tpu_torch.telemetry.envelope import normalize_telemetry_envelope
+
+    db = tmp_path_factory.mktemp("folded") / "telemetry.sqlite"
+    writer = SQLiteWriter(db, summary_window_rows=WINDOW)
+    writer.start()
+    for tick in _stream():
+        for p in tick:
+            writer.ingest(normalize_telemetry_envelope(json.loads(json.dumps(p))))
+        writer.force_flush(timeout=30)
+    assert writer.finalize(timeout=30)
+    _ingest_stats(db.parent)
+    try:
+        return db, web_payload.build_web_payload(db, "folded")
+    finally:
+        serving.close_all_publishers()
+
+
+def test_payload_with_history_equals_the_jax_payload(folded_payload, monkeypatch):
+    from traceml_tpu.renderers.web_payload import build_web_payload as jax_build
+
+    _jax_scalar_arm(monkeypatch)
+    db, port = folded_payload
+    jax = jax_build(db, "folded")
+    assert list(port) == list(jax) and "history" in port
+    assert port["history"]["step_time"]["ranks"] == 2 and port["history"]["step_time"]["points"]
+    jax = port_advice({k: v for k, v in jax.items() if k != "ts"})
+    assert _close({k: v for k, v in port.items() if k != "ts"}, jax) is None
+
+
 def test_every_js_element_id_exists_in_the_markup():
     used = set(re.findall(r'getElementById\("([\w-]+)"\)', _PAGE))
     declared = set(re.findall(r'id="([\w-]+)"', _PAGE))
@@ -570,9 +608,10 @@ def test_the_page_names_the_port_and_no_jax_word():
     assert _PAGE.count("esc(") == jax_page.count("esc(")
 
 
-def test_js_top_level_reads_exist_in_a_real_payload(real_payload):
+def test_js_top_level_reads_exist_in_a_real_payload(real_payload, folded_payload):
     top = set(re.findall(r"\bd\.(\w+)", _PAGE))
-    assert top - set(real_payload) == {"history"}
+    assert top - set(real_payload) == {"history"}  # no fold yet
+    assert top - set(folded_payload[1]) == set()
     st = real_payload["step_time"]
     for key in ("phase_stack", "step_series", "phases", "coverage", "n_steps", "clock", "latest_ts", "steps"):
         assert key in st
@@ -587,10 +626,15 @@ def test_sections_declare_contracts():
 
 
 @pytest.mark.parametrize("section", ALL_SECTIONS, ids=lambda s: s.id)
-def test_contract_paths_resolve_and_are_present(section, real_payload):
+def test_contract_paths_resolve_and_are_present(section, real_payload, folded_payload):
     assert [p for p in section.contract if not _resolve(p)] == []
-    absent = [p for p in section.contract if not p.startswith("history.") and _present(real_payload, p) is False]
-    assert absent == []
+
+    def present(path):
+        if path.startswith("history."):  # the strip's paths, from the payload with folds
+            return _present(folded_payload[1], path) is True
+        return _present(real_payload, path) is not False
+
+    assert [p for p in section.contract if not present(p)] == []
 
 
 def test_every_section_render_fn_is_defined_and_called_once():

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
-A fresh interpreter imports every module of ``traceml_tpu_torch`` and
-``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
+A fresh interpreter imports every module of ``traceml_tpu_torch`` (those
+of each slice named) and ``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
 ``traceml_tpu.*`` module may be loaded (names matched exactly, since
 ``traceml_tpu_torch`` starts with ``traceml_tpu``).  An AST scan of the
 same files finds no such import statement either.
@@ -72,6 +72,12 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
                   "cluster", "pages")
     }
     assert dashboard <= set(out["imported"])
+    bounded_runs = {  # --trace-max-steps, retention and rollups, --disk-backup, view and inspect
+        "traceml_tpu_torch.runtime.state", "traceml_tpu_torch.database.database_writer",
+        "traceml_tpu_torch.aggregator.rollup", "traceml_tpu_torch.reporting.tiers",
+        "traceml_tpu_torch.reporting.view.command", "traceml_tpu_torch.launcher.inspect_cmd",
+    }
+    assert bounded_runs <= set(out["imported"])
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 

@@ -21,6 +21,16 @@ backward and optimizer phases from the auto-patches, the summary has an
 (a CPU has no peak), and an input delay of 3x the step's own host time
 (``--delay-x 3``, so it holds on a loaded host) makes it INPUT_BOUND.
 
+A bounded run: ``train_script.py`` under ``run --mode cli
+--trace-max-steps 3 --summary-window-rows 4 --disk-backup
+--no-capture-stderr``: the rank's disk backup holds every step once (the
+post-cap ones from the final drain, as in JAX), the database keeps 6 raw
+step rows and folds the rest into the rollup tiers, the report has the
+``history`` block and its "History:" line, ``view`` prints the stored
+summary (text and JSON) and ``inspect`` decodes the backup and lists the
+tiers; the script's stderr line reaches the launcher's stderr and not
+the captured output.
+
 Liveness and the summary call: every healthy run's ``liveness`` section
 is OK with each rank finished; a ``--nprocs 2`` forward run whose rank 1
 sends itself SIGKILL mid-loop, under the settings of the JAX chaos test
@@ -286,3 +296,54 @@ class TraceMLSettingsAt:
 
     def __init__(self, session_dir):
         self.session_dir = session_dir
+
+
+def test_run_bounded_then_view_and_inspect(tmp_path):
+    from traceml_tpu_torch.database.database_writer import iter_backup_tables
+
+    logs, steps = tmp_path / "logs", 12
+    proc = subprocess.run(
+        [sys.executable, "-m", "traceml_tpu_torch", "run", "--logs-dir", str(logs), "--sampler-interval", "0.1",
+         "--finalize-timeout", "30", "--trace-max-steps", "3", "--summary-window-rows", "4", "--disk-backup",
+         "--no-capture-stderr", str(TRAIN_SCRIPT), "--",
+         "--device", "cpu", "--tiny", "--delay-ms", "20", "--steps", str(steps), "--stderr-marker"],
+        env=_env(), capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (session,) = [p for p in logs.iterdir() if p.is_dir()]
+    manifest = json.loads((session / "manifest.json").read_text())
+    assert (manifest["status"], manifest["telemetry_status"]) == ("completed", "ok")
+    backup = session / "rank_0" / "data" / "step_time" / "envelopes.msgpack"
+    backed = [r["step"] for t, r in iter_backup_tables(backup) if t == "step_time"]
+    assert sorted(backed) == list(range(1, steps + 1))
+    conn = sqlite3.connect(session / "telemetry.sqlite")
+    try:
+        raw = [s for (s,) in conn.execute("SELECT step FROM step_time_samples ORDER BY step")]
+        folded = conn.execute("SELECT SUM(count) FROM rollup_samples_10s WHERE grain='rank' AND metric='step_ms'"
+                              " AND source_table='step_time_samples'").fetchone()[0]
+        journal = conn.execute("SELECT COUNT(*) FROM retention_watermarks WHERE table_name='step_time_samples'"
+                               ).fetchone()[0]
+        stdout_rows = [line for (line,) in conn.execute("SELECT line FROM stdout_samples")]
+    finally:
+        conn.close()
+    assert raw == list(range(steps - 5, steps + 1)) and folded + len(raw) == steps and journal >= 1
+    marker = "train_script: stderr marker"
+    assert marker in proc.stderr and not any(marker in line for line in stdout_rows)
+    assert any(line.startswith("train_script: ") for line in stdout_rows)  # stdout is still captured
+    assert marker not in (session / "rank_0" / "stdout.log").read_text()
+    payload = json.loads((session / "final_summary.json").read_text())
+    assert payload["history"]["step_time"]["step_ms"]["ranks"] == 1
+    txt = (session / "final_summary.txt").read_text()
+    assert "History:" in txt
+
+    def cmd(*args):
+        got = subprocess.run([sys.executable, "-m", "traceml_tpu_torch", *args], env=_env(), capture_output=True,
+                             text=True, timeout=60, cwd=str(tmp_path))
+        assert got.returncode == 0, got.stderr[-2000:]
+        return got.stdout
+
+    assert cmd("view", str(session)) == txt + "\n"
+    assert json.loads(cmd("view", str(session), "--format", "json")) == payload
+    dump = cmd("inspect", str(session / "rank_0" / "data"))
+    assert f"── {backup}" in dump and '"table": "step_time"' in dump
+    assert "step_time.step_ms" in cmd("inspect", "--domain", "rollup", str(session))

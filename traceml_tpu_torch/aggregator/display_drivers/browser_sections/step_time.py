@@ -4,8 +4,9 @@ rank chips toggle ranks.
 
 Counterpart of ``.../browser_sections/step_time.py``; its one label
 change: the occupancy reads "GPU busy" (JAX: "chip busy").  The
-full-run history strip stays hidden: the port has no rollup tiers yet
-(ROADMAP queue 1 item 2(f)), so its payload carries no ``history``.
+full-run history strip (the payload's ``history``, the stitched rollup
+tiers' cross-rank band) shows once the writer's first prune has folded
+rows, and stays hidden before, as in JAX.
 """
 
 from __future__ import annotations

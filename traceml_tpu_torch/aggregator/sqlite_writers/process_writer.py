@@ -16,6 +16,8 @@ from traceml_tpu_torch.telemetry.envelope import TelemetryEnvelope
 
 TABLE = "process_samples"
 TABLE_DEVICE = "process_device_samples"
+# tables the writer's watermark retention prunes per (session, rank)
+RETENTION_TABLES = (TABLE, TABLE_DEVICE)
 
 
 def accepts_sampler(name: str) -> bool:

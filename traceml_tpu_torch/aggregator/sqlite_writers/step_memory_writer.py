@@ -15,6 +15,8 @@ from traceml_tpu_torch.aggregator.sqlite_writers.common import (
 from traceml_tpu_torch.telemetry.envelope import TelemetryEnvelope
 
 TABLE = "step_memory_samples"
+# tables the writer's watermark retention prunes per (session, rank)
+RETENTION_TABLES = (TABLE,)
 
 
 def accepts_sampler(name: str) -> bool:

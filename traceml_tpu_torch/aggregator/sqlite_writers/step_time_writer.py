@@ -22,6 +22,8 @@ from traceml_tpu_torch.telemetry.envelope import TelemetryEnvelope
 
 TABLE = "step_time_samples"
 MODEL_STATS_TABLE = "model_stats_samples"
+# tables the writer's watermark retention prunes per (session, rank)
+RETENTION_TABLES = (TABLE, MODEL_STATS_TABLE)
 
 
 def accepts_sampler(name: str) -> bool:

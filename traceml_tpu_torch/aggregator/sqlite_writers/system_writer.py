@@ -16,6 +16,8 @@ from traceml_tpu_torch.telemetry.envelope import TelemetryEnvelope
 
 TABLE_HOST = "system_samples"
 TABLE_DEVICE = "system_device_samples"
+# tables the writer's watermark retention prunes per (session, rank)
+RETENTION_TABLES = (TABLE_HOST, TABLE_DEVICE)
 
 
 def accepts_sampler(name: str) -> bool:

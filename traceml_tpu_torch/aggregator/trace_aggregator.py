@@ -85,7 +85,7 @@ class TraceMLAggregator:
         self.settings = settings
         self.server = TCPServer(host=settings.aggregator.bind_host, port=settings.aggregator.port)
         self.db_path = settings.session_dir / "telemetry.sqlite"
-        self.writer = SQLiteWriter(self.db_path)
+        self.writer = SQLiteWriter(self.db_path, summary_window_rows=settings.summary_window_rows)
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         # the loop and stop()'s settle both drain: one at a time, so
@@ -262,6 +262,8 @@ class TraceMLAggregator:
                 "replay_duplicates": w["replay_duplicates"],
                 "queues": w["queue"],
                 "group_commit": w["group_commit"],
+                "prune": w["prune"],
+                "rollup": w["rollup"],
                 "finished_ranks": sorted(self._finished_ranks),
                 "producers": {str(r): s for r, s in sorted(self._producer_stats.items())},
                 "final": final,

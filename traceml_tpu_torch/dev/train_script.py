@@ -33,7 +33,10 @@ launches in the traced loop, ``flash_attention.launches N``.  Test scaffolding, 
 * ``--final-summary`` calls ``final_summary()`` after the loop and prints
   ``final_summary {"kind": ..., "n_steps": ...}``;
 * ``--kill-after N`` sends the process SIGKILL after N steps, on the rank
-  ``--kill-rank`` names (default 0).
+  ``--kill-rank`` names (default 0);
+* ``--stderr-marker`` prints one line to stderr when the loop has ended,
+  ``train_script: stderr marker, loop ended at <unix time>`` (what
+  ``--no-capture-stderr`` must keep out of the live display).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 from typing import List, Optional
 
@@ -78,6 +82,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--final-summary", action="store_true", help="call final_summary() after the loop")
     p.add_argument("--kill-after", type=int, default=0, help="SIGKILL this process after N steps")
     p.add_argument("--kill-rank", type=int, default=0, help="the rank --kill-after kills")
+    p.add_argument("--stderr-marker", action="store_true", help="print one line to stderr after the loop")
     args = p.parse_args(argv)
 
     on_cuda = torch.device(args.device).type == "cuda"
@@ -118,6 +123,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if on_cuda:
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    if args.stderr_marker:
+        print(f"train_script: stderr marker, loop ended at {time.time():.6f}", file=sys.stderr, flush=True)
     first, last = float(losses[0]), float(losses[-1])
     finite = all(bool(torch.isfinite(loss)) for loss in losses)
     print(f"train_script: {args.steps} steps in {wall_s:.4f} s wall; loss first {first:.6f} "

@@ -1,17 +1,29 @@
 """``python -m traceml_tpu_torch`` command line.
 
-Counterpart of ``traceml_tpu/launcher/cli.py`` with the ``run``
-subcommand (``view``, ``compare``, ``inspect``, ``watch`` and ``fleet``
-come later).  ``--mode`` takes the three JAX modes: ``cli`` (the live
-display, the default), ``summary`` (the verdict on stdout at the end) and
-``dashboard`` (the browser dashboard, its URL on stdout).
+Counterpart of ``traceml_tpu/launcher/cli.py`` with the ``run``, ``view``
+and ``inspect`` subcommands (``compare``, ``watch``, ``fleet-router``,
+``lint`` and ``profile`` come later).  ``run``'s ``--mode`` takes the
+three JAX modes: ``cli`` (the live display, the default), ``summary``
+(the verdict on stdout at the end) and ``dashboard`` (the browser
+dashboard, its URL on stdout).  A long run stays bounded with
+``--trace-max-steps N`` (recording stops after step N while the script
+trains on), ``--summary-window-rows W`` (the session database keeps
+1.5 W raw rows per table and rank and folds older ones into the 10 s and
+1 m rollup tiers), ``--disk-backup`` (each rank also appends what it
+ships to ``rank_N/data``) and ``--no-capture-stderr`` (rank stderr stays
+out of the live display).  ``view`` prints a finished run's summary,
+``inspect`` decodes the disk backups (``--domain rollup``: the stitched
+history of the tiers).
 
     python -m traceml_tpu_torch run [--mode cli|summary|dashboard] [options] script.py [-- script args]
+    python -m traceml_tpu_torch view <session dir | final_summary.json> [--format text|json]
+    python -m traceml_tpu_torch inspect <rank data dir | .msgpack | session dir> [--limit N] [--domain D]
 """
 
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 from typing import List, Optional
 
 
@@ -35,19 +47,49 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--logs-dir", dest="logs_dir", default=None)
     run.add_argument("--nprocs", type=int, default=1, help="rank processes to start")
     run.add_argument("--sampler-interval", dest="sampler_interval_sec", type=float, default=None)
+    run.add_argument("--trace-max-steps", dest="trace_max_steps", type=int, default=None,
+                     help="stop recording after this many steps (the script trains on)")
+    run.add_argument("--summary-window-rows", dest="summary_window_rows", type=int, default=None,
+                     help="per-table, per-rank row window of the session database (1.5x is kept; "
+                          "older rows fold into the rollup tiers)")
     run.add_argument("--finalize-timeout", dest="finalize_timeout_sec", type=float, default=None)
+    run.add_argument("--disk-backup", dest="disk_backup", action="store_true", default=None,
+                     help="each rank also appends what it ships to <session>/rank_N/data")
+    run.add_argument("--no-capture-stderr", dest="capture_stderr", action="store_false", default=None,
+                     help="leave rank stderr out of the live display and stdout.log")
     run.add_argument("--disable-traceml", dest="disable", action="store_true", default=False)
+
+    view = sub.add_parser("view", help="print a stored final summary")
+    view.add_argument("path", help="final_summary.json (or session dir)")
+    view.add_argument("--format", choices=("text", "json"), default="text")
+
+    insp = sub.add_parser("inspect", help="decode per-rank disk backups")
+    insp.add_argument("path", help="a rank data dir, .msgpack file, or session dir")
+    insp.add_argument("--limit", type=int, default=20)
+    insp.add_argument(
+        "--domain", default=None,
+        help="only rows of this table (e.g. step_time); 'rollup' prints the stitched "
+             "history of the session's rollup tiers, 'topology' its captured mesh",
+    )
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
+    if args.command == "view":
+        from traceml_tpu_torch.reporting.view.command import run_view
+
+        return run_view(Path(args.path), fmt=args.format)
+    if args.command == "inspect":
+        from traceml_tpu_torch.launcher.inspect_cmd import run_inspect
+
+        return run_inspect(Path(args.path), limit=args.limit, domain=args.domain)
     from traceml_tpu_torch.launcher.commands import launch_process
 
     cli = {
         k: getattr(args, k)
-        for k in ("mode", "run_name", "logs_dir", "nprocs", "sampler_interval_sec",
-                  "finalize_timeout_sec", "disable")
+        for k in ("mode", "run_name", "logs_dir", "nprocs", "sampler_interval_sec", "trace_max_steps",
+                  "summary_window_rows", "finalize_timeout_sec", "disk_backup", "capture_stderr", "disable")
     }
     script_args = list(args.script_args or [])
     if script_args[:1] == ["--"]:

@@ -3,7 +3,9 @@
 Counterpart of ``traceml_tpu/launcher/commands.py`` for the ``cli`` (the
 default, as in JAX for a single-node run), ``summary`` and ``dashboard``
 modes on one node (no yaml config, code manifest or multi-node launch
-yet).
+yet).  The settings carry ``--trace-max-steps``,
+``--summary-window-rows``, ``--disk-backup`` and ``--no-capture-stderr``
+to every child, resolved as in JAX (CLI > ``TRACEML_<KEY>`` > default).
 
 ``run``: resolve the settings (CLI > env > defaults), write the run
 manifest, start the aggregator and wait for its ready file, start N rank
@@ -82,7 +84,16 @@ def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
         env_val = os.environ.get(f"TRACEML_{key.upper()}")
         return env_val if env_val is not None else default
 
+    def pick_bool(key: str, default: bool) -> bool:
+        v = pick(key)
+        if v is None:
+            return default
+        if isinstance(v, bool):
+            return v
+        return str(v).strip().lower() in ("1", "true", "yes", "on")
+
     run_name = pick("run_name")
+    max_steps = pick("trace_max_steps")
     return TraceMLSettings(
         session_id=pick("session_id") or generate_session_id(run_name),
         logs_dir=Path(pick("logs_dir", "./traceml_logs")),
@@ -93,10 +104,14 @@ def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
             port=int(pick("aggregator_port", 0) or 0),
         ),
         sampler_interval_sec=float(pick("sampler_interval_sec", 1.0)),
+        trace_max_steps=int(max_steps) if max_steps else None,
         disabled=bool(cli.get("disable", False)),
+        disk_backup=pick_bool("disk_backup", False),
+        capture_stderr=pick_bool("capture_stderr", True),
         run_name=run_name,
         expected_world_size=int(cli.get("nprocs") or 1),
         finalize_timeout_sec=float(pick("finalize_timeout_sec", 300.0)),
+        summary_window_rows=int(pick("summary_window_rows", 10000)),
     )
 
 

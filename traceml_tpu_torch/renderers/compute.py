@@ -12,11 +12,14 @@ rank liveness strip are refreshed in place.
 Left out against the JAX computer: the diagnosis, window and view memos
 and the tick profiler, which serve its vector engine (ROADMAP queue 1
 item 3; with ``TRACEML_VECTOR_DIAGNOSIS=0`` the JAX computer runs
-without them too), the collectives, serving and history domains (queue
-1 items 4, 5 and 2(f)), and the mesh attribution of the diagnoses
+without them too), the collectives and serving domains (queue 1 items
+5 and 6), and the mesh attribution of the diagnoses
 (``diagnostics/attribution.py`` needs ``utils/topology.py``, queue 1
-item 4): the port's diagnoses run with no topology, as the JAX ones do
-when no mesh was captured.
+item 5): the port's diagnoses run with no topology, as the JAX ones do
+when no mesh was captured.  The ``history`` domain, as in JAX, is the
+stitched step-time series of the rollup tiers collapsed to a cross-rank
+band (mean of the ranks' means, min, max per bucket); it is empty until
+the writer's first prune.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ _DOMAIN_DEPS: Dict[str, Tuple[Tuple[str, ...], Optional[str]]] = {
     "system": (("system", "topology"), "system"),
     "process": (("process",), "process"),
     "stdout": (("stdout",), None),
+    # the stitch re-folds the surviving raw rows, so new raw steps move
+    # the series between prunes too
+    "history": (("rollup", "step_time"), None),
 }
 
 
@@ -207,3 +213,35 @@ class LiveComputer:
             return {"stdout": self._store.stdout_tail()}, None
         except Exception:
             return {"stdout": []}, None
+
+    def _compute_history(self) -> Tuple[Dict[str, Any], Any]:
+        """The full-run step-time band for the dashboard's history strip;
+        {} until the first fold lands."""
+        try:
+            if not self._store.has_rollups():
+                return {"history": {}}, None
+            series = self._store.stitched_series("step_time_samples", "step_ms")
+            if not series:
+                return {"history": {}}, None
+            band: Dict[float, Dict[str, Any]] = {}
+            for points in series.values():
+                for p in points:
+                    if p.get("mean") is None:
+                        continue
+                    slot = band.get(p["t"])
+                    if slot is None:
+                        band[p["t"]] = {"t": p["t"], "mean_sum": p["mean"], "ranks": 1,
+                                        "min": p["min"], "max": p["max"], "res": p["res"]}
+                    else:
+                        slot["mean_sum"] += p["mean"]
+                        slot["ranks"] += 1
+                        slot["min"] = min(slot["min"], p["min"])
+                        slot["max"] = max(slot["max"], p["max"])
+            points = [
+                {"t": b["t"], "mean_ms": b["mean_sum"] / b["ranks"], "min_ms": b["min"],
+                 "max_ms": b["max"], "res": b["res"]}
+                for b in (band[t] for t in sorted(band))
+            ]
+            return {"history": {"step_time": {"points": points, "ranks": len(series)}}}, None
+        except Exception as exc:
+            return {"history": {"error": str(exc)}}, None

@@ -11,13 +11,15 @@ the delta and SSE endpoints ship them one by one
 (``renderers/serving.py``).
 
 All eleven JAX fragments keep their names and order, so the version
-token and the page's client are the JAX ones.  The domains the port does
-not have yet read as the JAX payload does on a training session that
-recorded none: ``collectives`` is ``null`` (its sampler, ROADMAP queue 1
-item 4), ``serving`` and ``history`` are left out (the serving probe,
-item 5; the rollup tiers, item 2(f)), and ``meta`` has no ``mesh``
-(``utils/topology.py``, item 4), ``regressions`` (cross-run baselines,
-item 2(j)) or ``window_build`` (the incremental window, item 3).  The
+token and the page's client are the JAX ones.  ``history`` is the
+full-run step-time band of the stitched rollup tiers, left out, as in
+JAX, until the writer's first prune folds a row.  The domains the port
+does not have yet read as the JAX payload does on a training session
+that recorded none: ``collectives`` is ``null`` (its sampler, ROADMAP
+queue 1 item 5), ``serving`` is left out (the serving probe, item 6),
+and ``meta`` has no ``mesh`` (``utils/topology.py``, item 5),
+``regressions`` (cross-run baselines, item 3(e)) or ``window_build``
+(the incremental window, item 4).  The
 findings carry no mesh ``attribution`` either: the port's diagnoses run
 with no topology, as the JAX ones do when no mesh was captured.
 """
@@ -54,7 +56,7 @@ _FRAGMENT_KEYS: Dict[str, Tuple[str, ...]] = {
 FRAGMENT_ORDER: Tuple[str, ...] = tuple(_FRAGMENT_KEYS)
 
 #: fragment → the snapshot-store domains whose versions gate its
-#: rebuild.  The three fragments the port has no domain for depend on
+#: rebuild.  The two fragments the port has no domain for depend on
 #: none, so they are built once.  ``header`` is constant and ``meta`` is
 #: read from files (ingest_stats.json, rank_status.json), so both are
 #: rebuilt on every poll and compared by content.
@@ -66,7 +68,7 @@ FRAGMENT_DEPS: Dict[str, Tuple[str, ...]] = {
     "system": ("system", "topology"),
     "process": ("process",),
     "stdout": ("stdout",),
-    "history": (),
+    "history": ("rollup", "step_time"),
     "diagnosis": ("step_time", "model_stats", "topology", "step_memory", "system", "process"),
 }
 
@@ -85,6 +87,16 @@ def _issue_dict(issue: Any) -> Dict[str, Any]:
 def _view_fragment(payload: Dict[str, Any], key: str) -> Dict[str, Any]:
     view = (payload.get("views") or {}).get(key)
     return {key: view.as_dict() if view is not None else None}
+
+
+def _history_fragment(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The full-run history strip, its key left out until the first fold
+    lands, so a short run's payload keeps the shape it had without
+    tiers."""
+    history = payload.get("history")
+    if not history or not isinstance(history, dict) or not history.get("step_time"):
+        return {}
+    return {"history": history}
 
 
 def _diagnosis_fragment(payload: Dict[str, Any]) -> Dict[str, Any]:
@@ -160,8 +172,10 @@ def build_fragment(name: str, payload: Dict[str, Any], *, session: str, db_path:
         return _view_fragment(payload, name)
     if name == "collectives":
         return {"collectives": None}
-    if name in ("serving", "history"):
+    if name == "serving":
         return {}
+    if name == "history":
+        return _history_fragment(payload)
     if name == "stdout":
         return {"stdout": [{"stream": s, "line": l} for s, l in (payload.get("stdout") or [])]}
     if name == "diagnosis":

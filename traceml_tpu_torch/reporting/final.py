@@ -15,9 +15,14 @@ in JAX, a session without a telemetry DB gets the JSON and text only.
 The liveness section reads the aggregator's ``rank_status.json`` and
 ``finalization_warning.json``, not the database: a rank killed mid-run
 left no closing rows.  The ``collectives`` section is a NO_DATA stub (its
-sampler comes later), and the payload leaves out what the JAX report adds
-only when it has something for it: the cross-run ``regressions``, the
-stitched ``history`` and ``meta.window_build``.
+sampler comes later).  The ``history`` block, as in JAX, holds the whole
+run at bounded cost once the writer's retention prune has folded rows
+into the rollup tiers: per domain and metric, the stitched series
+(``reporting/tiers.py``) collapsed to a cross-rank band and decimated to
+at most ``_HISTORY_MAX_POINTS`` points; the text summary gives its
+coverage in a "History:" line.  The payload leaves out what the JAX
+report adds only when it has something for it: the cross-run
+``regressions`` and ``meta.window_build``.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from traceml_tpu_torch.diagnostics.process.api import diagnose as diagnose_proce
 from traceml_tpu_torch.diagnostics.step_memory.api import diagnose_rank_rows as diagnose_memory
 from traceml_tpu_torch.diagnostics.step_time.api import diagnose_window
 from traceml_tpu_torch.diagnostics.system.api import diagnose as diagnose_system
-from traceml_tpu_torch.reporting import loaders
+from traceml_tpu_torch.reporting import loaders, tiers
 from traceml_tpu_torch.reporting.primary_diagnosis import build_primary_diagnosis
 from traceml_tpu_torch.reporting.rollup import build_rollup
 from traceml_tpu_torch.sdk import protocol
@@ -644,6 +649,19 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
             out.extend(f"  {l}" for l in card.splitlines())
             out.append("")
 
+    # the full-run history's coverage (stitched rollup tiers)
+    hist = (payload.get("history") or {}).get("step_time") or {}
+    pts = (hist.get("step_ms") or {}).get("points")
+    if pts:
+        span_s = pts[-1]["t"] - pts[0]["t"]
+        out.append(
+            f"History: {len(pts)} stitched buckets covering "
+            f"{span_s / 3600.0:.1f} h "
+            f"({'/'.join((hist.get('step_ms') or {}).get('resolutions', []))}"
+            " resolution)"
+        )
+        out.append("")
+
     for key in ("liveness", "system", "process", "step_memory", "step_time"):
         diag = (sections.get(key) or {}).get("diagnosis") or {}
         if diag.get("status") == "issue":
@@ -684,6 +702,77 @@ def _build_liveness_section(session_dir: Path, mode: str):
         if warn.get("missing_rank_states"):
             section["unfinished_rank_states"] = warn["missing_rank_states"]
     return section, result
+
+
+_HISTORY_MAX_POINTS = 1500
+
+
+def _cross_rank_band(series: Dict[str, Any]) -> list:
+    """Per-rank stitched points collapsed into one band: per bucket, the
+    mean of the ranks' means, the min of mins and the max of maxs."""
+    buckets: Dict[float, Dict[str, Any]] = {}
+    for points in series.values():
+        for p in points:
+            if p.get("mean") is None:
+                continue
+            b = buckets.get(p["t"])
+            if b is None:
+                buckets[p["t"]] = {"t": p["t"], "means": [p["mean"]], "min": p["min"], "max": p["max"],
+                                   "res": p["res"]}
+            else:
+                b["means"].append(p["mean"])
+                b["min"] = min(b["min"], p["min"])
+                b["max"] = max(b["max"], p["max"])
+    return [
+        {"t": round(t, 3), "mean": sum(b["means"]) / len(b["means"]), "min": b["min"], "max": b["max"],
+         "res": b["res"]}
+        for t, b in ((t, buckets[t]) for t in sorted(buckets))
+    ]
+
+
+def _decimate_band(points: list, cap: int = _HISTORY_MAX_POINTS) -> list:
+    """Bound the history block for arbitrarily long runs: merge groups of
+    adjacent points (mean of means, min of mins, max of maxs) until at
+    most ``cap`` remain."""
+    if len(points) <= cap:
+        return points
+    stride = -(-len(points) // cap)  # ceil division
+    out = []
+    for i in range(0, len(points), stride):
+        group = points[i:i + stride]
+        out.append({
+            "t": group[0]["t"],
+            "mean": sum(p["mean"] for p in group) / len(group),
+            "min": min(p["min"] for p in group),
+            "max": max(p["max"] for p in group),
+            "res": group[-1]["res"],
+        })
+    return out
+
+
+def _build_history_section(conn) -> Dict[str, Any]:
+    """Per domain and metric, the full-run cross-rank band of the stitched
+    rollup tiers; {} (the key left out) when no fold ever landed or the
+    stitch fails."""
+    try:
+        overview = tiers.stitched_overview(conn)
+    except Exception as exc:
+        get_error_log().warning("history stitch failed", exc)
+        return {}
+    out: Dict[str, Any] = {}
+    for domain, metrics in overview.items():
+        per_metric: Dict[str, Any] = {}
+        for metric, series in metrics.items():
+            band = _decimate_band(_cross_rank_band(series))
+            if band:
+                per_metric[metric] = {
+                    "points": band,
+                    "ranks": len(series),
+                    "resolutions": sorted({p["res"] for p in band}),
+                }
+        if per_metric:
+            out[domain] = per_metric
+    return out
 
 
 # -- entrypoint ----------------------------------------------------------
@@ -764,6 +853,7 @@ def generate_summary(
             topology = loaders.load_topology(db_path, conn=conn)
         except Exception:
             topology = {"mode": "unknown", "world_size": 0}
+        history = _build_history_section(conn)
     finally:
         conn.close()
 
@@ -799,7 +889,7 @@ def generate_summary(
                 "envelopes_ingested", "frames_received", "decode_errors",
                 "corrupt_frame_drops", "rows_written", "rows_dropped",
                 "dropped_by_domain", "unknown_domain_drops",
-                "pending_frames_hwm", "queues", "group_commit", "producers",
+                "pending_frames_hwm", "queues", "group_commit", "prune", "producers",
             )
             if k in stats
         }
@@ -809,6 +899,8 @@ def generate_summary(
         "primary_diagnosis": primary,
         "sections": sections,
     }
+    if history:
+        payload["history"] = history
     attach_section_cards(payload)
     _write(session_dir, payload)
     try:

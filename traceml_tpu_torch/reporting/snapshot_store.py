@@ -15,15 +15,30 @@ to what changed:
 * ``PRAGMA data_version`` gates the whole refresh: an idle tick (no
   commit since the last one) reads no table;
 * per-domain versions (the refresh count at the domain's last new
-  rows) let ``LiveComputer`` recompute only the domains that changed.
+  rows or trim) let ``LiveComputer`` recompute only the domains that
+  changed.
+
+Retention, as in JAX: the writer's watermark prune deletes one
+``(session_id, global_rank)`` partition's rows at or below a watermark
+id, below every cursor, and journals it in ``retention_watermarks`` in
+the same transaction.  Each non-idle refresh reads the journal from its
+own cursor; each table's reader then evicts exactly the rows SQLite
+deleted (a per-rank buffer drops its prefix up to the watermark, a
+mixed-rank buffer filters by (rank, id)), so the held windows equal a
+cold load of the pruned database.  A journal row naming a rollup source
+table is the ``rollup`` domain's change signal (its fold committed with
+the prune); ``has_rollups``, ``stitched_series`` (cached per rollup and
+raw-domain version) and ``stitched_overview`` read the tiers through
+``reporting/tiers.py``.  Accumulated identity sets (topology) never
+shrink on a trim.
 
 Left out against the JAX store, with the port's queues that bring them:
-the retention-trim handling (the port's writer prunes nothing yet,
-ROADMAP queue 1 item 2(f)), the columnar, incremental and vector window
-engines (queue 1 item 3: the windows here are built by the scalar arm,
-``utils/step_time_window.py``, which the JAX package treats as the
-reference), the collectives, serving and mesh-topology tables (queue 1
-items 4 and 5) and the stitched rollup reads (item 2(f)).
+the ``MIN(id)`` trim detection for databases recorded before the journal
+existed (every database the port writes has it), the columnar,
+incremental and vector window engines (queue 1 item 4: the windows here
+are built by the scalar arm, ``utils/step_time_window.py``, which the
+JAX package treats as the reference) and the collectives, serving and
+mesh-topology tables (queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from collections import deque
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
+from traceml_tpu_torch.aggregator.rollup import ROLLUP_SOURCES
 from traceml_tpu_torch.utils.error_log import get_error_log
 from traceml_tpu_torch.utils.step_time_window import StepTimeWindow, build_step_time_window
 
@@ -47,7 +63,8 @@ _READ_PRAGMAS = (
 )
 
 # domains exposed through per-domain versions (what dirty-gating keys on)
-DOMAINS = ("step_time", "step_memory", "system", "process", "stdout", "model_stats", "topology")
+DOMAINS = ("step_time", "step_memory", "system", "process", "stdout", "model_stats", "topology", "rollup")
+_ROLLUP_SOURCE_SET = frozenset(ROLLUP_SOURCES)
 
 # the JAX store's bounds: system and process rows over all nodes and
 # ranks, the stdout tail, model_stats declarations
@@ -60,6 +77,51 @@ _MODEL_STATS_COLS = (
     "id", "global_rank", "flops_per_step", "flops_source", "device_kind", "peak_flops",
     "device_count", "tokens_per_step",
 )
+
+
+class _RankBuffer:
+    """Bounded row window whose ids, ranks and rows evict in lockstep
+    (one ``maxlen``), so a retention trim can drop exactly the rows
+    SQLite dropped."""
+
+    __slots__ = ("ids", "ranks", "rows")
+
+    def __init__(self, maxlen: int) -> None:
+        self.ids: deque = deque(maxlen=maxlen)
+        self.ranks: deque = deque(maxlen=maxlen)
+        self.rows: deque = deque(maxlen=maxlen)
+
+    def append(self, row_id: int, rank: Optional[int], row: Any) -> None:
+        self.ids.append(row_id)
+        self.ranks.append(rank)
+        self.rows.append(row)
+
+    def evict_below(self, min_id: int) -> bool:
+        """Prefix eviction for a single-rank buffer."""
+        changed = False
+        while self.ids and self.ids[0] < min_id:
+            self.ids.popleft()
+            self.ranks.popleft()
+            self.rows.popleft()
+            changed = True
+        return changed
+
+    def filter_watermarks(self, watermarks: Dict[int, int]) -> bool:
+        """Drop every held row at or below its rank's watermark; ranks
+        the journal does not name keep all their rows."""
+        keep = [
+            (i, rk, rw)
+            for i, rk, rw in zip(self.ids, self.ranks, self.rows)
+            if rk not in watermarks or i > watermarks[rk]
+        ]
+        if len(keep) == len(self.ids):
+            return False
+        self.ids.clear()
+        self.ranks.clear()
+        self.rows.clear()
+        for i, rk, rw in keep:
+            self.append(i, rk, rw)
+        return True
 
 
 class _TopologySource:
@@ -107,17 +169,22 @@ class LiveSnapshotStore:
         self._versions: Dict[str, int] = {d: 0 for d in DOMAINS}
         self._cursors: Dict[str, int] = {}
         self._tables_seen: Set[str] = set()
+        # table → {rank: trim watermark} from the journal, consumed by the
+        # table's reader (kept across a failed read: applied on the retry)
+        self._pending_trims: Dict[str, Dict[int, int]] = {}
+        self._rollup_dirty = False
+        self._stitched_cache: Dict[Tuple, Tuple[Tuple[int, ...], Any]] = {}
         # step_time / step_memory: per-rank bounded windows
-        self._step_time: Dict[int, deque] = {}
-        self._step_memory: Dict[int, deque] = {}
+        self._step_time: Dict[int, _RankBuffer] = {}
+        self._step_memory: Dict[int, _RankBuffer] = {}
         # system / process / stdout / model_stats: globally bounded
         # (loader semantics); system and process rows are (key, row)
-        self._system_host: deque = deque(maxlen=_SYSTEM_ROWS)
-        self._system_dev: deque = deque(maxlen=_SYSTEM_ROWS)
-        self._process: deque = deque(maxlen=_PROCESS_ROWS)
-        self._process_dev: deque = deque(maxlen=_PROCESS_ROWS)
-        self._stdout: deque = deque(maxlen=_STDOUT_ROWS)
-        self._model_stats: deque = deque(maxlen=_MODEL_STATS_ROWS)
+        self._system_host = _RankBuffer(_SYSTEM_ROWS)
+        self._system_dev = _RankBuffer(_SYSTEM_ROWS)
+        self._process = _RankBuffer(_PROCESS_ROWS)
+        self._process_dev = _RankBuffer(_PROCESS_ROWS)
+        self._stdout = _RankBuffer(_STDOUT_ROWS)
+        self._model_stats = _RankBuffer(_MODEL_STATS_ROWS)
         self._topology: Dict[str, _TopologySource] = {
             "step_time_samples": _TopologySource(),
             "process_samples": _TopologySource(),
@@ -191,6 +258,10 @@ class LiveSnapshotStore:
                 return False
             if self._primed and db_dv == self._last_db_dv:
                 return False
+            try:
+                self._read_watermark_journal(conn)
+            except sqlite3.Error as exc:
+                get_error_log().warning("snapshot refresh failed for retention_watermarks", exc)
             dirty: Set[str] = set()
             clean_scan = True
             readers: Tuple[Tuple[str, Callable, str], ...] = (
@@ -212,6 +283,11 @@ class LiveSnapshotStore:
                 except sqlite3.Error as exc:
                     get_error_log().warning(f"snapshot refresh failed for {table}", exc)
                     clean_scan = False
+            if self._rollup_dirty:
+                # a fold commits with its prune's journal row, so the
+                # journal naming a rollup source is the tiers' change
+                dirty.add("rollup")
+                self._rollup_dirty = False
             if clean_scan:
                 # only mark the DB state consumed when every table read
                 # cleanly: a busy or locked table retries next tick
@@ -246,6 +322,38 @@ class LiveSnapshotStore:
             self._cursors[table] = max(max(r["id"] for r in rows), self._cursors.get(table, 0))
         return rows
 
+    def _read_watermark_journal(self, conn: sqlite3.Connection) -> None:
+        """The writer's prunes since the last refresh: per table, the
+        highest watermark of each rank, held until the table's reader
+        applies it."""
+        if not self._table_exists(conn, "retention_watermarks"):
+            return
+        rows = self._fetch(conn, "retention_watermarks", "id, table_name, global_rank, watermark_id", "id")
+        for r in rows:
+            table = str(r["table_name"])
+            trims = self._pending_trims.setdefault(table, {})
+            rank, wm = int(r["global_rank"]), int(r["watermark_id"])
+            if wm > trims.get(rank, -1):
+                trims[rank] = wm
+            if table in _ROLLUP_SOURCE_SET:
+                self._rollup_dirty = True
+
+    def _apply_trims(self, table: str, rank_bufs: Optional[Dict[int, _RankBuffer]] = None,
+                     flat_buf: Optional[_RankBuffer] = None) -> bool:
+        """Evict exactly the rows the writer's prunes of ``table`` deleted."""
+        watermarks = self._pending_trims.pop(table, None)
+        if not watermarks:
+            return False
+        changed = False
+        if rank_bufs is not None:
+            for rank, wm in watermarks.items():
+                buf = rank_bufs.get(rank)
+                if buf is not None:
+                    changed |= buf.evict_below(wm + 1)
+        if flat_buf is not None:
+            changed |= flat_buf.filter_watermarks(watermarks)
+        return changed
+
     # -- per-table readers ----------------------------------------------
 
     def _read_step_time(self, conn, table, dirty) -> bool:
@@ -266,15 +374,15 @@ class LiveSnapshotStore:
             rank = int(r["global_rank"])
             buf = self._step_time.get(rank)
             if buf is None:
-                buf = self._step_time[rank] = deque(maxlen=self.window_steps)
-            buf.append({
+                buf = self._step_time[rank] = _RankBuffer(self.window_steps)
+            buf.append(r["id"], rank, {
                 "step": r["step"],
                 "timestamp": r["timestamp"],
                 "clock": r["clock"],
                 "late_markers": r["late_markers"],
                 "events": events,
             })
-        return bool(rows)
+        return self._apply_trims(table, rank_bufs=self._step_time) or bool(rows)
 
     def _read_step_memory(self, conn, table, dirty) -> bool:
         rows = self._fetch(
@@ -287,20 +395,20 @@ class LiveSnapshotStore:
             rank = int(r["global_rank"])
             buf = self._step_memory.get(rank)
             if buf is None:
-                buf = self._step_memory[rank] = deque(maxlen=self.memory_rows_per_rank)
+                buf = self._step_memory[rank] = _RankBuffer(self.memory_rows_per_rank)
             row = dict(r)
             del row["id"], row["global_rank"]
-            buf.append(row)
-        return bool(rows)
+            buf.append(r["id"], rank, row)
+        return self._apply_trims(table, rank_bufs=self._step_memory) or bool(rows)
 
-    def _read_keyed(self, conn, table, buf: deque, key_fn, dirty: Set[str]) -> bool:
+    def _read_keyed(self, conn, table, buf: _RankBuffer, key_fn, dirty: Set[str]) -> bool:
         rows = self._fetch(conn, table, "*", "id")
         topo = self._topology.get(table)
         for r in rows:
             if topo is not None and topo.update(r["global_rank"], r["node_rank"], r["hostname"], r["world_size"]):
                 dirty.add("topology")
-            buf.append((key_fn(r), dict(r)))
-        return bool(rows)
+            buf.append(r["id"], int(r["global_rank"]), (key_fn(r), dict(r)))
+        return self._apply_trims(table, flat_buf=buf) or bool(rows)
 
     def _read_system_host(self, conn, table, dirty) -> bool:
         return self._read_keyed(conn, table, self._system_host, lambda r: int(r["node_rank"]), dirty)
@@ -320,34 +428,36 @@ class LiveSnapshotStore:
 
     def _read_stdout(self, conn, table, dirty) -> bool:
         rows = self._fetch(conn, table, "id, global_rank, stream, line", "id")
-        self._stdout.extend((r["stream"], r["line"]) for r in rows)
-        return bool(rows)
+        for r in rows:
+            self._stdout.append(r["id"], int(r["global_rank"]), (r["stream"], r["line"]))
+        return self._apply_trims(table, flat_buf=self._stdout) or bool(rows)
 
     def _read_model_stats(self, conn, table, dirty) -> bool:
         rows = self._fetch(conn, table, ", ".join(_MODEL_STATS_COLS), "id")
-        self._model_stats.extend(dict(r) for r in rows)
-        return bool(rows)
+        for r in rows:
+            self._model_stats.append(r["id"], int(r["global_rank"]), dict(r))
+        return self._apply_trims(table, flat_buf=self._model_stats) or bool(rows)
 
     # -- accessors (loader-shaped) --------------------------------------
 
     def step_time_rows(self) -> Dict[int, List[Dict[str, Any]]]:
         """global_rank → decoded step rows (``loaders.load_step_time_rows``)."""
         with self._lock:
-            return {rank: list(buf) for rank, buf in sorted(self._step_time.items()) if buf}
+            return {rank: list(buf.rows) for rank, buf in sorted(self._step_time.items()) if buf.rows}
 
     def step_memory_rows(self) -> Dict[int, List[Dict[str, Any]]]:
         with self._lock:
-            return {rank: list(buf) for rank, buf in sorted(self._step_memory.items()) if buf}
+            return {rank: list(buf.rows) for rank, buf in sorted(self._step_memory.items()) if buf.rows}
 
     def has_step_time_rows(self) -> bool:
         with self._lock:
-            return any(self._step_time.values())
+            return any(buf.rows for buf in self._step_time.values())
 
     def latest_step_time_ts(self) -> Optional[float]:
         """The newest row's timestamp over the ranks (the freshness stamp
         the live step-time view displays)."""
         with self._lock:
-            vals = [buf[-1].get("timestamp") or 0.0 for buf in self._step_time.values() if buf]
+            vals = [buf.rows[-1].get("timestamp") or 0.0 for buf in self._step_time.values() if buf.rows]
         return max(vals) if vals else None
 
     def build_step_time_window(self, max_steps: Optional[int] = None) -> Optional[StepTimeWindow]:
@@ -357,9 +467,9 @@ class LiveSnapshotStore:
         return build_step_time_window(self.step_time_rows(), max_steps=limit)
 
     @staticmethod
-    def _group(buf: deque) -> Dict[Any, List[Dict[str, Any]]]:
+    def _group(buf: _RankBuffer) -> Dict[Any, List[Dict[str, Any]]]:
         out: Dict[Any, List[Dict[str, Any]]] = {}
-        for key, row in buf:
+        for key, row in buf.rows:
             out.setdefault(key, []).append(row)
         return out
 
@@ -373,7 +483,7 @@ class LiveSnapshotStore:
 
     def stdout_tail(self, n: int = 12) -> List[Tuple[str, str]]:
         with self._lock:
-            rows = list(self._stdout)
+            rows = list(self._stdout.rows)
         return rows[-int(n):]
 
     def model_stats(self) -> Dict[int, Dict[str, Any]]:
@@ -381,7 +491,7 @@ class LiveSnapshotStore:
         and tokens over the recent declarations, the newest row's
         source, device kind and peak."""
         with self._lock:
-            rows = list(self._model_stats)
+            rows = list(self._model_stats.rows)
         out: Dict[int, Dict[str, Any]] = {}
         per_rank_flops: Dict[int, List[float]] = {}
         per_rank_tokens: Dict[int, List[float]] = {}
@@ -429,3 +539,61 @@ class LiveSnapshotStore:
             self._topology_cache = out
             self._topology_cache_version = self._versions["topology"]
             return out
+
+    # -- stitched rollup reads (reporting/tiers.py) ----------------------
+
+    def has_rollups(self) -> bool:
+        """Whether the database holds folded history: the gate of the
+        history fragment and the final report's ``history`` block."""
+        from traceml_tpu_torch.reporting import tiers
+
+        with self._lock:
+            conn = self._conn
+            if conn is None:
+                return False
+            try:
+                return tiers.has_rollups(conn)
+            except sqlite3.Error:
+                return False
+
+    def stitched_series(self, source_table: str, metric: str, grain: str = "rank") -> Dict[str, List[Dict[str, Any]]]:
+        """Full-run series (raw tail, 10 s and 1 m tiers) per grain key,
+        cached per (rollup version, raw-domain version)."""
+        from traceml_tpu_torch.reporting import tiers
+
+        domain = source_table.replace("_samples", "")
+        with self._lock:
+            conn = self._conn
+            if conn is None:
+                return {}
+            vkey = (self._versions.get("rollup", 0), self._versions.get(domain, 0))
+            ckey = (source_table, metric, grain)
+            hit = self._stitched_cache.get(ckey)
+            if hit is not None and hit[0] == vkey:
+                return hit[1]
+            try:
+                result = tiers.load_stitched_series(conn, source_table, metric, grain=grain)
+            except sqlite3.Error as exc:
+                get_error_log().warning(f"stitched read failed for {source_table}/{metric}", exc)
+                return {}
+            self._stitched_cache[ckey] = (vkey, result)
+            return result
+
+    def stitched_overview(self) -> Dict[str, Any]:
+        """Per source, the stitched series of every served metric (the
+        shape of the final report's ``history`` block); {} without
+        rollups."""
+        from traceml_tpu_torch.reporting import tiers
+
+        if not self.has_rollups():
+            return {}
+        out: Dict[str, Any] = {}
+        for source in ROLLUP_SOURCES:
+            per_metric = {}
+            for metric in tiers.SOURCE_METRICS.get(source, ()):
+                series = self.stitched_series(source, metric)
+                if series:
+                    per_metric[metric] = series
+            if per_metric:
+                out[source.replace("_samples", "")] = per_metric
+        return out

@@ -8,15 +8,30 @@ thread at ``sampler_interval_sec`` and, when the settings name an
 aggregator port, the TCP client and the publisher, whose failed sends
 wait in ``rank_dir(rank)/"spool"`` for the aggregator to come back.  In
 the ``cli`` and ``dashboard`` modes it also tees the script's stdout and
-stderr through a :class:`StreamCapture`, which the stdout/stderr sampler
-drains, as the JAX runtime does.  Every tick samples, and publishes when
-there is a publisher; each tick is the ``rank.tick`` chaos point
-(``dev/chaos.py``).  Lifecycle: start (capture first, so the samplers see
-the script's first line) → tick loop → stop (join the thread, final
-drain, final publish with the ``rank_finished`` marker, restore the
-streams, close the spool and the client, stop the marker resolver).
-Without a port nothing is collected or encoded for sending: the rows stay
-in each sampler's ``Database``.
+stderr (stdout only under ``--no-capture-stderr``) through a
+:class:`StreamCapture`, which the stdout/stderr sampler drains, as the
+JAX runtime does.  Each tick is the ``rank.tick`` chaos point
+(``dev/chaos.py``).
+
+The recording lifecycle (``runtime/state.py``), as in JAX: with
+``trace_max_steps`` N the flush of step N moves RECORDING to DRAINING.
+While RECORDING every tick samples every sampler and publishes.  The
+first DRAINING tick drains only the drain-on-stop samplers (step_time,
+step_memory: the steps flushed so far, past N too), moves to COMPLETE
+and publishes with the send-once ``rank_finished`` marker; from then on
+the rank samples and publishes nothing, while the script trains on.
+At stop the final drain runs as in JAX: every sampler drains once more
+and the final publish ships what it collected, the steps flushed after
+the drain tick among it (the SDK keeps tracing after the cap).
+
+Lifecycle: start (capture first, so the samplers see the script's first
+line) → tick loop → stop (join the thread, final drain, final publish
+with ``rank_finished`` unless it went already, restore the streams, the
+samplers' last backup flush, close the spool and the client, stop the
+marker resolver).  With an aggregator port or ``disk_backup`` the
+publisher collects and encodes each tick's rows (a backup without a port
+is written but not sent); with neither, the rows stay in each sampler's
+``Database``.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ from traceml_tpu_torch.runtime.identity import resolve_runtime_identity
 from traceml_tpu_torch.runtime.sampler_registry import build_samplers
 from traceml_tpu_torch.runtime.sender import TelemetryPublisher
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
+from traceml_tpu_torch.runtime.state import COMPLETE, DRAINING, RECORDING, RecordingState
 from traceml_tpu_torch.runtime.stdout_capture import CAPTURE_MODES, StreamCapture
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 from traceml_tpu_torch.sdk.state import get_state
@@ -42,13 +58,17 @@ class TraceMLRuntime:
         self.settings = settings or TraceMLSettings()
         self.runtime_identity = resolve_runtime_identity()
         self.identity = self.runtime_identity.to_sender_identity(self.settings.session_id)
-        self.capture: Optional[StreamCapture] = StreamCapture() if self.settings.mode in CAPTURE_MODES else None
+        self.recording = RecordingState(self.settings.trace_max_steps)
+        self.capture: Optional[StreamCapture] = None
+        if self.settings.mode in CAPTURE_MODES:
+            self.capture = StreamCapture(capture_stderr=self.settings.capture_stderr)
         self.samplers: List[BaseSampler] = []
         self.client: Optional[TCPClient] = None
         self.publisher: Optional[TelemetryPublisher] = None
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         self._started = False
+        self._finished_sent = False
         self._lock = threading.Lock()
 
     def start(self) -> None:
@@ -62,12 +82,14 @@ class TraceMLRuntime:
         agg = self.settings.aggregator
         if agg.port:
             self.client = TCPClient(agg.connect_host, agg.port)
+        if self.client is not None or self.settings.disk_backup:
             # failed sends wait in the rank's replay spool for the
             # (restarted) aggregator, which drops what it holds by seq
             self.publisher = TelemetryPublisher(
                 self.samplers, self.client, self.identity,
                 spool_dir=self.settings.rank_dir(self.identity.global_rank) / "spool",
             )
+        get_state().on_step_flushed.append(self.recording.on_step_flushed)
         self._stop_evt.clear()
         self._thread = threading.Thread(target=self._sampler_loop, name="traceml-runtime", daemon=True)
         self._thread.start()
@@ -87,10 +109,16 @@ class TraceMLRuntime:
             get_error_log().warning("final drain failed", exc)
         if self.capture is not None:
             self.capture.stop()
+        for s in self.samplers:
+            s.stop()
         if self.publisher is not None:
             self.publisher.close()
         if self.client is not None:
             self.client.close()
+        try:
+            get_state().on_step_flushed.remove(self.recording.on_step_flushed)
+        except ValueError:
+            pass
         from traceml_tpu_torch.utils.marker_resolver import get_marker_resolver
 
         get_marker_resolver().stop()
@@ -98,13 +126,33 @@ class TraceMLRuntime:
     def sampler(self, name: str) -> Optional[BaseSampler]:
         return next((s for s in self.samplers if s.name == name), None)
 
+    def _take_rank_finished(self) -> Optional[list]:
+        """The send-once ``rank_finished`` marker, or None once taken (the
+        tick thread and the final drain can race when the join times
+        out)."""
+        with self._lock:
+            if self._finished_sent:
+                return None
+            self._finished_sent = True
+        return [build_rank_finished(self.identity.to_meta())]
+
     def _tick(self) -> None:
         if chaos.active():
             chaos.fire("rank.tick")  # a kill9 rule ends the process inside fire()
-        for s in self.samplers:
-            s.sample()
-        if self.publisher is not None:
-            self.publisher.publish()
+        phase = self.recording.phase
+        if phase == RECORDING:
+            for s in self.samplers:
+                s.sample()
+        elif phase == DRAINING:
+            for s in self.samplers:
+                if getattr(getattr(s, "_spec", None), "drain_on_recording_stop", False):
+                    s.drain()
+            self.recording.mark_drained()
+        extra = None
+        if self.recording.phase == COMPLETE:
+            extra = self._take_rank_finished()
+        if self.publisher is not None and (self.recording.phase != COMPLETE or extra):
+            self.publisher.publish(extra)
 
     def _sampler_loop(self) -> None:
         interval = max(0.05, self.settings.sampler_interval_sec)
@@ -126,7 +174,8 @@ class TraceMLRuntime:
         for s in self.samplers:
             s.drain()
         if self.publisher is not None:
-            self.publisher.publish([build_rank_finished(self.identity.to_meta())], final=True)
+            # final=True forces every backup writer out, throttled or not
+            self.publisher.publish(self._take_rank_finished(), final=True)
 
 
 class NoOpRuntime:

@@ -1,9 +1,11 @@
 """Telemetry publisher.
 
-Counterpart of ``traceml_tpu/runtime/sender.py`` without the disk
-backup and compression.  Per tick: collect each sampler's incremental
-payload, stamp it with the rank's next ``seq``, encode it once, and ship
-the whole tick as ONE frame.
+Counterpart of ``traceml_tpu/runtime/sender.py`` without compression.
+Per tick: collect each sampler's incremental payload, stamp it with the
+rank's next ``seq``, encode it once, hand the same encoded bytes to the
+sampler's disk-backup writer (a v2 frame; nothing is written without
+``--disk-backup``) and ship the whole tick as ONE frame.  Without a
+client (no aggregator port, a backup only) the backup is all it feeds.
 
 Fault tolerance, as in JAX: with a spool directory (the runtime gives
 ``rank_dir(rank)/"spool"``) every batch goes through
@@ -26,9 +28,9 @@ drains its spool as soon as the link heals.
 
 The publisher observes itself: per sampler the envelopes, bytes and the
 nanoseconds spent collecting and encoding; per run the nanoseconds spent
-handing frames to the socket (``flush_us``: the port has no disk backup,
-so the socket send is the tick's flush) and the number of sends that
-time covers (``flushes``), the idle-tick count, the codec, the client's
+handing frames to the socket (``flush_us``) and the number of sends that
+time covers (``flushes``), per sampler the microseconds of its backup
+writes (``backup_us``), the idle-tick count, the codec, the client's
 counters and the spool's (``reconnects``, ``replayed_envelopes``,
 ``spool_bytes``, ...).  A ``producer_stats`` message rides in the batch it
 reports on, so its own send is in neither ``flush_us`` nor ``flushes``:
@@ -73,7 +75,7 @@ class TelemetryPublisher:
     def __init__(
         self,
         samplers: List[BaseSampler],
-        client: TCPClient,
+        client: Optional[TCPClient],
         identity: SenderIdentity,
         spool_dir: Optional[Path] = None,
     ) -> None:
@@ -81,7 +83,7 @@ class TelemetryPublisher:
         self._client = client
         self._identity = identity
         self._durable: Optional[DurableSender] = None
-        if spool_dir is not None:
+        if client is not None and spool_dir is not None:
             try:
                 self._durable = DurableSender(client, ReplaySpool(spool_dir))
             except Exception as exc:
@@ -100,7 +102,7 @@ class TelemetryPublisher:
         # resumes above every seq its previous incarnation stamped
         self._seq = time.time_ns()
         self._sampler_stats: Dict[str, Dict[str, int]] = {
-            s.name: {"envelopes": 0, "bytes": 0, "collect_ns": 0, "encode_ns": 0}
+            s.name: {"envelopes": 0, "bytes": 0, "collect_ns": 0, "encode_ns": 0, "backup_ns": 0}
             for s in samplers
         }
 
@@ -111,7 +113,8 @@ class TelemetryPublisher:
     def publish(self, extra_payloads: Optional[List[Dict[str, Any]]] = None, final: bool = False) -> int:
         """Collect and send one tick; returns the payloads in the batch."""
         self.ticks += 1
-        if not final and not extra_payloads and not any(s.sender.dirty() for s in self._samplers):
+        if not final and not extra_payloads and not any(
+                s.sender.dirty() or s.writer.has_pending() for s in self._samplers):
             self.idle_ticks += 1
             self._maybe_heartbeat()
             return 0
@@ -124,14 +127,21 @@ class TelemetryPublisher:
                 payload = s.sender.collect_payload()
                 t1 = perf()
                 st["collect_ns"] += t1 - t0
-                if payload is None:
+                if payload is not None:
+                    self._stamp_seq(payload)
+                    enc = msgpack_codec.preencode(payload)
+                    st["encode_ns"] += perf() - t1
+                    st["envelopes"] += 1
+                    st["bytes"] += enc.size()
+                    batch.append(enc)
+                    s.writer.append_envelope(enc)
+                elif not (final or s.writer.has_pending()):
                     continue
-                self._stamp_seq(payload)
-                enc = msgpack_codec.preencode(payload)
-                st["encode_ns"] += perf() - t1
-                st["envelopes"] += 1
-                st["bytes"] += enc.size()
-                batch.append(enc)
+                # the backup's flush throttle runs on every tick that has
+                # something for it, and a final publish forces it out
+                t2 = perf()
+                s.writer.flush(force=final)
+                st["backup_ns"] += perf() - t2
             except Exception as exc:
                 get_error_log().warning(f"collect failed for sampler {s.name}", exc)
         for p in extra_payloads or ():
@@ -142,7 +152,7 @@ class TelemetryPublisher:
             msg = build_producer_stats(self._identity.to_meta(), self.stats())
             self._stamp_seq(msg)
             batch.append(msg)
-        if batch:
+        if batch and self._client is not None:
             t0 = perf()
             if self._durable is not None:
                 sent = self._durable.send(batch)
@@ -158,6 +168,8 @@ class TelemetryPublisher:
         return len(batch)
 
     def _maybe_heartbeat(self) -> None:
+        if self._client is None:
+            return
         now = time.monotonic()
         if now - self._last_heartbeat < self._heartbeat_interval:
             return
@@ -176,7 +188,7 @@ class TelemetryPublisher:
     def stats(self) -> Dict[str, Any]:
         """Per-sampler producer cost (microseconds), idle ratio, codec and
         the client's counters."""
-        return {
+        out: Dict[str, Any] = {
             "ticks": self.ticks,
             "idle_ticks": self.idle_ticks,
             "idle_ratio": (self.idle_ticks / self.ticks) if self.ticks else 0.0,
@@ -190,14 +202,17 @@ class TelemetryPublisher:
                     "bytes": st["bytes"],
                     "collect_us": st["collect_ns"] // 1000,
                     "encode_us": st["encode_ns"] // 1000,
+                    "backup_us": st["backup_ns"] // 1000,
                 }
                 for name, st in self._sampler_stats.items()
             },
-            "transport": {
+        }
+        if self._client is not None:
+            out["transport"] = {
                 "kind": self._client.kind,
                 "reconnects": self._client.reconnects,
                 "batches_sent": self._client.batches_sent,
                 "batches_dropped": self._client.batches_dropped,
                 **(self._durable.stats() if self._durable is not None else {}),
-            },
-        }
+            }
+        return out

@@ -1,8 +1,14 @@
 """Frozen run settings and the ``TRACEML_*`` environment contract.
 
 Counterpart of ``traceml_tpu/runtime/settings.py``, trimmed to what the
-TCP transport and the ``summary`` and ``cli`` modes use (no disk backup,
-``TRACEML_CAPTURE_STDERR`` opt-out, max-steps, retention, serving or transport-tier fields yet).  The mode
+TCP transport and the three display modes use (no serving or
+transport-tier fields: the port has neither tier yet).  It carries the
+bounded-run fields with the JAX defaults and variable names:
+``trace_max_steps`` (``TRACEML_TRACE_MAX_STEPS``, unset = every step),
+``disk_backup`` (``TRACEML_DISK_BACKUP``), ``capture_stderr``
+(``TRACEML_CAPTURE_STDERR``, on when unset) and
+``summary_window_rows`` (``TRACEML_SUMMARY_WINDOW_ROWS``, 10000: the
+SQLite writer keeps 1.5x that many rows per table and rank).  The mode
 defaults to ``summary`` here, where the JAX settings default to ``cli``:
 the launcher always names the mode (``cli`` by default, as the JAX
 launcher does), so the default only reaches a runtime started in process,
@@ -28,10 +34,14 @@ ENV_AGG_HOST = "TRACEML_AGGREGATOR_HOST"
 ENV_AGG_BIND_HOST = "TRACEML_AGGREGATOR_BIND_HOST"
 ENV_AGG_PORT = "TRACEML_AGGREGATOR_PORT"  # 0 = no aggregator: rows stay in the rank
 ENV_SAMPLER_INTERVAL = "TRACEML_SAMPLER_INTERVAL_SEC"
+ENV_MAX_STEPS = "TRACEML_TRACE_MAX_STEPS"
 ENV_DISABLE = "TRACEML_DISABLE"
+ENV_DISK_BACKUP = "TRACEML_DISK_BACKUP"
+ENV_CAPTURE_STDERR = "TRACEML_CAPTURE_STDERR"
 ENV_RUN_NAME = "TRACEML_RUN_NAME"
 ENV_EXPECTED_WORLD_SIZE = "TRACEML_EXPECTED_WORLD_SIZE"
 ENV_FINALIZE_TIMEOUT = "TRACEML_FINALIZE_TIMEOUT_SEC"
+ENV_SUMMARY_WINDOW_ROWS = "TRACEML_SUMMARY_WINDOW_ROWS"
 ENV_SCRIPT = "TRACEML_SCRIPT"
 ENV_SCRIPT_ARGS = "TRACEML_SCRIPT_ARGS"
 
@@ -55,10 +65,14 @@ class TraceMLSettings:
     mode: str = "summary"
     aggregator: AggregatorEndpoint = dataclasses.field(default_factory=AggregatorEndpoint)
     sampler_interval_sec: float = 1.0
+    trace_max_steps: Optional[int] = None
     disabled: bool = False
+    disk_backup: bool = False
+    capture_stderr: bool = True
     run_name: Optional[str] = None
     expected_world_size: Optional[int] = None
     finalize_timeout_sec: float = 300.0
+    summary_window_rows: int = 10000
 
     @property
     def session_dir(self) -> Path:
@@ -75,20 +89,25 @@ def _float(raw: Optional[str], fallback: float) -> float:
         return fallback
 
 
-def _int(raw: Optional[str], fallback: int) -> int:
+def _int(raw: Optional[str], fallback: Optional[int]) -> Optional[int]:
     try:
         return int(raw.strip()) if raw is not None else fallback
     except ValueError:
         return fallback
 
 
-def settings_from_env() -> TraceMLSettings:
-    """The child-side half of the contract.  Malformed numbers fall back
-    to their defaults: the environment must never keep a script from
-    running."""
-    e = os.environ
+def _truthy(raw: Optional[str]) -> bool:
+    return raw is not None and str(raw).strip().lower() in _TRUTHY
+
+
+def settings_from_env(env: Optional[Dict[str, str]] = None) -> TraceMLSettings:
+    """The child-side half of the contract, read from ``os.environ`` or
+    from ``env``.  Malformed numbers fall back to their defaults: the
+    environment must never keep a script from running."""
+    e = os.environ if env is None else env
     connect_host = e.get(ENV_AGG_HOST) or "127.0.0.1"
     expected_ws = _int(e.get(ENV_EXPECTED_WORLD_SIZE), 0)
+    max_steps = e.get(ENV_MAX_STEPS)
     return TraceMLSettings(
         session_id=e.get(ENV_SESSION_ID) or "local",
         logs_dir=Path(e.get(ENV_LOGS_DIR) or "./traceml_logs"),
@@ -99,10 +118,14 @@ def settings_from_env() -> TraceMLSettings:
             port=_int(e.get(ENV_AGG_PORT), 0),
         ),
         sampler_interval_sec=_float(e.get(ENV_SAMPLER_INTERVAL), 1.0),
-        disabled=str(e.get(ENV_DISABLE, "")).strip().lower() in _TRUTHY,
+        trace_max_steps=_int(max_steps, None) if max_steps else None,
+        disabled=_truthy(e.get(ENV_DISABLE)),
+        disk_backup=_truthy(e.get(ENV_DISK_BACKUP)),
+        capture_stderr=_truthy(e.get(ENV_CAPTURE_STDERR, "1")),
         run_name=e.get(ENV_RUN_NAME) or None,
         expected_world_size=expected_ws or None,
         finalize_timeout_sec=_float(e.get(ENV_FINALIZE_TIMEOUT), 300.0),
+        summary_window_rows=_int(e.get(ENV_SUMMARY_WINDOW_ROWS), 10000),
     )
 
 
@@ -116,10 +139,16 @@ def settings_to_env(s: TraceMLSettings) -> Dict[str, str]:
         ENV_AGG_BIND_HOST: s.aggregator.bind_host,
         ENV_AGG_PORT: str(s.aggregator.port),
         ENV_SAMPLER_INTERVAL: str(s.sampler_interval_sec),
+        ENV_CAPTURE_STDERR: "1" if s.capture_stderr else "0",
         ENV_FINALIZE_TIMEOUT: str(s.finalize_timeout_sec),
+        ENV_SUMMARY_WINDOW_ROWS: str(s.summary_window_rows),
     }
+    if s.trace_max_steps is not None:
+        env[ENV_MAX_STEPS] = str(s.trace_max_steps)
     if s.disabled:
         env[ENV_DISABLE] = "1"
+    if s.disk_backup:
+        env[ENV_DISK_BACKUP] = "1"
     if s.run_name:
         env[ENV_RUN_NAME] = s.run_name
     if s.expected_world_size is not None:

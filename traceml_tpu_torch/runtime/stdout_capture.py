@@ -1,8 +1,9 @@
 """stdout/stderr tee.
 
-Counterpart of ``traceml_tpu/runtime/stdout_capture.py`` (copied, less
-the ``capture_stderr`` switch: the port has no ``TRACEML_CAPTURE_STDERR``
-opt-out, so stderr is always teed, the JAX default).  The runtime
+Counterpart of ``traceml_tpu/runtime/stdout_capture.py`` (copied).
+stderr is teed unless ``capture_stderr`` is off (``--no-capture-stderr``,
+``TRACEML_CAPTURE_STDERR=0``): then it stays the process's own stream
+and none of its lines reach the display or ``stdout.log``.  The runtime
 installs it in the live modes only, ``CAPTURE_MODES`` (the JAX runtime's
 ``("cli", "dashboard")``): the rank-0 output panel of the CLI display
 and of the browser dashboard, and each rank's ``stdout.log``, are fed
@@ -23,12 +24,13 @@ class StreamCapture:
     """Tees sys.stdout/sys.stderr into a bounded in-memory buffer while
     passing everything through to the original streams."""
 
-    def __init__(self, max_lines: int = 2000) -> None:
+    def __init__(self, max_lines: int = 2000, capture_stderr: bool = True) -> None:
         self._max = max_lines
         self._lock = threading.Lock()
         self._lines: List[Tuple[str, str]] = []  # (stream, line)
         self._orig_stdout: Optional[object] = None
         self._orig_stderr: Optional[object] = None
+        self._capture_stderr = capture_stderr
 
     class _Tee:
         def __init__(self, orig, cap: "StreamCapture", label: str) -> None:
@@ -86,8 +88,9 @@ class StreamCapture:
             return
         self._orig_stdout = sys.stdout
         sys.stdout = self._Tee(sys.stdout, self, "stdout")
-        self._orig_stderr = sys.stderr
-        sys.stderr = self._Tee(sys.stderr, self, "stderr")
+        if self._capture_stderr:
+            self._orig_stderr = sys.stderr
+            sys.stderr = self._Tee(sys.stderr, self, "stderr")
 
     def stop(self) -> None:
         if self._orig_stdout is not None:

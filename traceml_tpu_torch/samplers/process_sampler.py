@@ -11,7 +11,8 @@ initialized CUDA itself: the sampler thread never initializes it.
 from __future__ import annotations
 
 import time
-from typing import Any
+from pathlib import Path
+from typing import Any, Optional
 
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 from traceml_tpu_torch.utils.step_memory import device_memory_rows
@@ -23,8 +24,8 @@ TABLE_DEVICE = "process_device"
 class ProcessSampler(BaseSampler):
     name = "process"
 
-    def __init__(self, memory_backend: Any = None) -> None:
-        super().__init__()
+    def __init__(self, memory_backend: Any = None, disk_backup_dir: Optional[Path] = None) -> None:
+        super().__init__(disk_backup_dir)
         self._backend_holder = {"backend": memory_backend}
         try:
             import psutil

@@ -3,14 +3,15 @@
 Counterpart of ``traceml_tpu/samplers/stdout_stderr_sampler.py``.  Drains
 the :class:`StreamCapture` buffer into ``stdout_stderr`` rows (the live
 display shows the global primary rank's output) and appends every rank's
-lines to its ``stdout.log``.  The port's samplers keep no disk backup, so
-the JAX ``disk_backup_dir`` argument has no counterpart.
+lines to its ``stdout.log``.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
+from typing import Optional
+
 from traceml_tpu_torch.runtime.stdout_capture import StreamCapture
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 
@@ -20,8 +21,9 @@ TABLE = "stdout_stderr"
 class StdoutStderrSampler(BaseSampler):
     name = "stdout_stderr"
 
-    def __init__(self, capture: StreamCapture, log_path: Path, mirror_to_db: bool) -> None:
-        super().__init__()
+    def __init__(self, capture: StreamCapture, log_path: Path, mirror_to_db: bool,
+                 disk_backup_dir: Optional[Path] = None) -> None:
+        super().__init__(disk_backup_dir)
         self._capture = capture
         self._log_path = Path(log_path)
         self._mirror = mirror_to_db

@@ -28,6 +28,7 @@ with the device's peak FLOP/s, the MFU inputs of the final report.
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
@@ -127,8 +128,9 @@ def _aggregate_step(
 class StepTimeSampler(BaseSampler):
     name = "step_time"
 
-    def __init__(self, resolve_timeout_s: float = _RESOLVE_TIMEOUT_S) -> None:
-        super().__init__()
+    def __init__(self, resolve_timeout_s: float = _RESOLVE_TIMEOUT_S,
+                 disk_backup_dir: Optional[Path] = None) -> None:
+        super().__init__(disk_backup_dir)
         self._pending: List[StepTimeBatch] = []
         self._resolve_timeout = resolve_timeout_s
         self._last_ready: Optional[float] = None  # cross-step device edge

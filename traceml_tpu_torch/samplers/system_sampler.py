@@ -94,8 +94,9 @@ class SystemSampler(BaseSampler):
     #: writing the manifest without the GPU inventory
     _MANIFEST_WAIT_SEC = 30.0
 
-    def __init__(self, manifest_path: Optional[Path] = None, memory_backend: Any = None) -> None:
-        super().__init__()
+    def __init__(self, manifest_path: Optional[Path] = None, memory_backend: Any = None,
+                 disk_backup_dir: Optional[Path] = None) -> None:
+        super().__init__(disk_backup_dir)
         self._manifest_path = manifest_path
         self._manifest_written = False
         self._manifest_degraded = False

@@ -6,13 +6,16 @@ the device the trace runs on: ``init(device=...)`` sets it; unset, it is
 CUDA, and resolving it raises when CUDA is absent.  And one TLS gate
 of its own, ``compute_depth``: open while ``wrap_step_fn``'s compute
 region runs, so that an auto-patched forward, backward or optimizer
-region inside it is not recorded a second time.
+region inside it is not recorded a second time.  As in JAX,
+``on_step_flushed`` holds callbacks called with the step number after
+every flush (the runtime's ``--trace-max-steps`` lifecycle); a raising
+callback is skipped.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 from traceml_tpu_torch.utils.device import resolve_device
 from traceml_tpu_torch.utils.step_memory import StepMemoryTracker, detect_backend
@@ -66,6 +69,8 @@ class TraceState:
         # tokens consumed by one training step (set_step_tokens): the
         # tokens/s numerator, independent of the FLOPs
         self.tokens_per_step: Optional[float] = None
+        # called with the step number after each flush (max-steps lifecycle)
+        self.on_step_flushed: List[Callable[[int], None]] = []
 
     # -- device ----------------------------------------------------------
     @property
@@ -127,6 +132,11 @@ class TraceState:
         batch = self.buffer.flush(step)
         if batch is not None:
             GLOBAL_STEP_QUEUE.put(batch)
+        for cb in list(self.on_step_flushed):
+            try:
+                cb(step)
+            except Exception:
+                pass
         return batch
 
 

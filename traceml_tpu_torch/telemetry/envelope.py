@@ -274,6 +274,10 @@ class TelemetryEnvelope:
         merged.update(self._rows)
         return merged
 
+    def table_names(self) -> List[str]:
+        """Row-list tables first, then the columnar ones (the JAX order)."""
+        return list(self._rows) + [k for k in self._columns if k not in self._rows]
+
     def column_view(self, name: str) -> Optional[ColumnView]:
         """Columnar view of one table, or None when absent."""
         ct = self._columns.get(name)
