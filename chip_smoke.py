@@ -5,7 +5,11 @@
 
 1. Builds every CUDA kernel of the port from ``traceml_tpu_torch/csrc``.
    It prints what ``ptxas`` says of each instantiation: registers,
-   shared memory, spills and warnings.
+   shared memory, spills and warnings.  Then it builds the transport
+   tier's two C extensions (``traceml_tpu_torch/native/{framing,ring}.c``)
+   and logs their paths and build times; a failed build or load, or
+   ``TRACEML_NO_NATIVE``, fails the run (the port itself would fall back
+   to the Python twins).
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card (bf16 at the main-path shape, at head_dim 128, at S=4096, with
    more (batch, head) pairs than SMs, at S=1088 with a ragged last tile
@@ -52,8 +56,16 @@
    fall in its loop), then with a host input delay of 3× the in-process
    step at the default 1 s tick.  The
    launcher spawns the aggregator and one rank; the rank runs the
-   full-width loop through the kernel and ships its rows over TCP; the
-   aggregator stores them in SQLite and writes ``final_summary.json``.
+   full-width loop through the kernel and ships its rows through its
+   shared-memory ring (the default transport on one host); the aggregator
+   stores them in SQLite and writes ``final_summary.json``.  Every ``run``
+   call of every phase below is held to ``check_transport``: all its
+   frames by the expected transport (``shm`` unless the phase pins
+   another), every rank's ``transport_hello`` naming it with the expected
+   codec and no fallback, and no ring segment, descriptor or Unix socket
+   of the session left once the launcher exits.  The healthy forward runs
+   once more pinned to ``tcp`` (``TRACEML_TRANSPORT=tcp``), its step
+   reported against the ring's, not gated (the host paces the forward).
    Gates: the summary's step-time section on the device clock with at
    least 50 steps, its step-memory section with a positive peak, one
    ``step_time_samples`` row per traced step, the manifest ``completed``
@@ -134,7 +146,14 @@
    and the restart inside the loop.  Reported:
    the kill's step, the time from the launcher's notice to the new ready
    file, reconnects, replayed envelopes, spool bytes, replay duplicates,
-   and the step against the healthy run's.
+   and the step against the healthy run's.  The phase runs twice: over
+   the shm ring (the default; also no ring-full drop: the restarted
+   aggregator re-attaches the ring and drains its uncommitted window
+   again) and pinned to ``tcp``.  Then ``transport_run_phase``: the
+   healthy train run over the Unix socket with zstd envelope compression
+   (zlib where ``libzstd.so.1`` does not load), held to the healthy train
+   gates, every frame over ``uds``, compressed envelopes restored with no
+   error; its compression ratio and step against the healthy run's.
 
 10. A long run kept bounded (``bounded_run_phase``): ``run --mode cli``
    of ``train_script.py`` at full width for ``BOUNDED_STEPS`` steps with
@@ -153,6 +172,14 @@
    the launcher's stderr and nowhere in the captured output.  Reported:
    the step against the healthy ``summary`` train run's, backup bytes per
    step, prune counts and p99, tier rows, the read commands' wall time.
+
+11. The transport tier in process (``transport_phase``): every envelope
+   of the bounded run's disk backup, one a frame, through each arm of
+   ``traceml_tpu_torch/dev/transport_bench.py`` (tcp with the C and the
+   Python frame split, uds, shm with ``ring.c`` and the Python twin,
+   tcp with zstd and with zlib), each arm's decoded list gated equal to
+   the backup's envelopes; frames/s, MB/s, native over Python, shm over
+   tcp, and each codec's µs an envelope and ratio reported.
 
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -799,14 +826,18 @@ def remat_train_phase(cfg, train: dict) -> dict:
 
 def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py",
                steps: int = STEPS, script_args=(), launcher_args=(), env_extra=None,
-               expect_ok: bool = True, mode: str = "summary", probe=None) -> dict:
+               expect_ok: bool = True, mode: str = "summary", probe=None, transport: str = "shm",
+               codec=None) -> dict:
     """One ``python -m traceml_tpu_torch run --mode <mode>`` call of a
     ``dev/`` script; returns its session's artifacts, its system, process,
     step-memory (and in the live modes stdout) rows, the launcher's output
     and the call's wall time.  The call must exit 0, or, with
     ``expect_ok=False``, must not.  Every call's ``final_summary.html`` is
-    held to ``check_html``.  A ``probe`` (``DashboardProbe``) runs on a
-    thread beside the call, from its start to its end."""
+    held to ``check_html``, and its telemetry's path to
+    ``check_transport``: ``transport`` (the default ``shm``, the ring that
+    ``auto`` picks on one host) with ``codec``.  A ``probe``
+    (``DashboardProbe``) runs on a thread beside the call, from its start
+    to its end."""
     logs = RUN_DIR / name
     shutil.rmtree(logs, ignore_errors=True)
     argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", mode,
@@ -864,11 +895,34 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
         conn.close()
     summary = read("final_summary.json")
     html_gate = check_html(name, session, summary)
+    ingest = read("ingest_stats.json")
     return {"summary": summary, "html": html_gate, "manifest": read("manifest.json"),
-            "ingest": read("ingest_stats.json"),
+            "ingest": ingest, "transport": check_transport(name, session, ingest, transport, codec),
             "system_manifest": read("system_manifest.json", required=expect_ok),
             "rows": rows, "tables": tables, "stdout": out, "stderr": err, "wall_s": wall_s, "steps": steps,
             "mode": mode, "session": session, "interval_s": interval_s}
+
+
+def check_transport(name: str, session: Path, ingest: dict, kind: str, codec) -> dict:
+    """The transport gates on one call: every frame came by ``kind`` (and
+    some did), every rank's ``transport_hello`` names ``kind`` and
+    ``codec`` with no fallback, and the launcher left no ring segment,
+    descriptor or Unix socket of the session.  Returns the ``transports``
+    block."""
+    from traceml_tpu_torch.transport.select import default_uds_path
+    from traceml_tpu_torch.transport.shm_ring import ring_segment_path
+
+    block = ingest.get("transports") or {}
+    frames = block.get("frames_by_kind") or {}
+    check(set(frames) == {kind} and frames[kind] > 0, f"run {name}: frames by transport {frames}, not {kind}")
+    hellos = block.get("ranks") or {}
+    check(bool(hellos) and all(h == {"transport": kind, "compression": codec} for h in hellos.values()),
+          f"run {name}: transport hellos {hellos}, not {kind} with codec {codec}")
+    ranks = sorted(int(r) for r in hellos)
+    left = [str(p) for r in ranks for p in (ring_segment_path(session, r), session / f"rank_{r}" / "shm_ring.json")
+            if p.exists()] + [p for p in (default_uds_path(session),) if os.path.exists(p)]
+    check(not left, f"run {name}: transport files left after the run: {left}")
+    return block
 
 
 #: a word of the JAX package's platform, which no page or report of the port may hold
@@ -1091,10 +1145,13 @@ def run_phase(main: dict) -> dict:
 
     RUN_DIR.mkdir(parents=True, exist_ok=True)
     analytic = analytic_forward_flops(full_width_config(), BATCH, SEQ)
-    for name, delay_ms, interval_s, steps, verdict in (
-            ("healthy", 0.0, 0.1, RUN_FORWARD_STEPS, mfu_verdict),
-            ("input_delay", main["delay_ms"], 1.0, STEPS, "INPUT_BOUND")):
-        got = check_run(name, launch_run(name, delay_ms, interval_s, steps=steps), main["n_layers"], verdict)
+    for name, delay_ms, interval_s, steps, verdict, transport in (
+            ("healthy", 0.0, 0.1, RUN_FORWARD_STEPS, mfu_verdict, "shm"),
+            ("healthy_tcp", 0.0, 0.1, RUN_FORWARD_STEPS, mfu_verdict, "tcp"),
+            ("input_delay", main["delay_ms"], 1.0, STEPS, "INPUT_BOUND", "shm")):
+        env = {"TRACEML_TRANSPORT": "tcp"} if transport == "tcp" else None
+        got = check_run(name, launch_run(name, delay_ms, interval_s, steps=steps, env_extra=env,
+                                         transport=transport), main["n_layers"], verdict)
         eff = got["efficiency"] or {}
         flops = eff.get("flops_per_step")
         check(eff.get("flops_source") == "flop_counter" and flops is not None
@@ -1108,6 +1165,11 @@ def run_phase(main: dict) -> dict:
             log("run", "step device ms under run (stored rows) vs in-process (no sender): " + ", ".join(
                 f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms)
                 + f"; {got['producer']['busy_ticks']} busy sender ticks")
+        elif name == "healthy_tcp":
+            shm_ms, tcp_ms = healthy["step_device_ms"], got["step_device_ms"]
+            log("run", "forward step device ms under run, shm ring vs tcp (reported, not gated: the host "
+                       "paces the forward): " + ", ".join(
+                f"{k} {shm_ms[k]:.4f} vs {tcp_ms[k]:.4f} ({shm_ms[k] / tcp_ms[k]:.4f}x)" for k in shm_ms))
     return healthy
 
 
@@ -1787,9 +1849,10 @@ def _step_times(session: Path) -> list:
         conn.close()
 
 
-def aggregator_restart_phase(cfg, train_healthy: dict) -> dict:
+def aggregator_restart_phase(cfg, train_healthy: dict, transport: str = "shm") -> dict:
     """``run --mode summary`` of ``dev/train_script.py`` at full width (one
-    rank, 60 steps, 0.1 s tick) whose aggregator is SIGKILLed mid-loop by
+    rank, 60 steps, 0.1 s tick), over ``transport`` (the default shm ring,
+    or pinned to ``tcp``), whose aggregator is SIGKILLed mid-loop by
     ``TRACEML_FAULT_PLAN=[{"point": "aggregator.ingest", "action":
     "kill9", "after": N}]``; N is the number of payloads the healthy
     ``summary`` train run had ingested ``RESTART_KILL_AT`` of the way into
@@ -1803,21 +1866,24 @@ def aggregator_restart_phase(cfg, train_healthy: dict) -> dict:
     summary's ``meta.topology.ranks_seen``; the launcher's
     notice of the death (the crash log's mtime, within one 0.1 s
     supervise poll of the kill) and the new ready file both before the
-    rank's last stored step, and the notice after its first.  Reported:
-    the time from that notice to the new ready file, the rank's
-    reconnects, replayed envelopes and spool bytes, the writer's replay
-    duplicates, and the step's device median against the healthy
-    ``summary`` run's."""
+    rank's last stored step, and the notice after its first; over the ring
+    also no ring-full drop (the restarted aggregator re-attached the ring,
+    whose uncommitted window it drained again).  Reported: the time from
+    that notice to the new ready file, the rank's reconnects (over the
+    ring, consumer-generation flips), replayed envelopes and spool bytes,
+    the writer's replay duplicates, and the step's device median against
+    the healthy ``summary`` run's."""
     healthy_session = Path(train_healthy["session"])
     healthy_steps = _step_times(healthy_session)
     stamps = sorted(ts for _, _, ts in healthy_steps)
     after = _payloads_before(healthy_session, stamps[int(RESTART_KILL_AT * len(stamps))])
-    name = "train_restart"
+    name = "train_restart" if transport == "shm" else f"train_restart_{transport}"
     plan = json.dumps([{"point": "aggregator.ingest", "action": "kill9", "after": after}])
     log("restart", f"{name}: kill9 after {after} payloads ({RESTART_KILL_AT:.0%} into the healthy run's loop; "
-                   f"it ingested {train_healthy['envelopes_ingested']} envelopes in all)")
+                   f"it ingested {train_healthy['envelopes_ingested']} envelopes in all), over {transport}")
+    env = {"TRACEML_FAULT_PLAN": plan, **({"TRACEML_TRANSPORT": transport} if transport != "shm" else {})}
     run = launch_run(name, 0.0, 0.1, script="train_script.py", launcher_args=("--finalize-timeout", "60"),
-                     env_extra={"TRACEML_FAULT_PLAN": plan})
+                     env_extra=env, transport=transport)
     got = check_train_run(name, run, cfg, mfu_verdict, telemetry_status="restarted")
     check("restarting" in run["stdout"], f"run {name}: no 'restarting' on the launcher's stdout")
     session = run["session"]
@@ -1837,13 +1903,17 @@ def aggregator_restart_phase(cfg, train_healthy: dict) -> dict:
     check(first < noticed < ready < last,
           f"run {name}: the kill (noticed {noticed}) or the restart (ready {ready}) fell outside the loop "
           f"({first} .. {last})")
-    transport = run["ingest"]["producers"]["0"]["transport"]
+    producer = run["ingest"]["producers"]["0"]["transport"]
+    if transport == "shm":
+        check(producer.get("ring_full_drops") == 0, f"run {name}: ring-full drops {producer.get('ring_full_drops')}")
     out = {
+        "transport": transport, "frames_by_kind": run["transport"]["frames_by_kind"],
+        "ring_full_drops": producer.get("ring_full_drops"), "shm": run["transport"].get("shm"),
         "after": after, "killed_at_step": killed_at_step, "steps": len(pairs),
         "notice_to_ready_s": ready - noticed, "ready_to_last_step_s": last - ready,
-        "reconnects": transport["reconnects"], "replayed_envelopes": transport["replayed_envelopes"],
-        "spooled_envelopes": transport["spooled_envelopes"], "spool_bytes": transport["spool_bytes"],
-        "batches_dropped": transport["batches_dropped"],
+        "reconnects": producer["reconnects"], "replayed_envelopes": producer["replayed_envelopes"],
+        "spooled_envelopes": producer["spooled_envelopes"], "spool_bytes": producer["spool_bytes"],
+        "batches_dropped": producer["batches_dropped"],
         "replay_duplicates": run["ingest"]["replay_duplicates"],
         "step_device_ms": got["step_device_ms"], "step_device_ms_healthy": train_healthy["step_device_ms"],
         "verdict": got["verdict"], "flash_launches": got["flash_launches"], "wall_s": got["wall_s"],
@@ -1851,7 +1921,7 @@ def aggregator_restart_phase(cfg, train_healthy: dict) -> dict:
     }
     log("restart", f"{name} " + json.dumps(out))
     run_ms, ref_ms = got["step_device_ms"], train_healthy["step_device_ms"]
-    log("restart", "train step device ms, restarted vs healthy summary run: " + ", ".join(
+    log("restart", f"train step device ms, restarted ({transport}) vs healthy summary run: " + ", ".join(
         f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms))
     return out
 
@@ -2097,11 +2167,121 @@ def bounded_run_phase(cfg, train_healthy: dict) -> dict:
         "view_s": view_s, "view_json_s": view_json_s, "inspect_s": inspect_s, "inspect_rollup_s": rollup_s,
         "wall_s": run["wall_s"], "finalize_s": manifest.get("finalize_sec"),
         "nvml_utilization_pct_recent_mean": telemetry["utilization_pct_recent_mean"],
+        "session": str(session),
     }
     log("bounded", f"{name} " + json.dumps(out))
     run_ms, ref_ms = out["step_device_ms"], train_healthy["step_device_ms"]
     log("bounded", "train step device ms, bounded cli run (all backed-up steps) vs healthy summary run: " + ", ".join(
         f"{key} {run_ms[key]:.4f} vs {ref_ms[key]:.4f} ({run_ms[key] / ref_ms[key]:.4f}x)" for key in run_ms))
+    return out
+
+
+def transport_run_phase(cfg, train_healthy: dict) -> dict:
+    """``run --mode summary`` of ``dev/train_script.py`` at full width (one
+    rank, 60 steps, 0.1 s tick) over the Unix socket with envelope
+    compression: ``TRACEML_TRANSPORT=uds TRACEML_TRANSPORT_COMPRESS=zstd``
+    (zlib where ``libzstd.so.1`` does not load here; logged).  Gates: the
+    healthy train run's (``check_train_run``, the verdict of the MFU's
+    band); every frame over ``uds`` and the rank's hello ``uds`` with the
+    codec (``check_transport``); compressed envelopes restored, none
+    failing.  Reported: the producer's compression ratio (bytes offered
+    over bytes on the wire, over the envelopes it compressed, and how many
+    passed through), the server's, and the step's device median against
+    the healthy ``summary`` run's."""
+    from traceml_tpu_torch.transport import compression
+
+    codec = "zstd" if "zstd" in compression.available_codecs() else "zlib"
+    log("transport", f"uds run codec {codec} (available: {compression.available_codecs()})")
+    name = "train_uds_" + codec
+    run = launch_run(name, 0.0, 0.1, script="train_script.py", transport="uds", codec=codec,
+                     env_extra={"TRACEML_TRANSPORT": "uds", "TRACEML_TRANSPORT_COMPRESS": codec})
+    got = check_train_run(name, run, cfg, mfu_verdict)
+    server = run["transport"]["compression"]
+    check(server["envelopes"] > 0 and server["errors"] == 0, f"run {name}: server compression {server}")
+    producer = run["ingest"]["producers"]["0"]["transport"]["compression"]
+    check(producer["codec"] == codec and producer["envelopes_compressed"] > 0,
+          f"run {name}: producer compression {producer}")
+    out = {"codec": codec, "producer_compression": producer, "server_compression": server,
+           "server_ratio": server["bytes_decoded"] / server["bytes_in"],
+           "frames_by_kind": run["transport"]["frames_by_kind"], "verdict": got["verdict"],
+           "flash_launches": got["flash_launches"], "step_device_ms": got["step_device_ms"],
+           "step_device_ms_healthy": train_healthy["step_device_ms"], "wall_s": got["wall_s"],
+           "finalize_s": got["finalize_s"]}
+    log("transport", f"{name} " + json.dumps(out))
+    run_ms, ref_ms = got["step_device_ms"], train_healthy["step_device_ms"]
+    log("transport", f"train step device ms, uds + {codec} vs healthy summary run (shm): " + ", ".join(
+        f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms))
+    return out
+
+
+TRANSPORT_REPEATS = 5
+
+
+def transport_phase(bounded: dict) -> dict:
+    """The transport tier in process on real full-width telemetry: every
+    envelope of the bounded run's disk backup (``rank_0/data/*/
+    envelopes.msgpack``), pushed one a frame through each arm of
+    ``traceml_tpu_torch/dev/transport_bench.py`` (tcp with the C and the
+    Python frame split, uds, shm with ``ring.c`` and the Python twin,
+    segments in ``/dev/shm``, tcp with zstd and with zlib),
+    ``TRANSPORT_REPEATS`` runs each, interleaved.  Gates: each arm's
+    decoded list equals the backup's envelopes; the compressed arms
+    compressed and restored with no error.  Reported: frames/s and MB/s
+    per arm, native over Python, shm and uds over tcp, the ring and the
+    frame split alone, and each codec's µs an envelope and ratio."""
+    from traceml_tpu_torch.database.database_writer import V2_MAGIC
+    from traceml_tpu_torch.dev.transport_bench import run_arms
+    from traceml_tpu_torch.transport.shm_ring import default_ring_dir
+    from traceml_tpu_torch.utils import msgpack_codec
+
+    bodies = []
+    for path in sorted((Path(bounded["session"]) / "rank_0" / "data").rglob("envelopes.msgpack")):
+        data, pos = path.read_bytes(), 0
+        while pos < len(data):
+            if data[pos:pos + 4] == V2_MAGIC:
+                pos += 4
+            n = int.from_bytes(data[pos:pos + 4], "big")
+            body = data[pos + 4:pos + 4 + n]
+            enc = msgpack_codec.preencode(msgpack_codec.decode(body))
+            check(enc.body == body, f"{path}: a backup envelope does not re-encode to its bytes")
+            bodies.append(enc)
+            pos += 4 + n
+    check(len(bodies) > 100, f"transport phase: {len(bodies)} envelopes in the bounded run's backup")
+    out = run_arms(bodies, ring_dir=default_ring_dir(), repeats=TRANSPORT_REPEATS)
+    for arm, got in out["arms"].items():
+        check(got["equal"], f"transport arm {arm}: the decoded envelopes differ from the backup's")
+        check(got["decompress_errors"] == 0 and (got["compressed"] > 0) == arm.startswith("tcp_z"),
+              f"transport arm {arm}: {got['compressed']} envelopes restored, {got['decompress_errors']} errors")
+    for arm, got in out["arms"].items():
+        log("transport", f"{arm}: {got['frames_per_s']:.1f} frames/s, {got['mb_per_s']:.3f} MB/s "
+                         f"(fastest of {TRANSPORT_REPEATS}: {got['seconds_min'] * 1e3:.3f} ms, median "
+                         f"{got['seconds_median'] * 1e3:.3f} ms; {got['wire_bytes']} wire bytes, "
+                         f"{got['send_retries']} full-ring retries)")
+    log("transport", f"{out['envelopes']} envelopes, {out['body_bytes']} body bytes; ratios "
+                     + json.dumps(out["ratios"]))
+    log("transport", "alone " + json.dumps(out["alone"]) + "; codecs " + json.dumps(out["codecs"]))
+    return out
+
+
+def build_native() -> dict:
+    """Build both C extensions of the transport tier (``traceml_tpu_torch/
+    native/``) from the checkout, strictly: a failed build, a failed load
+    or ``TRACEML_NO_NATIVE`` fails the run, where the port would fall back
+    to the Python twins."""
+    from traceml_tpu_torch import native
+
+    check(not native.disabled(), "TRACEML_NO_NATIVE is set: the C extensions would not be used")
+    out = {}
+    for name in native.SOURCES:
+        t0 = time.perf_counter()
+        try:
+            path = native.build(name)
+        except native.NativeBuildError as exc:
+            raise CheckFailed(f"native {name}.c failed to build: {exc}") from exc
+        out[name] = {"path": str(path.relative_to(REPO)), "build_s": time.perf_counter() - t0}
+        log("build", f"native {name}.c -> {out[name]['path']} in {out[name]['build_s']:.3f} s")
+    check(native.get_framing() is not None and native.get_ring() is not None,
+          "a native extension built but did not load")
     return out
 
 
@@ -2129,6 +2309,7 @@ def main() -> int:
         for line in text.splitlines():
             if any(word in line for word in ("entry function", "registers", "spill", "smem", "arning")):
                 log("build", f"{name}: {line.strip()}")
+    build_native()
     from traceml_tpu_torch.ops.flash_attention import kernel_smem_bytes
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -2174,16 +2355,25 @@ def main() -> int:
     kernel["launches"] += dashboard["flash_launches"]
     kernel["launches_by_path"]["train_dashboard_run"] = dashboard["flash_launches"]
     log("time", f"dashboard run phase {time.perf_counter() - t0:.2f} s")
+    for transport, path in (("shm", "train_restart_run"), ("tcp", "train_restart_tcp_run")):
+        t0 = time.perf_counter()
+        restart = aggregator_restart_phase(cfg, train_healthy, transport)
+        kernel["launches"] += restart["flash_launches"]
+        kernel["launches_by_path"][path] = restart["flash_launches"]
+        log("time", f"aggregator restart phase over {transport} {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    restart = aggregator_restart_phase(cfg, train_healthy)
-    kernel["launches"] += restart["flash_launches"]
-    kernel["launches_by_path"]["train_restart_run"] = restart["flash_launches"]
-    log("time", f"aggregator restart phase {time.perf_counter() - t0:.2f} s")
+    uds = transport_run_phase(cfg, train_healthy)
+    kernel["launches"] += uds["flash_launches"]
+    kernel["launches_by_path"]["train_uds_compressed_run"] = uds["flash_launches"]
+    log("time", f"transport run phase {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     bounded = bounded_run_phase(cfg, train_healthy)
     kernel["launches"] += bounded["flash_launches"]
     kernel["launches_by_path"]["train_bounded_run"] = bounded["flash_launches"]
     log("time", f"bounded run phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    transport_phase(bounded)
+    log("time", f"transport phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

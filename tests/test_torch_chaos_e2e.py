@@ -1,19 +1,25 @@
 """Chaos end to end on the CPU: deterministic faults (``TRACEML_FAULT_PLAN``,
 ``traceml_tpu_torch/dev/chaos.py``) through the REAL pipeline of the port:
 the launcher, two rank executors running ``dev/train_script.py --device
-cpu --tiny`` and the aggregator, over TCP.
+cpu --tiny`` and the aggregator, over the default transport (each rank's
+shm ring) unless a case pins ``TRACEML_TRANSPORT``.
 
 The port of JAX ``tests/launcher/test_chaos_e2e.py::
-test_aggregator_kill9_restart_no_loss_no_duplicates``, with its
-assertions: an aggregator SIGKILLed mid-run is restarted once on its
-pinned port, the ranks replay their spools and the writer drops the
-duplicates by ``seq``, so the database holds exactly the (rank, step)
-set of a fault-free run of the same script, every row once; the run is
-``completed`` / ``restarted`` / ``aggregator_restarts: 1``, the launcher
-says ``restarting``, and the final summary has seen both ranks.  Two more
-cases: with ``TRACEML_AGG_MAX_RESTARTS=0`` the run completes, degraded,
-and training is untouched; a ``client.send`` reset on rank 1 loses
-nothing and telemetry stays ``ok``.
+test_aggregator_kill9_restart_no_loss_no_duplicates`` (pinned to ``tcp``,
+as JAX pins it) and ``::test_aggregator_kill9_restart_over_shm_ring``,
+with their assertions: an aggregator SIGKILLed mid-run, by payload count,
+is restarted once on its pinned port, the ranks replay their spools (over
+the ring, the consumer-generation flip fails one send each) and the
+writer drops the duplicates by ``seq``, so the database holds exactly the
+(rank, step) set of a fault-free run of the same script, every row once;
+the run is ``completed`` / ``restarted`` / ``aggregator_restarts: 1``, the
+launcher says ``restarting``, and the final summary has seen both ranks.
+The shm case also shows the run rode the ring (shm frames, every rank's
+hello ``shm``, no ring-full drop).  Two more cases: with
+``TRACEML_AGG_MAX_RESTARTS=0`` the run completes, degraded, and training
+is untouched; a ``client.send`` reset on rank 1 (a stream client's chaos
+point, so pinned to ``tcp``) loses nothing and telemetry stays ``ok``.
+No run leaves a ring segment, descriptor or socket of its session.
 
 And the ring flush, in process against two aggregator processes: the
 aggregator is killed with envelopes the client had sent (TCP accepted
@@ -39,6 +45,8 @@ import pytest
 from test_torch_sqlite import step_rows
 from traceml_tpu_torch.telemetry.control import build_rank_finished
 from traceml_tpu_torch.telemetry.envelope import SenderIdentity, rows_to_columns
+from traceml_tpu_torch.transport.select import default_uds_path
+from traceml_tpu_torch.transport.shm_ring import ring_segment_path
 from traceml_tpu_torch.transport.spool import DurableSender, ReplaySpool
 from traceml_tpu_torch.transport.tcp_transport import TCPClient
 
@@ -69,7 +77,16 @@ def _run(root, name, extra_env=None):
     )
     assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-2000:]
     (session,) = [p for p in logs.iterdir() if p.is_dir()]
+    assert_no_transport_files_left(session, ranks=2)
     return session, proc
+
+
+def assert_no_transport_files_left(session, ranks):
+    """The launcher removed every ring segment and descriptor of the
+    session and its Unix socket."""
+    left = [p for r in range(ranks) for p in (ring_segment_path(session, r), session / f"rank_{r}" / "shm_ring.json")
+            if p.exists()]
+    assert left == [] and not os.path.exists(default_uds_path(session)), left
 
 
 def _step_coverage(session):
@@ -95,8 +112,9 @@ def baseline(tmp_path_factory):
     return cov
 
 
-def test_aggregator_kill9_restart_no_loss_no_duplicates(tmp_path, baseline):
-    session, proc = _run(tmp_path, "aggkill", {"TRACEML_FAULT_PLAN": KILL_AFTER_40})
+def _kill9_restart_case(tmp_path, baseline, transport):
+    session, proc = _run(tmp_path, f"aggkill_{transport}",
+                         {"TRACEML_FAULT_PLAN": KILL_AFTER_40, "TRACEML_TRANSPORT": transport})
     manifest = _manifest(session)
     assert manifest["status"] == "completed"
     assert manifest["telemetry_status"] == "restarted", manifest
@@ -119,6 +137,25 @@ def test_aggregator_kill9_restart_no_loss_no_duplicates(tmp_path, baseline):
     assert sum(p["transport"]["replayed_envelopes"] for p in stats["producers"].values()) > 0
     assert all(p["transport"]["reconnects"] >= 1 for p in stats["producers"].values())
     assert summary["sections"]["liveness"]["diagnosis"]["kind"] == "HEALTHY"
+    return stats
+
+
+def test_aggregator_kill9_restart_no_loss_no_duplicates(tmp_path, baseline):
+    stats = _kill9_restart_case(tmp_path, baseline, "tcp")  # the golden arm, pinned as JAX pins it
+    assert set(stats["transports"]["frames_by_kind"]) == {"tcp"}
+    assert "shm" not in stats["transports"]  # no ring registry under tcp
+
+
+def test_aggregator_kill9_restart_over_shm_ring(tmp_path, baseline):
+    """The restarted aggregator re-attaches the rings (a consumer-generation
+    flip, one failed send, the spool's replay) and coverage stays
+    exactly-once; the run rode the ring, not a silent tcp fallback."""
+    stats = _kill9_restart_case(tmp_path, baseline, "shm")
+    transports = stats["transports"]
+    assert transports["frames_by_kind"].get("shm", 0) > 0, transports
+    assert {r: h["transport"] for r, h in transports["ranks"].items()} == {"0": "shm", "1": "shm"}, transports
+    assert transports["shm"]["rings_attached"] >= 2 and transports["shm"]["quarantined"] == 0
+    assert all(p["transport"]["ring_full_drops"] == 0 for p in stats["producers"].values())
 
 
 def test_aggregator_kill9_without_restarts_degrades(tmp_path):
@@ -135,7 +172,8 @@ def test_aggregator_kill9_without_restarts_degrades(tmp_path):
 
 def test_client_send_reset_on_rank_1_loses_nothing(tmp_path, baseline):
     plan = json.dumps([{"point": "client.send", "action": "reset", "after": 10, "rank": 1}])
-    session, proc = _run(tmp_path, "reset", {"TRACEML_FAULT_PLAN": plan})
+    # client.send is the stream clients' chaos point: pinned to tcp
+    session, proc = _run(tmp_path, "reset", {"TRACEML_FAULT_PLAN": plan, "TRACEML_TRANSPORT": "tcp"})
     manifest = _manifest(session)
     assert (manifest["status"], manifest["telemetry_status"]) == ("completed", "ok")
     cov, rows = _step_coverage(session)

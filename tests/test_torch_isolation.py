@@ -1,15 +1,17 @@
 """The port imports neither JAX nor the JAX package.
 
 A fresh interpreter imports every module of ``traceml_tpu_torch`` (those
-of each slice named) and ``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
+of each slice named, the transport tier's too) and ``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
 ``traceml_tpu.*`` module may be loaded (names matched exactly, since
 ``traceml_tpu_torch`` starts with ``traceml_tpu``).  An AST scan of the
-same files finds no such import statement either.
+same files finds no such import statement either, and the two C sources
+of ``native/`` include only system and Python headers.
 """
 
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -78,7 +80,25 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "traceml_tpu_torch.reporting.view.command", "traceml_tpu_torch.launcher.inspect_cmd",
     }
     assert bounded_runs <= set(out["imported"])
+    transport_tier = {  # the shm ring, the Unix socket, compression, selection, the C extensions' loader
+        "traceml_tpu_torch.transport.compression", "traceml_tpu_torch.transport.shm_ring",
+        "traceml_tpu_torch.transport.select", "traceml_tpu_torch.native", "traceml_tpu_torch.dev.transport_bench",
+    }
+    assert transport_tier <= set(out["imported"])
     assert [m for m in out["loaded"] if _forbidden(m)] == []
+
+
+SYSTEM_HEADERS = {"Python.h", "stdint.h", "string.h"}
+
+
+@pytest.mark.parametrize("name", ["framing.c", "ring.c"])
+def test_c_sources_include_only_system_and_python_headers(name):
+    """The port keeps its own copies of the C sources: nothing of the JAX
+    package, no header of the repo."""
+    text = (REPO / "traceml_tpu_torch" / "native" / name).read_text()
+    includes = re.findall(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', text, re.MULTILINE)
+    assert includes and all(kind == "<" and header in SYSTEM_HEADERS for kind, header in includes), includes
+    assert "traceml_tpu/" not in text.replace("traceml_tpu_torch/", "")
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))

@@ -123,7 +123,7 @@ def _run_port(tmp_path):
     settings = TraceMLSettings(
         session_id="rec", logs_dir=tmp_path / "port", mode="summary",
         aggregator=AggregatorEndpoint(port=server.port), sampler_interval_sec=3600.0,
-        trace_max_steps=CAP,
+        trace_max_steps=CAP, transport="tcp",
     )
     try:
         return _drive(TraceMLRuntime(settings), trace_step, server)

@@ -5,7 +5,8 @@ aggregator and the ranks (one, then two), each the executor running
 ``traceml_tpu_torch/dev/forward_script.py`` on the 2-layer, 128-wide
 DecoderLM with ``device="cpu"`` and a host input delay of 3x the step's
 own host time (``--delay-x 3``, so it holds on a loaded host); each rank
-ships its rows over TCP, the aggregator stores them in SQLite and writes
+ships its rows over its shm ring (the default transport), the aggregator
+stores them in SQLite and writes
 the final summary, which must say INPUT_BOUND, as must the launcher's
 stdout.  Its ``system`` section holds the host rows of rank 0 alone (the
 node's primary rank) and its ``process`` section every rank's rows; on
@@ -41,6 +42,13 @@ gets the summary from ``final_summary()`` inside the script, with the
 final artifact's verdict, declares its tokens (tokens/s in
 ``efficiency``), and ``summary()`` flattens the artifact as the JAX one
 does.
+
+The transport tier: the tiny forward run over the default (the shm ring),
+``TRACEML_TRANSPORT=uds`` and ``tcp`` stores the same (rank, step)
+coverage, with the rank's ``transport_hello``, the frames by path and the
+``transports`` block of ``ingest_stats.json`` shaped as the JAX
+aggregator's, and the launcher leaves no ring segment, descriptor or
+socket of the session.
 """
 
 import json
@@ -347,3 +355,64 @@ def test_run_bounded_then_view_and_inspect(tmp_path):
     dump = cmd("inspect", str(session / "rank_0" / "data"))
     assert f"── {backup}" in dump and '"table": "step_time"' in dump
     assert "step_time.step_ms" in cmd("inspect", "--domain", "rollup", str(session))
+
+
+def _key_tree(obj):
+    return {k: _key_tree(v) for k, v in obj.items()} if isinstance(obj, dict) else None
+
+
+def _jax_transports_block(tmp_path, transport):
+    """What the JAX aggregator writes under ``transports`` for one rank
+    that announced its transport and sent over it: its ``_transport_stats``
+    after the rank's hello, on an aggregator built with the same setting."""
+    from traceml_tpu.aggregator.trace_aggregator import TraceMLAggregator as JaxAggregator
+    from traceml_tpu.runtime.settings import TraceMLSettings as JaxSettings
+    from traceml_tpu.telemetry.control import build_transport_hello
+
+    agg = JaxAggregator(JaxSettings(session_id="jax", logs_dir=tmp_path / "jax", mode="summary",
+                                    transport=transport))
+    kind = "shm" if transport == "auto" else transport
+    agg._handle_control(build_transport_hello({"global_rank": 0, "session_id": "jax"}, kind, None))
+    agg.server.frames_by_transport[kind] = 1  # the rank's frames, counted by the server's thread
+    return agg._transport_stats()
+
+
+@pytest.mark.parametrize("transport", ["auto", "uds", "tcp"])
+def test_run_over_each_transport_stores_the_same_steps(tmp_path, transport):
+    """The default (the shm ring), the Unix socket and TCP: the same (rank,
+    step) coverage, the rank's hello naming the transport, its frames
+    counted under it, the ``transports`` block shaped as JAX's, and no
+    ring segment, descriptor or socket of the session left."""
+    from traceml_tpu_torch.transport.select import default_uds_path
+    from traceml_tpu_torch.transport.shm_ring import ring_segment_path
+
+    steps, logs = 30, tmp_path / "logs"
+    env = {k: v for k, v in _env().items() if not k.startswith("TRACEML_")}
+    if transport != "auto":
+        env["TRACEML_TRANSPORT"] = transport
+    proc = subprocess.run(
+        [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary", "--logs-dir", str(logs),
+         "--sampler-interval", "0.25", "--finalize-timeout", "30", str(SCRIPT), "--",
+         "--device", "cpu", "--tiny", "--delay-ms", "20", "--steps", str(steps)],
+        env=env, capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (session,) = [p for p in logs.iterdir() if p.is_dir()]
+    conn = sqlite3.connect(session / "telemetry.sqlite")
+    try:
+        rows = conn.execute("SELECT global_rank, step FROM step_time_samples ORDER BY step").fetchall()
+    finally:
+        conn.close()
+    assert rows == [(0, s) for s in range(1, steps + 1)]
+    stats = json.loads((session / "ingest_stats.json").read_text())
+    kind = "shm" if transport == "auto" else transport
+    block = stats["transports"]
+    assert block["ranks"] == {"0": {"transport": kind, "compression": None}}
+    assert set(block["frames_by_kind"]) == {kind} and block["frames_by_kind"][kind] == stats["frames_received"]
+    assert stats["producers"]["0"]["transport"]["kind"] == kind
+    assert _key_tree(block) == _key_tree(_jax_transports_block(tmp_path, transport))
+    summary = json.loads((session / "final_summary.json").read_text())
+    assert summary["meta"]["telemetry_stats"]["transports"] == block
+    left = [p for p in (ring_segment_path(session, 0), session / "rank_0" / "shm_ring.json",
+                        Path(default_uds_path(session))) if p.exists()]
+    assert left == []

@@ -206,12 +206,12 @@ def test_publisher_stats_count_each_timed_send():
         identity = SenderIdentity(session_id="s", global_rank=0, world_size=1, hostname="h", pid=3)
         pub = TelemetryPublisher([sampler], TCPClient("127.0.0.1", server.port), identity)
         sampler.db.add_records("step_time", rows[:5])
-        assert pub.publish() == 1  # busy: one envelope
+        assert pub.publish() == 2  # busy: the transport hello and one envelope
         assert pub.publish() == 0  # idle: nothing new, heartbeat not due
         sampler.db.add_records("step_time", rows[5:])
         finished = build_rank_finished(identity.to_meta())
         assert pub.publish([finished], final=True) == 3  # envelope, marker, stats
-        got = _drain(server, 4)
+        got = _drain(server, 5)
     finally:
         server.stop()
     stats = [p["stats"] for p in got if p.get("_traceml_control") == "producer_stats"]
@@ -225,3 +225,5 @@ def test_publisher_stats_count_each_timed_send():
     assert after["flush_us"] >= sent["flush_us"]
     tables = [normalize_telemetry_envelope(p).tables["step_time"] for p in got if "_traceml_control" not in p]
     assert tables == [rows[:5], rows[5:]]
+    assert [(p["transport"], p["compression"]) for p in got
+            if p.get("_traceml_control") == "transport_hello"] == [("tcp", None)]

@@ -11,7 +11,8 @@ copies), the DataLoader, ``nn.Module.__call__``, ``backward`` and
 ``estimate_step_flops`` or ``set_step_flops`` gives the MFU numerator,
 ``set_step_tokens`` the tokens/s one.
 ``python -m traceml_tpu_torch run script.py`` runs a script under
-tracing: the ranks ship their rows over TCP to an aggregator, which
+tracing: the ranks ship their rows to an aggregator (through a
+shared-memory ring on one host, else a Unix socket or TCP), which
 stores them in SQLite, draws the live display from them (``--mode cli``,
 the default; ``--mode summary`` prints the verdict at the end instead),
 tracks each rank's liveness and writes ``final_summary.json``;

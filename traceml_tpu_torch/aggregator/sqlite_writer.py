@@ -10,7 +10,11 @@ oldest has waited ``_GROUP_COMMIT_INTERVAL_S``; each (table, batch) is one
 ``executemany``.  A full queue drops the envelope and counts it per
 domain; an envelope whose sampler has no projection writer is counted
 too, never silently skipped.  ``force_flush`` is a barrier: it returns
-once everything enqueued before it is committed.  ``finalize`` flushes,
+once everything enqueued before it is committed.  ``settled_envelopes()``
+counts the envelopes resolved for good, as in JAX: each batch written
+(committed, dropped as a duplicate or unknown, or lost to a failed
+transaction; none is retried) and each envelope the full queue shed.  The
+aggregator advances the shm rings' tails only up to what it reports.  ``finalize`` flushes,
 checkpoints the WAL and closes.
 
 Replay dedup, as in JAX: the ``rank_seq`` table holds the highest
@@ -121,6 +125,7 @@ class SQLiteWriter:
         self.dropped = 0
         self.written = 0
         self.commits = 0
+        self._settled = 0
         self._enq_by_domain: Dict[str, int] = {}
         self._drop_by_domain: Dict[str, int] = {}
         self._unknown_by_domain: Dict[str, int] = {}
@@ -156,6 +161,7 @@ class SQLiteWriter:
         except queue.Full:
             with self._stats_lock:
                 self.dropped += 1
+                self._settled += 1  # shed: it will never be written
                 self._drop_by_domain[env.sampler] = self._drop_by_domain.get(env.sampler, 0) + 1
             get_error_log().warning(f"ingest queue full: dropped a {env.sampler} envelope")
             return False
@@ -164,6 +170,12 @@ class SQLiteWriter:
             self._enq_by_domain[env.sampler] = self._enq_by_domain.get(env.sampler, 0) + 1
             self._queue_hwm = max(self._queue_hwm, self._queue.qsize())
         return True
+
+    def settled_envelopes(self) -> int:
+        """Envelopes resolved for good: every batch written and every queue
+        shed.  Monotonic; safe to read from any thread."""
+        with self._stats_lock:
+            return self._settled
 
     def force_flush(self, timeout: float = 10.0) -> bool:
         """Barrier: True once everything enqueued so far is committed."""
@@ -337,7 +349,12 @@ class SQLiteWriter:
                     or (pending_since is not None and now - pending_since >= _GROUP_COMMIT_INTERVAL_S)
                 )
                 if pending and flush_now:
-                    self._write_batch(conn, pending)
+                    try:
+                        self._write_batch(conn, pending)
+                    finally:
+                        # resolved either way: nothing in a batch is retried
+                        with self._stats_lock:
+                            self._settled += len(pending)
                     pending = []
                     pending_since = None
                 for b in barriers:

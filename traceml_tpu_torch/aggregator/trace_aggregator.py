@@ -1,8 +1,23 @@
 """The aggregator.
 
 Counterpart of ``traceml_tpu/aggregator/trace_aggregator.py`` for the
-``summary``, ``cli`` and ``dashboard`` modes over TCP (no session
-registry or shm rings yet).
+``summary``, ``cli`` and ``dashboard`` modes on one node (no session
+registry).
+
+Ingest rides the transport tier (``transport/select.py``
+``server_transport_config``): unless ``TRACEML_TRANSPORT=tcp``, the
+server also listens on the session's Unix socket and polls the ranks'
+shared-memory rings (a ``ShmRingRegistry``) on its 50 ms tick.  A ring's
+tail advances only once the SQLite writer has settled the envelopes its
+frames carried: each drain pairs the ring cursors the server had read
+with the shm frames it actually took, and after ingest queues them
+against ``envelopes_ingested``; ``_commit_rings`` (each loop tick and
+after each flush) commits the cursors whose count the writer's
+``settled_envelopes()`` has reached.  So a killed aggregator's unsettled
+window stays in the ring for its restarted incarnation, and the writer
+drops the repeats by ``seq``.  Each rank's ``transport_hello`` (kind,
+codec, fallback) and the server's frames by path, decompression counters
+and ring health go to ``ingest_stats.json`` under ``transports``.
 
 Crash-resume, as in JAX: an aggregator the launcher restarts after a
 crash binds the same port (``TRACEML_AGGREGATOR_PORT``, pinned by the
@@ -13,14 +28,14 @@ liveness history) from the last ``rank_status.json`` of the same
 session.  Each drained payload is the ``aggregator.ingest`` chaos point
 (``dev/chaos.py``).
 
-Owns the TCP ingest server, the SQLite writer, the rank liveness tracker,
+Owns the ingest server, the SQLite writer, the rank liveness tracker,
 the final-summary service and the display driver of the mode (the live
 Rich display in ``cli``, the browser dashboard's HTTP server in
 ``dashboard``, none in ``summary``).  Its loop blocks on
 ``wait_for_data``, decodes frames on its own thread, hands telemetry
 envelopes to the writer and handles the control messages inline: ``rank_finished`` (the
-end-of-run barrier), ``rank_heartbeat`` and ``producer_stats`` (kept
-latest-per-rank).  Every envelope and control message feeds the
+end-of-run barrier), ``rank_heartbeat``, ``producer_stats`` and
+``transport_hello`` (both kept latest-per-rank).  Every envelope and control message feeds the
 liveness tracker (a ``step_time`` envelope is step progress).  Every
 few seconds, and once at the end, it writes ``ingest_stats.json`` and
 ``rank_status.json``.  Every 0.5 s (the JAX render interval) the loop
@@ -44,7 +59,8 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Optional, Set
+from collections import deque
+from typing import Any, Deque, Dict, Optional, Set, Tuple
 
 from traceml_tpu_torch.aggregator.display_drivers import resolve_display_driver
 from traceml_tpu_torch.aggregator.liveness import RankLivenessTracker
@@ -56,10 +72,13 @@ from traceml_tpu_torch.telemetry.control import (
     PRODUCER_STATS,
     RANK_FINISHED,
     RANK_HEARTBEAT,
+    TRANSPORT_HELLO,
     control_kind,
     is_control_message,
 )
 from traceml_tpu_torch.telemetry.envelope import normalize_telemetry_envelope
+from traceml_tpu_torch.transport.select import server_transport_config
+from traceml_tpu_torch.transport.shm_ring import ShmRingRegistry
 from traceml_tpu_torch.transport.tcp_transport import TCPServer
 from traceml_tpu_torch.utils.atomic_io import atomic_write_json
 from traceml_tpu_torch.utils.error_log import get_error_log
@@ -83,7 +102,13 @@ def _meta_rank(payload: Dict[str, Any]) -> Optional[int]:
 class TraceMLAggregator:
     def __init__(self, settings: TraceMLSettings) -> None:
         self.settings = settings
-        self.server = TCPServer(host=settings.aggregator.bind_host, port=settings.aggregator.port)
+        transport_cfg = server_transport_config(settings)
+        self.server = TCPServer(host=settings.aggregator.bind_host, port=settings.aggregator.port,
+                                uds_path=transport_cfg["uds_path"])
+        self.ring_registry: Optional[ShmRingRegistry] = None
+        if transport_cfg["enable_rings"]:
+            self.ring_registry = ShmRingRegistry(settings.session_dir)
+            self.server.attach_ring_registry(self.ring_registry)
         self.db_path = settings.session_dir / "telemetry.sqlite"
         self.writer = SQLiteWriter(self.db_path, summary_window_rows=settings.summary_window_rows)
         self._thread: Optional[threading.Thread] = None
@@ -94,6 +119,12 @@ class TraceMLAggregator:
         self._finished_ranks: Set[int] = set()
         self._seen_ranks: Set[int] = set()
         self._producer_stats: Dict[int, Dict[str, Any]] = {}
+        self._transport_hellos: Dict[int, Dict[str, Any]] = {}
+        # shm frames taken from the server so far, and the (envelopes
+        # ingested, ring cursors) watermarks waiting for the writer to
+        # settle that many envelopes; both under _drain_lock
+        self._shm_frames_drained = 0
+        self._ring_watermarks: Deque[Tuple[int, Dict[str, int]]] = deque()
         self.display = resolve_display_driver(settings.mode)
         self.liveness = RankLivenessTracker()
         self.summary_service = FinalSummaryService(
@@ -200,6 +231,14 @@ class TraceMLAggregator:
         with self._drain_lock:
             frames = self.server.drain_tagged(_DRAIN_BATCH_FRAMES)
             self._last_drain_frames = len(frames)
+            cursors = None
+            if self.ring_registry is not None and frames:
+                shm_n = sum(1 for tag, _ in frames if tag.startswith("shm:"))
+                if shm_n:
+                    self._shm_frames_drained += shm_n
+                    # the newest ring-cursor snapshot these frames (and
+                    # the earlier slices') fully cover
+                    cursors = self.ring_registry.take_marks(self._shm_frames_drained)
             n = 0
             for p in self.server.decode_tagged(frames) if frames else ():
                 if chaos.active():
@@ -215,7 +254,25 @@ class TraceMLAggregator:
                 self.writer.ingest(env)
                 n += 1
             self.envelopes_ingested += n
+            if cursors:
+                # every envelope those cursors cover is ingested now
+                self._ring_watermarks.append((self.envelopes_ingested, cursors))
         return n
+
+    def _commit_rings(self) -> None:
+        """Advance the rings' tails to the newest cursors whose envelopes
+        the writer has settled."""
+        if self.ring_registry is None:
+            return
+        cursors = None
+        with self._drain_lock:
+            if not self._ring_watermarks:
+                return
+            settled = self.writer.settled_envelopes()
+            while self._ring_watermarks and self._ring_watermarks[0][0] <= settled:
+                cursors = self._ring_watermarks.popleft()[1]
+        if cursors:
+            self.ring_registry.commit(cursors)
 
     def _drain_all(self) -> int:
         total = self._drain_once()
@@ -240,6 +297,12 @@ class TraceMLAggregator:
         if kind == PRODUCER_STATS and isinstance(payload.get("stats"), dict):
             # snapshots are cumulative: keep the latest
             self._producer_stats[rank] = payload["stats"]
+        elif kind == TRANSPORT_HELLO:
+            # latest wins: a restarted rank may announce another tier
+            hello = {"transport": payload.get("transport"), "compression": payload.get("compression")}
+            if payload.get("fallback_from"):
+                hello["fallback_from"] = payload["fallback_from"]
+            self._transport_hellos[rank] = hello
         elif kind != RANK_HEARTBEAT:
             get_error_log().warning(f"unknown control message {kind!r}; dropped")
 
@@ -266,11 +329,29 @@ class TraceMLAggregator:
                 "rollup": w["rollup"],
                 "finished_ranks": sorted(self._finished_ranks),
                 "producers": {str(r): s for r, s in sorted(self._producer_stats.items())},
+                "transports": self._transport_stats(),
                 "final": final,
                 "ts": time.time(),
             },
         )
         self._write_rank_status()
+
+    def _transport_stats(self) -> Dict[str, Any]:
+        """Frames by arrival path, the decompression counters, each rank's
+        announced (kind, codec) and, with rings, the registry's health."""
+        out: Dict[str, Any] = {
+            "frames_by_kind": dict(self.server.frames_by_transport),
+            "compression": {
+                "envelopes": self.server.compressed_envelopes,
+                "bytes_in": self.server.compressed_bytes_in,
+                "bytes_decoded": self.server.decompressed_bytes,
+                "errors": self.server.decompress_errors,
+            },
+            "ranks": {str(r): h for r, h in sorted(self._transport_hellos.items())},
+        }
+        if self.ring_registry is not None:
+            out["shm"] = self.ring_registry.stats()
+        return out
 
     def _write_rank_status(self) -> None:
         """Persist the liveness snapshot, on the stats cadence and at the
@@ -286,6 +367,7 @@ class TraceMLAggregator:
             try:
                 self.server.wait_for_data(_RENDER_INTERVAL)
                 self._drain_all()
+                self._commit_rings()
                 now = time.monotonic()
                 if now - self._last_ui_tick >= _RENDER_INTERVAL:
                     self._last_ui_tick = now
@@ -312,6 +394,7 @@ class TraceMLAggregator:
         deadline = time.monotonic() + timeout
         self._drain_all()
         self.writer.force_flush(timeout=max(0.5, deadline - time.monotonic()))
+        self._commit_rings()
 
     def _settle_end_of_run(self, deadline: float) -> None:
         """Drain until every expected rank sent ``rank_finished`` or the
@@ -324,6 +407,7 @@ class TraceMLAggregator:
             time.sleep(_SETTLE_POLL)
         self._drain_all()
         self.writer.force_flush(timeout=max(1.0, deadline - time.monotonic()))
+        self._commit_rings()
         missing = sorted(set(range(expected)) - self._finished_ranks)
         if missing:
             # each missing rank's liveness state rides along: the report

@@ -26,8 +26,8 @@ Rule fields:
 Points and the actions their call sites implement:
 
 ======================  =====================================================
-``client.send``         per ``TCPClient`` send attempt (rank side; the
-                        replay path's sends too).
+``client.send``         per stream-client send attempt (rank side, TCP
+                        or Unix socket; the replay path's sends too).
                         ``reset`` — tear the socket down and fail the send;
                         ``stall`` — sleep ``arg`` seconds (default 0.2)
                         before sending; ``corrupt`` — flip a byte inside
@@ -36,13 +36,17 @@ Points and the actions their call sites implement:
                         then reset (the receiver's stream desyncs).
 ``rank.tick``           per runtime sampler tick (rank side). ``kill9``.
 ``aggregator.ingest``   per drained payload in the aggregator. ``kill9``.
-``shm.write``           per shared-memory ring publish (rank side).
-``shm.attach``          per aggregator ring attach.
+``shm.write``           per shared-memory ring publish (rank side,
+                        ``ShmRingClient``).  ``kill9`` dies mid-write,
+                        before ``head`` moves, so no torn frame is ever
+                        drained; ``stall`` sleeps ``arg`` seconds (default
+                        0.2); ``corrupt`` flips a byte in the published
+                        body (the ring's framing holds, the frame fails to
+                        decode); ``reset`` and ``truncate`` fail the send.
+``shm.attach``          per aggregator ring attach (``ShmRingConsumer``).
+                        ``corrupt`` zeroes the segment's magic, so the
+                        registry quarantines the ring.
 ======================  =====================================================
-
-The port has no shared-memory ring yet, so no call site reaches
-``shm.write`` or ``shm.attach``: a plan may name them (the grammar is
-the JAX package's) and they never fire.
 
 Determinism: the counters are per rule and count events, never time, so
 the same plan against the same workload fires at the same points.  When

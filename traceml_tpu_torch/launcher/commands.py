@@ -5,7 +5,11 @@ default, as in JAX for a single-node run), ``summary`` and ``dashboard``
 modes on one node (no yaml config, code manifest or multi-node launch
 yet).  The settings carry ``--trace-max-steps``,
 ``--summary-window-rows``, ``--disk-backup`` and ``--no-capture-stderr``
-to every child, resolved as in JAX (CLI > ``TRACEML_<KEY>`` > default).
+to every child, resolved as in JAX (CLI > ``TRACEML_<KEY>`` > default),
+and the transport tier's fields from the environment
+(``TRACEML_TRANSPORT``, ``TRACEML_TRANSPORT_COMPRESS``,
+``TRACEML_SHM_RING_BYTES``, ``TRACEML_SHM_DIR``, ``TRACEML_UDS_PATH``; the
+port reads no YAML config).
 
 ``run``: resolve the settings (CLI > env > defaults), write the run
 manifest, start the aggregator and wait for its ready file, start N rank
@@ -24,7 +28,10 @@ or a restart fails, the run degrades.  In ``dashboard`` mode the
 restarted aggregator serves the page on the HTTP port its display binds
 and prints the new URL, as the JAX one does.  The manifest records
 ``finalize_sec``: from the last rank's exit to the aggregator's exit,
-with the summary written.
+with the summary written.  On every way out, once the aggregator is gone,
+the launcher removes the ranks' shm ring segments (they live outside the
+session directory, in ``/dev/shm`` by default) with their descriptors,
+and the session's Unix socket, which a killed aggregator leaves behind.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ from traceml_tpu_torch.runtime.settings import (
     settings_to_env,
 )
 from traceml_tpu_torch.sdk import protocol
+from traceml_tpu_torch.transport.select import server_transport_config
+from traceml_tpu_torch.transport.shm_ring import scan_ring_descriptors
 
 SUPPORTED_MODES = ("cli", "summary", "dashboard")
 
@@ -112,7 +121,24 @@ def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
         expected_world_size=int(cli.get("nprocs") or 1),
         finalize_timeout_sec=float(pick("finalize_timeout_sec", 300.0)),
         summary_window_rows=int(pick("summary_window_rows", 10000)),
+        transport=str(pick("transport", "auto")),
+        transport_compress=str(pick("transport_compress", "auto")),
+        shm_ring_bytes=int(pick("shm_ring_bytes", 4194304)),
+        shm_dir=pick("shm_dir") or None,
+        uds_path=pick("uds_path") or None,
     )
+
+
+def _cleanup_ring_segments(session_dir: Path) -> None:
+    """Remove the ranks' ring segments and their descriptors: nothing else
+    would ever reap a file in ``/dev/shm``."""
+    for desc in scan_ring_descriptors(session_dir):
+        for name in (desc.get("path"), desc.get("_descriptor")):
+            if name:
+                try:
+                    Path(name).unlink()
+                except OSError:
+                    pass
 
 
 def _start_aggregator(
@@ -307,6 +333,13 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
                     mf.update_run_manifest(session_dir, finalize_sec=time.monotonic() - ranks_done_at)
             if crash_logs:
                 mf.update_run_manifest(session_dir, crash_logs=crash_logs)
+            _cleanup_ring_segments(session_dir)
+            uds_path = server_transport_config(settings)["uds_path"]
+            if uds_path:
+                try:
+                    os.unlink(uds_path)  # a stopped aggregator removed it; a killed one did not
+                except OSError:
+                    pass
         finally:
             if old_sigterm is not None:
                 signal.signal(signal.SIGTERM, old_sigterm)

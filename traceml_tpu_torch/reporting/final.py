@@ -890,6 +890,7 @@ def generate_summary(
                 "corrupt_frame_drops", "rows_written", "rows_dropped",
                 "dropped_by_domain", "unknown_domain_drops",
                 "pending_frames_hwm", "queues", "group_commit", "prune", "producers",
+                "transports",
             )
             if k in stats
         }

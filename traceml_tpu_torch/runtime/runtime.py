@@ -5,8 +5,11 @@ resolves the rank's identity (``runtime/identity.py``), owns the samplers
 that ``runtime/sampler_registry.build_samplers`` gives this rank (system on
 the node's primary rank, process, step time, step memory), a daemon tick
 thread at ``sampler_interval_sec`` and, when the settings name an
-aggregator port, the TCP client and the publisher, whose failed sends
-wait in ``rank_dir(rank)/"spool"`` for the aggregator to come back.  In
+aggregator port, the telemetry client that ``transport/select.py`` picks
+(the rank's shm ring when the aggregator is on loopback, else a Unix
+socket or TCP; ``TRACEML_TRANSPORT`` forces one) and the publisher, which
+announces that choice once and whose failed sends wait in
+``rank_dir(rank)/"spool"`` for the aggregator to come back.  In
 the ``cli`` and ``dashboard`` modes it also tees the script's stdout and
 stderr (stdout only under ``--no-capture-stderr``) through a
 :class:`StreamCapture`, which the stdout/stderr sampler drains, as the
@@ -49,6 +52,7 @@ from traceml_tpu_torch.runtime.stdout_capture import CAPTURE_MODES, StreamCaptur
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 from traceml_tpu_torch.sdk.state import get_state
 from traceml_tpu_torch.telemetry.control import build_rank_finished
+from traceml_tpu_torch.transport.select import create_transport_client
 from traceml_tpu_torch.transport.tcp_transport import TCPClient
 from traceml_tpu_torch.utils.error_log import get_error_log
 
@@ -79,15 +83,15 @@ class TraceMLRuntime:
         if self.capture is not None:
             self.capture.start()
         self.samplers = build_samplers(self.settings, self.runtime_identity, self.capture)
-        agg = self.settings.aggregator
-        if agg.port:
-            self.client = TCPClient(agg.connect_host, agg.port)
+        # a TCPClient, UDSClient or ShmRingClient (same send interface)
+        self.client, transport_info = create_transport_client(self.settings, self.identity.global_rank)
         if self.client is not None or self.settings.disk_backup:
             # failed sends wait in the rank's replay spool for the
             # (restarted) aggregator, which drops what it holds by seq
             self.publisher = TelemetryPublisher(
                 self.samplers, self.client, self.identity,
                 spool_dir=self.settings.rank_dir(self.identity.global_rank) / "spool",
+                transport_info=transport_info,
             )
         get_state().on_step_flushed.append(self.recording.on_step_flushed)
         self._stop_evt.clear()

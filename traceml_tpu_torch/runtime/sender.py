@@ -1,11 +1,21 @@
 """Telemetry publisher.
 
-Counterpart of ``traceml_tpu/runtime/sender.py`` without compression.
+Counterpart of ``traceml_tpu/runtime/sender.py``.
 Per tick: collect each sampler's incremental payload, stamp it with the
 rank's next ``seq``, encode it once, hand the same encoded bytes to the
 sampler's disk-backup writer (a v2 frame; nothing is written without
 ``--disk-backup``) and ship the whole tick as ONE frame.  Without a
 client (no aggregator port, a backup only) the backup is all it feeds.
+
+The client is whatever ``transport/select.py`` chose (``transport_info``:
+its kind, its codec, ``fallback_from``).  The first batch, or the first
+heartbeat of a rank idle throughout, starts with a ``transport_hello``
+announcing that choice; it is sent again after the client reconnects
+(a TCP redial, a ring's consumer-generation flip), so a restarted
+aggregator hears it whatever the spool's replay window still holds.  With a codec, each envelope
+goes on the wire wrapped in a compressed carrier
+(``transport/compression.py``); the backup keeps the plain bytes, and the
+spool stores what went on the wire, so a replay never compresses again.
 
 Fault tolerance, as in JAX: with a spool directory (the runtime gives
 ``rank_dir(rank)/"spool"``) every batch goes through
@@ -31,8 +41,10 @@ nanoseconds spent collecting and encoding; per run the nanoseconds spent
 handing frames to the socket (``flush_us``) and the number of sends that
 time covers (``flushes``), per sampler the microseconds of its backup
 writes (``backup_us``), the idle-tick count, the codec, the client's
-counters and the spool's (``reconnects``, ``replayed_envelopes``,
-``spool_bytes``, ...).  A ``producer_stats`` message rides in the batch it
+counters (``kind``, ``reconnects``, ``ring_full_drops`` for the ring),
+the compressor's (``compression``: envelopes compressed and passed
+through, bytes before and on the wire, their ratio) and the spool's
+(``replayed_envelopes``, ``spool_bytes``, ...).  A ``producer_stats`` message rides in the batch it
 reports on, so its own send is in neither ``flush_us`` nor ``flushes``:
 the flush cost per send is ``flush_us / flushes``.  A ``producer_stats`` control message carries
 them to the aggregator on a non-idle tick at most every
@@ -47,8 +59,13 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
-from traceml_tpu_torch.telemetry.control import build_producer_stats, build_rank_heartbeat
+from traceml_tpu_torch.telemetry.control import (
+    build_producer_stats,
+    build_rank_heartbeat,
+    build_transport_hello,
+)
 from traceml_tpu_torch.telemetry.envelope import SenderIdentity
+from traceml_tpu_torch.transport.compression import EnvelopeCompressor
 from traceml_tpu_torch.transport.spool import DurableSender, ReplaySpool
 from traceml_tpu_torch.transport.tcp_transport import TCPClient
 from traceml_tpu_torch.utils import msgpack_codec
@@ -78,10 +95,16 @@ class TelemetryPublisher:
         client: Optional[TCPClient],
         identity: SenderIdentity,
         spool_dir: Optional[Path] = None,
+        transport_info: Optional[Dict[str, Any]] = None,
     ) -> None:
         self._samplers = samplers
         self._client = client
         self._identity = identity
+        self._transport_info = transport_info or {}
+        self._hello_pending = client is not None
+        self._hello_reconnects = 0  # the client's reconnects when the hello was last taken
+        codec = self._transport_info.get("compression")
+        self._compressor = EnvelopeCompressor(codec) if codec else None
         self._durable: Optional[DurableSender] = None
         if client is not None and spool_dir is not None:
             try:
@@ -133,7 +156,7 @@ class TelemetryPublisher:
                     st["encode_ns"] += perf() - t1
                     st["envelopes"] += 1
                     st["bytes"] += enc.size()
-                    batch.append(enc)
+                    batch.append(self._compressor.wrap(enc) if self._compressor is not None else enc)
                     s.writer.append_envelope(enc)
                 elif not (final or s.writer.has_pending()):
                     continue
@@ -147,6 +170,10 @@ class TelemetryPublisher:
         for p in extra_payloads or ():
             self._stamp_seq(p)
             batch.append(p)
+        if batch:
+            hello = self._take_hello()
+            if hello is not None:
+                batch.insert(0, hello)
         if batch and (final or time.monotonic() - self._last_stats_emit >= STATS_INTERVAL_S):
             self._last_stats_emit = time.monotonic()
             msg = build_producer_stats(self._identity.to_meta(), self.stats())
@@ -176,10 +203,30 @@ class TelemetryPublisher:
         self._last_heartbeat = now
         hb = build_rank_heartbeat(self._identity.to_meta())
         self._stamp_seq(hb)
+        msgs = [hb]
+        hello = self._take_hello()  # a rank idle throughout announces itself here
+        if hello is not None:
+            msgs.insert(0, hello)
         if self._durable is not None:
-            self._durable.send_transient([hb])
+            self._durable.send_transient(msgs)
         else:
-            self._client.send_batch([hb])
+            self._client.send_batch(msgs)
+
+    def _take_hello(self) -> Optional[Dict[str, Any]]:
+        """The ``transport_hello``, seq-stamped, once per connection, else None."""
+        if self._client is not None and self._client.reconnects != self._hello_reconnects:
+            self._hello_reconnects = self._client.reconnects
+            self._hello_pending = True
+        if not self._hello_pending:
+            return None
+        self._hello_pending = False
+        info = self._transport_info
+        hello = build_transport_hello(
+            self._identity.to_meta(), info.get("kind") or self._client.kind, info.get("compression"),
+            info.get("fallback_from"),
+        )
+        self._stamp_seq(hello)
+        return hello
 
     def close(self) -> None:
         if self._durable is not None:
@@ -208,11 +255,18 @@ class TelemetryPublisher:
             },
         }
         if self._client is not None:
-            out["transport"] = {
-                "kind": self._client.kind,
+            transport: Dict[str, Any] = {
+                "kind": self._transport_info.get("kind") or self._client.kind,
                 "reconnects": self._client.reconnects,
                 "batches_sent": self._client.batches_sent,
                 "batches_dropped": self._client.batches_dropped,
-                **(self._durable.stats() if self._durable is not None else {}),
             }
+            ring_full = getattr(self._client, "ring_full_drops", None)  # the shm ring's alone
+            if ring_full is not None:
+                transport["ring_full_drops"] = ring_full
+            if self._compressor is not None:
+                transport["compression"] = self._compressor.stats()
+            if self._durable is not None:
+                transport.update(self._durable.stats())
+            out["transport"] = transport
         return out

@@ -1,9 +1,15 @@
 """Frozen run settings and the ``TRACEML_*`` environment contract.
 
 Counterpart of ``traceml_tpu/runtime/settings.py``, trimmed to what the
-TCP transport and the three display modes use (no serving or
-transport-tier fields: the port has neither tier yet).  It carries the
-bounded-run fields with the JAX defaults and variable names:
+port's run path and its three display modes use (no serving-tier
+fields).  It carries the transport tier's fields with the JAX defaults
+and variable names (``transport/select.py`` reads them on both ends):
+``transport`` (``TRACEML_TRANSPORT``: auto, shm, uds or tcp; auto),
+``transport_compress`` (``TRACEML_TRANSPORT_COMPRESS``: auto, zstd, zlib
+or off; auto), ``shm_ring_bytes`` (``TRACEML_SHM_RING_BYTES``, 4194304),
+``shm_dir`` (``TRACEML_SHM_DIR``, unset: ``/dev/shm``) and ``uds_path``
+(``TRACEML_UDS_PATH``, unset: derived from the session directory).  It
+carries the bounded-run fields with the JAX defaults and variable names:
 ``trace_max_steps`` (``TRACEML_TRACE_MAX_STEPS``, unset = every step),
 ``disk_backup`` (``TRACEML_DISK_BACKUP``), ``capture_stderr``
 (``TRACEML_CAPTURE_STDERR``, on when unset) and
@@ -42,6 +48,11 @@ ENV_RUN_NAME = "TRACEML_RUN_NAME"
 ENV_EXPECTED_WORLD_SIZE = "TRACEML_EXPECTED_WORLD_SIZE"
 ENV_FINALIZE_TIMEOUT = "TRACEML_FINALIZE_TIMEOUT_SEC"
 ENV_SUMMARY_WINDOW_ROWS = "TRACEML_SUMMARY_WINDOW_ROWS"
+ENV_TRANSPORT = "TRACEML_TRANSPORT"
+ENV_TRANSPORT_COMPRESS = "TRACEML_TRANSPORT_COMPRESS"
+ENV_SHM_RING_BYTES = "TRACEML_SHM_RING_BYTES"
+ENV_SHM_DIR = "TRACEML_SHM_DIR"
+ENV_UDS_PATH = "TRACEML_UDS_PATH"
 ENV_SCRIPT = "TRACEML_SCRIPT"
 ENV_SCRIPT_ARGS = "TRACEML_SCRIPT_ARGS"
 
@@ -73,6 +84,11 @@ class TraceMLSettings:
     expected_world_size: Optional[int] = None
     finalize_timeout_sec: float = 300.0
     summary_window_rows: int = 10000
+    transport: str = "auto"
+    transport_compress: str = "auto"
+    shm_ring_bytes: int = 4194304
+    shm_dir: Optional[str] = None
+    uds_path: Optional[str] = None
 
     @property
     def session_dir(self) -> Path:
@@ -126,6 +142,11 @@ def settings_from_env(env: Optional[Dict[str, str]] = None) -> TraceMLSettings:
         expected_world_size=expected_ws or None,
         finalize_timeout_sec=_float(e.get(ENV_FINALIZE_TIMEOUT), 300.0),
         summary_window_rows=_int(e.get(ENV_SUMMARY_WINDOW_ROWS), 10000),
+        transport=e.get(ENV_TRANSPORT) or "auto",
+        transport_compress=e.get(ENV_TRANSPORT_COMPRESS) or "auto",
+        shm_ring_bytes=_int(e.get(ENV_SHM_RING_BYTES), 4194304),
+        shm_dir=e.get(ENV_SHM_DIR) or None,
+        uds_path=e.get(ENV_UDS_PATH) or None,
     )
 
 
@@ -153,4 +174,14 @@ def settings_to_env(s: TraceMLSettings) -> Dict[str, str]:
         env[ENV_RUN_NAME] = s.run_name
     if s.expected_world_size is not None:
         env[ENV_EXPECTED_WORLD_SIZE] = str(s.expected_world_size)
+    if s.transport != "auto":
+        env[ENV_TRANSPORT] = s.transport
+    if s.transport_compress != "auto":
+        env[ENV_TRANSPORT_COMPRESS] = s.transport_compress
+    if s.shm_ring_bytes != 4194304:
+        env[ENV_SHM_RING_BYTES] = str(s.shm_ring_bytes)
+    if s.shm_dir:
+        env[ENV_SHM_DIR] = s.shm_dir
+    if s.uds_path:
+        env[ENV_UDS_PATH] = s.uds_path
     return env

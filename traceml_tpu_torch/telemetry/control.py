@@ -1,7 +1,7 @@
 """Control messages sharing the telemetry channel.
 
-Counterpart of ``traceml_tpu/telemetry/control.py``, with the three
-messages of the TCP path:
+Counterpart of ``traceml_tpu/telemetry/control.py``, with the four
+messages of the port's run path:
 
 * ``rank_finished`` — the end-of-run marker the aggregator counts
   against the expected world size before it finalizes;
@@ -9,7 +9,11 @@ messages of the TCP path:
   and send time, idle ticks, codec), kept latest-per-rank and written
   into ``ingest_stats.json`` under ``producers``;
 * ``rank_heartbeat`` — a beacon on idle ticks, so a silent rank that is
-  alive stays distinguishable from a dead one.
+  alive stays distinguishable from a dead one;
+* ``transport_hello`` — sent once per connection of a rank: the transport it chose
+  (``shm``, ``uds``, ``tcp``), its codec and, when the ring failed to set
+  up, ``fallback_from``; kept latest-per-rank under ``transports.ranks``
+  in ``ingest_stats.json``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ CONTROL_KEY = "_traceml_control"
 RANK_FINISHED = "rank_finished"
 PRODUCER_STATS = "producer_stats"
 RANK_HEARTBEAT = "rank_heartbeat"
+TRANSPORT_HELLO = "transport_hello"
 
 
 def build_rank_finished(identity_meta: Mapping[str, Any]) -> Dict[str, Any]:
@@ -40,6 +45,24 @@ def build_producer_stats(
         "stats": dict(stats),
         "timestamp": time.time(),
     }
+
+
+def build_transport_hello(
+    identity_meta: Mapping[str, Any],
+    kind: Optional[str],
+    compression: Optional[str],
+    fallback_from: Optional[str] = None,
+) -> Dict[str, Any]:
+    msg: Dict[str, Any] = {
+        CONTROL_KEY: TRANSPORT_HELLO,
+        "meta": dict(identity_meta),
+        "transport": kind,
+        "compression": compression,
+        "timestamp": time.time(),
+    }
+    if fallback_from:
+        msg["fallback_from"] = fallback_from
+    return msg
 
 
 def is_control_message(payload: Any) -> bool:
