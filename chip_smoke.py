@@ -181,6 +181,24 @@
    the backup's envelopes; frames/s, MB/s, native over Python, shm over
    tcp, and each codec's µs an envelope and ratio reported.
 
+12. The code manifest, cross-run baselines and ``compare`` (run with the
+   train runs of 5, before 6): every ``run`` call's ``code_manifest.json``
+   must be the static scan of its script (``check_code_manifest``:
+   ``torch``, ``adamw`` for ``train_script.py``, the launcher's
+   ``code_manifest_ms``).  A second healthy train run (``train_healthy_2``,
+   60 steps) and the delayed one run under the healthy run's logs dir and
+   run name, so one ``traceml_baselines.sqlite`` judges each
+   (``baseline_compare_phase``): ``no_baseline``, ``ok`` over one run,
+   ``regression`` over two with a PERF_REGRESSION on ``steady_step_ms``
+   above +100% and a ``[baseline]`` line; ``regressions.json``, the
+   dashboard's meta fragment and a re-finalize on a copy of the store
+   give the same section; ``python -m traceml_tpu_torch compare`` of the
+   healthy pair is neither REGRESSION nor LIKELY_REGRESSION with no
+   step-time finding, of healthy and delayed REGRESSION.  Reported with
+   the card's line: the steps, the scan's and the re-evaluation's ms, both
+   verdicts.  The second healthy run's launches have their own path,
+   ``train_baseline_run``, on the kernels line.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
@@ -827,7 +845,7 @@ def remat_train_phase(cfg, train: dict) -> dict:
 def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py",
                steps: int = STEPS, script_args=(), launcher_args=(), env_extra=None,
                expect_ok: bool = True, mode: str = "summary", probe=None, transport: str = "shm",
-               codec=None) -> dict:
+               codec=None, join: str = None) -> dict:
     """One ``python -m traceml_tpu_torch run --mode <mode>`` call of a
     ``dev/`` script; returns its session's artifacts, its system, process,
     step-memory (and in the live modes stdout) rows, the launcher's output
@@ -837,11 +855,16 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     ``check_transport``: ``transport`` (the default ``shm``, the ring that
     ``auto`` picks on one host) with ``codec``.  A ``probe``
     (``DashboardProbe``) runs on a thread beside the call, from its start
-    to its end."""
-    logs = RUN_DIR / name
-    shutil.rmtree(logs, ignore_errors=True)
+    to its end.  ``join`` names an earlier call whose logs dir and run name
+    this call shares, so that the baseline store there holds that call's
+    run: the dir is kept and the call's session is the one it adds.  Every
+    call's ``code_manifest.json`` is held to ``check_code_manifest``."""
+    logs = RUN_DIR / (join or name)
+    if join is None:
+        shutil.rmtree(logs, ignore_errors=True)
+    before = {p for p in logs.iterdir() if p.is_dir()} if logs.is_dir() else set()
     argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", mode,
-            "--logs-dir", str(logs), "--run-name", name, "--sampler-interval", repr(interval_s),
+            "--logs-dir", str(logs), "--run-name", join or name, "--sampler-interval", repr(interval_s),
             *launcher_args, str(REPO / "traceml_tpu_torch" / "dev" / script),
             "--", "--steps", str(steps), "--delay-ms", repr(delay_ms), *script_args]
     env = dict(os.environ, PYTHONPATH=str(REPO), **(env_extra or {}))
@@ -873,8 +896,8 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     (RUN_DIR / f"{name}.stderr.txt").write_text(err)
     check((proc.returncode == 0) == expect_ok,
           f"run {name} exited {proc.returncode}; stderr tail:\n{err[-3000:]}")
-    sessions = [p for p in logs.iterdir() if p.is_dir()]
-    check(len(sessions) == 1, f"run {name}: {len(sessions)} session dirs")
+    sessions = [p for p in logs.iterdir() if p.is_dir() and p not in before]
+    check(len(sessions) == 1, f"run {name}: {len(sessions)} new session dirs")
     session = sessions[0]
 
     def read(fname, required=True):
@@ -896,11 +919,33 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     summary = read("final_summary.json")
     html_gate = check_html(name, session, summary)
     ingest = read("ingest_stats.json")
-    return {"summary": summary, "html": html_gate, "manifest": read("manifest.json"),
+    manifest = read("manifest.json")
+    code = check_code_manifest(name, REPO / "traceml_tpu_torch" / "dev" / script, read("code_manifest.json"),
+                               manifest)
+    return {"summary": summary, "html": html_gate, "manifest": manifest, "code_manifest": code,
             "ingest": ingest, "transport": check_transport(name, session, ingest, transport, codec),
             "system_manifest": read("system_manifest.json", required=expect_ok),
             "rows": rows, "tables": tables, "stdout": out, "stderr": err, "wall_s": wall_s, "steps": steps,
             "mode": mode, "session": session, "interval_s": interval_s}
+
+
+def check_code_manifest(name: str, script: Path, code: dict, manifest: dict) -> dict:
+    """``code_manifest.json`` of one call: the static scan of the script
+    (``analyze_project`` in this process gives the same, ``generated_at``
+    aside), ``framework`` torch, ``adamw`` among the optimizer hints of
+    ``train_script.py``; the launcher's ``code_manifest_ms`` in the run
+    manifest.  Returns the hints and the scan's time."""
+    from traceml_tpu_torch.launcher.ast_scan import analyze_project
+
+    check(code.pop("generated_at", 0) > 0, f"run {name}: code_manifest.json has no generated_at")
+    check(code == analyze_project(script), f"run {name}: code_manifest.json is not the scan of {script.name}")
+    check(code["framework"] == "torch", f"run {name}: code manifest framework {code['framework']}")
+    if script.name == "train_script.py":
+        check("adamw" in code["optimizer_hints"], f"run {name}: optimizer hints {code['optimizer_hints']}")
+    ms = manifest.get("code_manifest_ms")
+    check(isinstance(ms, float) and ms > 0, f"run {name}: manifest code_manifest_ms {ms}")
+    return {"framework": code["framework"], "optimizer_hints": code["optimizer_hints"],
+            "modules_scanned": code["modules_scanned"], "scan_ms": ms}
 
 
 def check_transport(name: str, session: Path, ingest: dict, kind: str, codec) -> dict:
@@ -1084,6 +1129,7 @@ def check_run(name: str, run: dict, n_layers: int, verdict, launches_per_layer: 
         "finalize_s": manifest.get("finalize_sec"),
         "wall_s": run["wall_s"],
         "session": str(run["session"]),
+        "code_manifest": run["code_manifest"],
         "telemetry": check_telemetry(name, run),
     }
 
@@ -1229,23 +1275,150 @@ def check_healthy_utilization(name: str, got: dict) -> None:
 
 def train_run_phase(cfg, train: dict) -> dict:
     """``python -m traceml_tpu_torch run`` of ``dev/train_script.py``:
-    healthy with a 0.1 s sender tick, and with a host input delay of 3x
-    the in-process train step at the default tick, held to
+    healthy with a 0.1 s sender tick, healthy again (``train_healthy_2``)
+    and with a host input delay of 3x the in-process train step at the
+    default tick, the three under one logs dir and run name (the healthy
+    run's), so that the baseline store judges the second against the
+    first and the delayed one against both.  Each is held to
     ``check_train_run``, with the verdict of the MFU's band (healthy) or
-    INPUT_BOUND; the healthy run's NVML utilization at least
-    ``UTIL_HEALTHY_MIN_PCT``.  Returns the healthy run's numbers."""
+    INPUT_BOUND; the healthy runs' NVML utilization at least
+    ``UTIL_HEALTHY_MIN_PCT``.  Returns each run's numbers by name."""
     delay_ms = 3.0 * train["step_ms"]
-    for name, delay, interval_s, verdict in (("train_healthy", 0.0, 0.1, mfu_verdict),
-                                             ("train_input_delay", delay_ms, 1.0, "INPUT_BOUND")):
+    runs = {}
+    for name, delay, interval_s, verdict, join in (
+            ("train_healthy", 0.0, 0.1, mfu_verdict, None),
+            ("train_healthy_2", 0.0, 0.1, mfu_verdict, "train_healthy"),
+            ("train_input_delay", delay_ms, 1.0, "INPUT_BOUND", "train_healthy")):
         log("run", f"{name}: input delay {delay:.3f} ms")
-        got = check_train_run(name, launch_run(name, delay, interval_s, script="train_script.py"), cfg, verdict)
-        if name == "train_healthy":
-            healthy = got
+        got = check_train_run(name, launch_run(name, delay, interval_s, script="train_script.py", join=join),
+                              cfg, verdict)
+        if verdict is mfu_verdict:
             check_healthy_utilization(name, got)
             run_ms, ref_ms = got["step_device_ms"], train["step_spread"]
-            log("run", "train step device ms under run vs in-process: " + ", ".join(
+            log("run", f"{name}: train step device ms under run vs in-process: " + ", ".join(
                 f"{k} {run_ms[k]:.4f} vs {ref_ms[k]:.4f} ({run_ms[k] / ref_ms[k]:.4f}x)" for k in run_ms))
-    return healthy
+        runs[name] = got
+    return runs
+
+
+COMPARE_BLOCKING = ("REGRESSION", "LIKELY_REGRESSION")  # verdicts two healthy runs must not get
+BASELINE_EVAL_REPEATS = 20
+
+
+def _compare_cli(name: str, baseline: Path, candidate: Path) -> dict:
+    """``python -m traceml_tpu_torch compare <baseline> <candidate> --output``:
+    exit 0, the payload file and the text beside it; returns the payload."""
+    out = RUN_DIR / f"compare_{name}.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "traceml_tpu_torch", "compare", str(baseline), str(candidate),
+                           "--output", str(out)], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"compare {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    payload = json.loads(out.read_text())
+    check(payload["schema"] == "traceml-tpu-compare/2", f"compare {name}: schema {payload['schema']}")
+    check(proc.stdout.startswith(f"VERDICT: {payload['verdict']}")
+          and out.with_suffix(".txt").read_text() == proc.stdout[:-1],
+          f"compare {name}: stdout and {out.with_suffix('.txt').name} disagree with the payload")
+    return {"payload": payload, "wall_s": wall_s}
+
+
+def baseline_compare_phase(runs: dict) -> dict:
+    """Cross-run baselines and ``compare`` on the three train runs of
+    ``train_run_phase`` (one logs dir, one run name, one
+    ``traceml_baselines.sqlite``).  Gates: the first run's ``regressions``
+    ``no_baseline``; the second's ``ok`` over one run with its
+    ``steady_step_ms`` check ``ok``; the delayed run's ``regression`` with
+    a PERF_REGRESSION on ``steady_step_ms`` above +100% whose action names
+    ``python -m traceml_tpu_torch compare`` and a ``[baseline]
+    PERF_REGRESSION`` line in ``final_summary.txt``; every run's
+    ``regressions.json`` equal to its payload's section, to the dashboard's
+    meta fragment on the finished session and to ``evaluate_and_record``
+    run again in this process on a copy of the store for the delayed run,
+    the last one recorded (the section a re-finalize gives: the run does
+    not match itself); ``compare`` of the
+    two healthy runs exit 0, no step-time finding, a verdict outside
+    ``COMPARE_BLOCKING``; ``compare`` of healthy and delayed REGRESSION,
+    its step-time findings led by a major STEP_TIME_REGRESSION ranked among
+    the major regressions that open the list, and the candidate's
+    ``candidate_baseline`` ``regression``.  Reported with the card's
+    ``nvidia-smi`` line: each run's steady step, the launcher's scan ms,
+    the re-evaluation's ms, both verdicts."""
+    from traceml_tpu_torch.analytics.baselines import STORE_FILENAME, evaluate_and_record
+    from traceml_tpu_torch.renderers.web_payload import _meta_fragment
+    from traceml_tpu_torch.reporting.compare.verdict import _REGRESSION_KINDS
+
+    smi = nvidia_smi()
+    sessions = {name: Path(got["session"]) for name, got in runs.items()}
+    want = {"train_healthy": ("no_baseline", 0), "train_healthy_2": ("ok", 1), "train_input_delay": ("regression", 2)}
+    out = {"card": smi, "runs": {}}
+    for name, (status, n) in want.items():
+        session = sessions[name]
+        summary = json.loads((session / "final_summary.json").read_text())
+        check("regressions" in summary, f"run {name}: final_summary.json has no regressions section")
+        reg = summary["regressions"]
+        on_disk = json.loads((session / "regressions.json").read_text())
+        check(on_disk == reg, f"run {name}: regressions.json differs from the payload's section")
+        check((reg["status"], reg["baseline_runs"]) == (status, n),
+              f"run {name}: regressions {reg['status']} over {reg['baseline_runs']} runs, not {status} over {n}")
+        check(reg["fingerprint"] == {"run_name": "train_healthy", "mesh_axes": "", "world_size": 1},
+              f"run {name}: fingerprint {reg['fingerprint']}")
+        meta = _meta_fragment({"db_exists": True}, session)
+        check(meta.get("regressions") == on_disk, f"run {name}: the dashboard's meta regressions differ")
+        step = next((c for c in reg["checks"] if c["metric"] == "steady_step_ms"), None)
+        if status == "ok":
+            check(step is not None and step["status"] == "ok", f"run {name}: steady_step_ms check {step}")
+        times = None
+        if status == "regression":
+            # the last run recorded: finalize it again, in process, on a copy
+            # of the store as it stands, BASELINE_EVAL_REPEATS times
+            store = RUN_DIR / f"{name}_{STORE_FILENAME}"
+            shutil.copyfile(session.parent / STORE_FILENAME, store)
+            payload = {k: v for k, v in summary.items() if k != "regressions"}
+            times = []
+            for _ in range(BASELINE_EVAL_REPEATS):
+                t0 = time.perf_counter()
+                again = evaluate_and_record(session, payload, topology=None, store_path=store)
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(again == reg, f"run {name}: a re-finalize gives {again}, not the stored section")
+            issue = next((i for i in reg["issues"] if i["metric"] == "steady_step_ms"), None)
+            check(step is not None and step["status"] == "regression" and step["delta_pct"] > 100.0
+                  and issue is not None and issue["kind"] == "PERF_REGRESSION",
+                  f"run {name}: steady_step_ms check {step}, issue {issue}")
+            check("python -m traceml_tpu_torch compare" in issue["action"], f"run {name}: action {issue['action']}")
+            text = (session / "final_summary.txt").read_text()
+            check(any(l.startswith("[baseline] PERF_REGRESSION: steady_step_ms") for l in text.splitlines()),
+                  f"run {name}: no [baseline] PERF_REGRESSION line in final_summary.txt")
+        out["runs"][name] = {
+            "status": reg["status"], "baseline_runs": reg["baseline_runs"],
+            "steady_step_ms": summary["sections"]["step_time"]["global"]["steady_state"]["median_ms"],
+            "step_check": step, "scan_ms_launcher": runs[name]["code_manifest"]["scan_ms"],
+            "baseline_eval_ms": spread(times) if times else None}
+        log("baseline", f"{name}: {smi}: " + json.dumps(out["runs"][name]))
+    same = _compare_cli("healthy_vs_healthy_2", sessions["train_healthy"], sessions["train_healthy_2"])
+    p = same["payload"]
+    step_findings = [f for f in p["findings"] if f["section"] == "step_time"]
+    check(p["verdict"] not in COMPARE_BLOCKING and not step_findings,
+          f"compare healthy vs healthy_2: {p['verdict']}, step-time findings {step_findings}")
+    delayed = _compare_cli("healthy_vs_input_delay", sessions["train_healthy"], sessions["train_input_delay"])
+    q = delayed["payload"]
+    step_findings = [f for f in q["findings"] if f["section"] == "step_time"]
+    lead = next((i for i, f in enumerate(q["findings"]) if f["section"] == "step_time"), None)
+    check(q["verdict"] == "REGRESSION" and lead is not None
+          and (q["findings"][lead]["kind"], q["findings"][lead]["significance"]) == ("STEP_TIME_REGRESSION", "major")
+          and all(f["significance"] == "major" and f["kind"] in _REGRESSION_KINDS for f in q["findings"][:lead]),
+          f"compare healthy vs input_delay: {q['verdict']}, findings {[f['kind'] for f in q['findings']]}")
+    check((q.get("candidate_baseline") or {}).get("status") == "regression",
+          f"compare healthy vs input_delay: candidate_baseline {q.get('candidate_baseline')}")
+    out["compare"] = {
+        "healthy_vs_healthy_2": {"verdict": p["verdict"], "step_delta_rel": p["step_delta_rel"],
+                                 "findings": [f["kind"] for f in p["findings"]], "wall_s": same["wall_s"]},
+        "healthy_vs_input_delay": {"verdict": q["verdict"], "step_delta_rel": q["step_delta_rel"],
+                                   "findings": [f["kind"] for f in q["findings"]],
+                                   "step_finding_rank": lead, "wall_s": delayed["wall_s"],
+                                   "candidate_baseline": q["candidate_baseline"]["status"]}}
+    log("baseline", f"compare: {smi}: " + json.dumps(out["compare"]))
+    return out
 
 
 def remat_run_phase(cfg, remat: dict) -> dict:
@@ -1759,7 +1932,7 @@ def dashboard_run_phase(cfg, train_healthy: dict) -> dict:
     held = probe.held
     check(held["closed_at"] is not None and held["closed_at"] <= probe.run_ended_at and held["events"] >= 1,
           f"run {name}: the SSE stream held across the run's end: {held}")
-    train_summary = json.loads(next((RUN_DIR / "train_healthy").glob("*/final_summary.json")).read_text())
+    train_summary = json.loads((Path(train_healthy["session"]) / "final_summary.json").read_text())
     out = {"flash_launches": got["flash_launches"], "verdict": got["verdict"],
            "step_device_ms_dashboard": got["step_device_ms"],
            "step_device_ms_summary": train_healthy["step_device_ms"],
@@ -2341,7 +2514,13 @@ def main() -> int:
     log("time", f"train phases {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     forward_healthy = run_phase(main_path)
-    train_healthy = train_run_phase(cfg, train)
+    train_runs = train_run_phase(cfg, train)
+    train_healthy = train_runs["train_healthy"]
+    kernel["launches"] += train_runs["train_healthy_2"]["flash_launches"]
+    kernel["launches_by_path"]["train_baseline_run"] = train_runs["train_healthy_2"]["flash_launches"]
+    t1 = time.perf_counter()
+    baseline_compare_phase(train_runs)
+    log("time", f"baseline compare checks {time.perf_counter() - t1:.2f} s")
     remat_run_phase(cfg, remat)
     killed_run_phase()
     log("time", f"run phase {time.perf_counter() - t0:.2f} s")

@@ -27,8 +27,8 @@ compute rows and beside train-shaped rows (forward, backward, optimizer):
 the ``efficiency`` block and every section equal; and the one verdict
 the port gives differently on purpose, LOW_MFU on a patched train step.
 
-The keys the port leaves out this slice are named here: ``history`` and
-``regressions`` (cross-run baselines and rollup tiers come later),
+The keys the port leaves out this slice are named here: ``history``
+(the rollup tiers' block, which these fixtures do not fold),
 ``meta.window_build`` (the columnar engine's counters), and
 ``meta.generated_at`` is a wall-clock stamp, present in both but not
 compared.
@@ -57,7 +57,7 @@ from traceml_tpu_torch.runtime.settings import TraceMLSettings
 from traceml_tpu_torch.telemetry.envelope import normalize_telemetry_envelope
 
 GiB = 1 << 30
-LEFT_OUT = {"history", "regressions"}
+LEFT_OUT = {"history"}
 LEFT_OUT_META = {"window_build"}
 NOT_COMPARED_META = {"generated_at"}
 REL = 1e-9

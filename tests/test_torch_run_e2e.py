@@ -49,6 +49,12 @@ coverage, with the rank's ``transport_hello``, the frames by path and the
 ``transports`` block of ``ingest_stats.json`` shaped as the JAX
 aggregator's, and the launcher leaves no ring segment, descriptor or
 socket of the session.
+
+Cross-run baselines: a healthy and a delayed ``train_script.py`` run
+under one logs dir and run name give ``no_baseline`` and then a
+PERF_REGRESSION in ``regressions``, each session its
+``code_manifest.json``, and ``python -m traceml_tpu_torch compare`` of the
+two a REGRESSION.
 """
 
 import json
@@ -416,3 +422,57 @@ def test_run_over_each_transport_stores_the_same_steps(tmp_path, transport):
     left = [p for p in (ring_segment_path(session, 0), session / "rank_0" / "shm_ring.json",
                         Path(default_uds_path(session))) if p.exists()]
     assert left == []
+
+
+def test_two_runs_under_one_name_end_in_a_regression_and_a_compare_verdict(tmp_path):
+    """Cross-run baselines and ``compare`` end to end: ``train_script.py``
+    on the tiny model, healthy, then with a host input delay of 3x the
+    step (``--delay-x 3``) under the same logs dir and run name.  The
+    first run's ``regressions`` is ``no_baseline``, the second's a
+    PERF_REGRESSION on ``steady_step_ms`` (judged against the first, then
+    recorded: the store holds both); each ``regressions.json`` is its
+    payload's section and each session has its ``code_manifest.json``;
+    ``compare`` of the two exits 0 with a REGRESSION, its step-time
+    findings led by the step's major regression, and the candidate's own
+    ``regressions`` verdict."""
+    from traceml_tpu_torch.analytics.baselines import STORE_FILENAME
+
+    logs = tmp_path / "logs"
+    sessions = []
+    for args in ((), ("--delay-x", "3")):
+        before = set(logs.iterdir()) if logs.exists() else set()
+        proc = subprocess.run(
+            [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", "summary", "--run-name", "tiny",
+             "--logs-dir", str(logs), "--sampler-interval", "0.25", "--finalize-timeout", "30",
+             str(TRAIN_SCRIPT), "--", "--device", "cpu", "--tiny", "--steps", str(STEPS), *args],
+            env=_env(), capture_output=True, text=True, timeout=240, cwd=str(tmp_path),
+        )
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        (session,) = [p for p in set(logs.iterdir()) - before if p.is_dir()]
+        sessions.append(session)
+        code = json.loads((session / "code_manifest.json").read_text())
+        assert code["framework"] == "torch" and "adamw" in code["optimizer_hints"]
+    (healthy, delayed) = (json.loads((s / "final_summary.json").read_text()) for s in sessions)
+    for session, payload in zip(sessions, (healthy, delayed)):
+        assert json.loads((session / "regressions.json").read_text()) == payload["regressions"]
+    assert (healthy["regressions"]["status"], healthy["regressions"]["baseline_runs"]) == ("no_baseline", 0)
+    reg = delayed["regressions"]
+    assert (reg["status"], reg["baseline_runs"]) == ("regression", 1)
+    assert reg["fingerprint"] == {"run_name": "tiny", "mesh_axes": "", "world_size": 1}
+    (issue,) = [i for i in reg["issues"] if i["metric"] == "steady_step_ms"]
+    assert issue["kind"] == "PERF_REGRESSION" and "python -m traceml_tpu_torch compare" in issue["action"]
+    assert "[baseline] PERF_REGRESSION: steady_step_ms" in (sessions[1] / "final_summary.txt").read_text()
+    assert (logs / STORE_FILENAME).exists()
+    out = tmp_path / "cmp.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "traceml_tpu_torch", "compare", str(sessions[0]), str(sessions[1]),
+         "--output", str(out)],
+        env=_env(), capture_output=True, text=True, timeout=120, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    payload = json.loads(out.read_text())
+    assert payload["verdict"] == "REGRESSION" and proc.stdout.startswith("VERDICT: REGRESSION")
+    step_findings = [f for f in payload["findings"] if f["section"] == "step_time"]
+    assert (step_findings[0]["kind"], step_findings[0]["significance"]) == ("STEP_TIME_REGRESSION", "major")
+    assert payload["candidate_baseline"]["status"] == "regression"
+    assert payload["candidate_baseline"]["regressed_metrics"][0] == "steady_step_ms"

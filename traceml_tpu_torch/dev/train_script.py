@@ -49,6 +49,7 @@ import time
 from typing import List, Optional
 
 import torch
+from torch.optim import adamw
 
 import traceml_tpu_torch as tm
 from traceml_tpu_torch.dev.workload import (
@@ -93,6 +94,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=True)
     model, optimizer = build_train_state(cfg, SEED, device=args.device)
+    # AdamW named through its module: the code manifest's optimizer hints match lowercase names
+    assert isinstance(optimizer, adamw.AdamW)
     tm.init(mode="auto", device=args.device, traced_model=model)
     train_step = make_train_step(model, optimizer)
     host = host_batches(cfg, SEED + 1, batch=batch, seq=n_tokens, pin=on_cuda)

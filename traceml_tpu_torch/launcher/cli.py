@@ -1,7 +1,7 @@
 """``python -m traceml_tpu_torch`` command line.
 
-Counterpart of ``traceml_tpu/launcher/cli.py`` with the ``run``, ``view``
-and ``inspect`` subcommands (``compare``, ``watch``, ``fleet-router``,
+Counterpart of ``traceml_tpu/launcher/cli.py`` with the ``run``, ``view``,
+``compare`` and ``inspect`` subcommands (``watch``, ``fleet-router``,
 ``lint`` and ``profile`` come later).  ``run``'s ``--mode`` takes the
 three JAX modes: ``cli`` (the live display, the default), ``summary``
 (the verdict on stdout at the end) and ``dashboard`` (the browser
@@ -12,11 +12,14 @@ trains on), ``--summary-window-rows W`` (the session database keeps
 1 m rollup tiers), ``--disk-backup`` (each rank also appends what it
 ships to ``rank_N/data``) and ``--no-capture-stderr`` (rank stderr stays
 out of the live display).  ``view`` prints a finished run's summary,
-``inspect`` decodes the disk backups (``--domain rollup``: the stitched
+``compare`` judges a candidate run against a baseline run (a verdict
+from INSUFFICIENT_DATA to EQUIVALENT, ranked findings; ``--output P``
+writes the payload to P and the text beside it), ``inspect`` decodes the disk backups (``--domain rollup``: the stitched
 history of the tiers).
 
     python -m traceml_tpu_torch run [--mode cli|summary|dashboard] [options] script.py [-- script args]
     python -m traceml_tpu_torch view <session dir | final_summary.json> [--format text|json]
+    python -m traceml_tpu_torch compare <baseline> <candidate> [--output P]
     python -m traceml_tpu_torch inspect <rank data dir | .msgpack | session dir> [--limit N] [--domain D]
 """
 
@@ -63,6 +66,11 @@ def _build_parser() -> argparse.ArgumentParser:
     view.add_argument("path", help="final_summary.json (or session dir)")
     view.add_argument("--format", choices=("text", "json"), default="text")
 
+    cmp_ = sub.add_parser("compare", help="compare two final summaries")
+    cmp_.add_argument("baseline", help="final_summary.json (or session dir) of the baseline run")
+    cmp_.add_argument("candidate", help="final_summary.json (or session dir) of the candidate run")
+    cmp_.add_argument("--output", default=None, help="write the payload here (and the text beside it)")
+
     insp = sub.add_parser("inspect", help="decode per-rank disk backups")
     insp.add_argument("path", help="a rank data dir, .msgpack file, or session dir")
     insp.add_argument("--limit", type=int, default=20)
@@ -80,6 +88,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         from traceml_tpu_torch.reporting.view.command import run_view
 
         return run_view(Path(args.path), fmt=args.format)
+    if args.command == "compare":
+        from traceml_tpu_torch.reporting.compare.command import run_compare
+
+        return run_compare(Path(args.baseline), Path(args.candidate),
+                           output=Path(args.output) if args.output else None)
     if args.command == "inspect":
         from traceml_tpu_torch.launcher.inspect_cmd import run_inspect
 

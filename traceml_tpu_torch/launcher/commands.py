@@ -2,8 +2,7 @@
 
 Counterpart of ``traceml_tpu/launcher/commands.py`` for the ``cli`` (the
 default, as in JAX for a single-node run), ``summary`` and ``dashboard``
-modes on one node (no yaml config, code manifest or multi-node launch
-yet).  The settings carry ``--trace-max-steps``,
+modes on one node (no yaml config or multi-node launch yet).  The settings carry ``--trace-max-steps``,
 ``--summary-window-rows``, ``--disk-backup`` and ``--no-capture-stderr``
 to every child, resolved as in JAX (CLI > ``TRACEML_<KEY>`` > default),
 and the transport tier's fields from the environment
@@ -12,7 +11,9 @@ and the transport tier's fields from the environment
 port reads no YAML config).
 
 ``run``: resolve the settings (CLI > env > defaults), write the run
-manifest, start the aggregator and wait for its ready file, start N rank
+manifest and the code manifest (``code_manifest.json``, the static scan
+of the script; traced or not, as in JAX; the manifest records the scan's
+``code_manifest_ms``), start the aggregator and wait for its ready file, start N rank
 processes (the executor entry, with the ``RANK``/``WORLD_SIZE`` contract),
 supervise them, stop the aggregator gracefully (SIGTERM → it settles,
 draws the live display's last frame in ``cli`` or stops the dashboard's
@@ -212,12 +213,19 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
         mode=settings.mode,
         world_size=nprocs,
     )
+    t0 = time.perf_counter()
+    try:
+        mf.write_code_manifest(session_dir, script_path)
+    except Exception:
+        pass  # the scan is best-effort, as in JAX: it never stops a run
+    code_manifest_ms = (time.perf_counter() - t0) * 1e3
 
     if settings.disabled:
         # tracing disabled: run the script untouched
         code = spawn([sys.executable, str(script_path)] + list(script_args or [])).wait()
         mf.update_run_manifest(
-            session_dir, status=mf.STATUS_COMPLETED if code == 0 else mf.STATUS_FAILED, exit_code=code
+            session_dir, status=mf.STATUS_COMPLETED if code == 0 else mf.STATUS_FAILED, exit_code=code,
+            code_manifest_ms=code_manifest_ms,
         )
         return code
 
@@ -253,7 +261,7 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
         procs.append(spawn_supervised(
             python_argv("traceml_tpu_torch.runtime.executor"), label=f"rank_{rank}", env=env
         ))
-    mf.update_run_manifest(session_dir, status=mf.STATUS_RUNNING)
+    mf.update_run_manifest(session_dir, status=mf.STATUS_RUNNING, code_manifest_ms=code_manifest_ms)
 
     # SIGTERM to the launcher tears the tree down like Ctrl-C does
     # (ranks terminated, aggregator finalized, manifest stamped)

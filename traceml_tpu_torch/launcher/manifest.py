@@ -1,11 +1,13 @@
-"""The run manifest.
+"""The run manifest and the code manifest.
 
-Counterpart of the run-manifest half of ``traceml_tpu/launcher/manifest.py``
-(the code manifest and its AST scan come later).  ``manifest.json`` in
-the session directory records what was launched and how the run ended:
-``status`` (starting → running → completed | failed) and
+Counterpart of ``traceml_tpu/launcher/manifest.py``.  ``manifest.json``
+in the session directory records what was launched and how the run
+ended: ``status`` (starting → running → completed | failed) and
 ``telemetry_status`` (ok | restarted | degraded; with ``restarted`` the
-count ``aggregator_restarts``).
+count ``aggregator_restarts``).  ``code_manifest.json`` beside it is the
+static scan of the script and the local modules it imports
+(``launcher/ast_scan.py``: framework, parallelism, precision, optimizer
+and input hints, sync sites, H2D idioms), stamped ``generated_at``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+from traceml_tpu_torch.launcher.ast_scan import (  # noqa: F401  (re-export, as in JAX)
+    analyze_project,
+    analyze_script,
+)
 from traceml_tpu_torch.utils.atomic_io import atomic_write_json, read_json
 
 STATUS_STARTING = "starting"
@@ -63,3 +69,10 @@ def update_run_manifest(session_dir: Path, **fields: Any) -> None:
     data.update(fields)
     data["updated_at"] = time.time()
     atomic_write_json(manifest_path(session_dir), data)
+
+
+def write_code_manifest(session_dir: Path, script: Path) -> Dict[str, Any]:
+    data = analyze_project(script)
+    data["generated_at"] = time.time()
+    atomic_write_json(Path(session_dir) / "code_manifest.json", data)
+    return data

@@ -17,9 +17,10 @@ JAX, until the writer's first prune folds a row.  The domains the port
 does not have yet read as the JAX payload does on a training session
 that recorded none: ``collectives`` is ``null`` (its sampler, ROADMAP
 queue 1 item 5), ``serving`` is left out (the serving probe, item 6),
-and ``meta`` has no ``mesh`` (``utils/topology.py``, item 5),
-``regressions`` (cross-run baselines, item 3(e)) or ``window_build``
-(the incremental window, item 4).  The
+and ``meta`` has no ``mesh`` (``utils/topology.py``, item 5) or
+``window_build`` (the incremental window, item 4).  ``meta.regressions``
+is the finished run's cross-run verdict (``regressions.json``), left out
+until the report writes it, as in JAX.  The
 findings carry no mesh ``attribution`` either: the port's diagnoses run
 with no topology, as the JAX ones do when no mesh was captured.
 """
@@ -31,7 +32,7 @@ from typing import Any, Dict, Tuple
 
 from traceml_tpu_torch.diagnostics.common import confidence_label
 from traceml_tpu_torch.diagnostics.model_diagnostics import compose
-from traceml_tpu_torch.reporting.loaders import load_ingest_stats, load_rank_status
+from traceml_tpu_torch.reporting.loaders import load_ingest_stats, load_rank_status, load_regressions
 
 PAYLOAD_VERSION = 3
 
@@ -58,7 +59,8 @@ FRAGMENT_ORDER: Tuple[str, ...] = tuple(_FRAGMENT_KEYS)
 #: fragment → the snapshot-store domains whose versions gate its
 #: rebuild.  The two fragments the port has no domain for depend on
 #: none, so they are built once.  ``header`` is constant and ``meta`` is
-#: read from files (ingest_stats.json, rank_status.json), so both are
+#: read from files (ingest_stats.json, rank_status.json,
+#: regressions.json), so both are
 #: rebuilt on every poll and compared by content.
 FRAGMENT_DEPS: Dict[str, Tuple[str, ...]] = {
     "step_time": ("step_time", "model_stats", "topology"),
@@ -127,8 +129,9 @@ def _diagnosis_fragment(payload: Dict[str, Any]) -> Dict[str, Any]:
 
 def _meta_fragment(payload: Dict[str, Any], session_dir: Path) -> Dict[str, Any]:
     """The aggregator's self-metrics for the page's meta strip
-    (backpressure, per-domain drops, writer latency) and the per-rank
-    liveness strip, live rather than only in the final summary."""
+    (backpressure, per-domain drops, writer latency), the per-rank
+    liveness strip, live rather than only in the final summary, and the
+    finished run's cross-run verdict."""
     out: Dict[str, Any] = {}
     if not payload.get("db_exists"):
         return out
@@ -157,6 +160,11 @@ def _meta_fragment(payload: Dict[str, Any], session_dir: Path) -> Dict[str, Any]
                     if isinstance(info, dict)
                 },
             }
+        # the cross-run regression verdict, written at finalize: a
+        # dashboard left open shows it the moment the run completes
+        regressions = load_regressions(session_dir)
+        if regressions:
+            out["regressions"] = regressions
     except Exception:
         pass
     return out

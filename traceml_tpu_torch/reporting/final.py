@@ -20,9 +20,21 @@ run at bounded cost once the writer's retention prune has folded rows
 into the rollup tiers: per domain and metric, the stitched series
 (``reporting/tiers.py``) collapsed to a cross-rank band and decimated to
 at most ``_HISTORY_MAX_POINTS`` points; the text summary gives its
-coverage in a "History:" line.  The payload leaves out what the JAX
-report adds only when it has something for it: the cross-run
-``regressions`` and ``meta.window_build``.
+coverage in a "History:" line.
+
+The cross-run ``regressions`` section, as in JAX: the finished run is
+judged against the last runs of its fingerprint in the logs dir's
+``traceml_baselines.sqlite`` and then recorded there
+(``analytics/baselines.py``), before the section cards are attached; the
+section goes into the payload and into ``regressions.json`` beside it,
+and the text summary gives a "Cross-run regression" or "Cross-run
+baseline" line and a ``[baseline] PERF_REGRESSION`` line per issue.  The
+port has no topology capture yet, so the check runs with
+``topology=None`` and no issue carries the JAX rank attribution: the
+path the JAX report takes whenever no mesh was captured.  A store that
+cannot be used leaves the section out; nothing else fails.  The payload
+leaves out what the JAX report adds only when it has something for it:
+``meta.window_build`` (the columnar engine's counters).
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
+from traceml_tpu_torch.analytics import baselines
 from traceml_tpu_torch.analytics.efficiency import build_efficiency
 from traceml_tpu_torch.analytics.trends.core import compute_window_trend
 from traceml_tpu_torch.diagnostics.common import DiagnosticResult
@@ -649,6 +662,24 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
             out.extend(f"  {l}" for l in card.splitlines())
             out.append("")
 
+    # the cross-run verdict (analytics/baselines.py): one line when
+    # healthy, the per-metric deltas when something regressed
+    reg = payload.get("regressions")
+    if reg and reg.get("checks"):
+        if reg.get("status") == "regression":
+            out.append(f"Cross-run regression vs last {reg.get('baseline_runs')} matching run(s):")
+            for c in reg["checks"]:
+                if c.get("status") != "regression":
+                    continue
+                delta = c.get("delta_pct")
+                out.append(
+                    f"  {c['metric']}: {c['current']:.4g} vs baseline {c['baseline_median']:.4g}"
+                    + (f" ({delta:+.1f}%)" if delta is not None else "")
+                )
+        else:
+            out.append(f"Cross-run baseline: within bands of last {reg.get('baseline_runs')} matching run(s).")
+        out.append("")
+
     # the full-run history's coverage (stitched rollup tiers)
     hist = (payload.get("history") or {}).get("step_time") or {}
     pts = (hist.get("step_ms") or {}).get("points")
@@ -666,6 +697,8 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
         diag = (sections.get(key) or {}).get("diagnosis") or {}
         if diag.get("status") == "issue":
             out.append(f"[{key}] {diag.get('kind')}: {diag.get('summary')}")
+    for issue in (payload.get("regressions") or {}).get("issues") or []:
+        out.append(f"[baseline] {issue.get('kind')}: {issue.get('summary')}")
     return "\n".join(out) + "\n"
 
 
@@ -902,6 +935,16 @@ def generate_summary(
     }
     if history:
         payload["history"] = history
+    # evaluate this run against the last matching sessions, then record
+    # it; the verdict also goes to regressions.json, which the dashboard's
+    # meta fragment serves
+    try:
+        regressions = baselines.evaluate_and_record(session_dir, payload, topology=None)
+        if regressions is not None:
+            payload["regressions"] = regressions
+            atomic_write_json(Path(session_dir) / "regressions.json", regressions)
+    except Exception as exc:
+        get_error_log().warning("baseline regression check failed", exc)
     attach_section_cards(payload)
     _write(session_dir, payload)
     try:

@@ -1,7 +1,8 @@
 """SQLite read paths of the final report.
 
 Counterpart of ``traceml_tpu/reporting/loaders.py``, trimmed to the
-tables the port writes, and the aggregator's ``rank_status.json``.
+tables the port writes, the aggregator's ``rank_status.json`` and
+``ingest_stats.json``, and the cross-run ``regressions.json``.
 One-shot readers, one query per table; the
 step-time and step-memory reads are bounded per rank with a
 ``ROW_NUMBER() OVER (PARTITION BY global_rank ...)`` window, the system
@@ -315,3 +316,17 @@ def load_ingest_stats(session_dir: Path) -> Dict[str, Any]:
     per-domain drops, group commit) from ``ingest_stats.json``; ``{}``
     when the file is missing or unreadable."""
     return _load_cached_json(Path(session_dir) / "ingest_stats.json", _INGEST_STATS_CACHE)
+
+
+# regressions.json is written once at finalize (analytics/baselines.py)
+# but polled live by the dashboard's meta fragment; the same (mtime,
+# size) cache as the other file-backed meta inputs.
+_REGRESSIONS_CACHE: Dict[str, Tuple[Tuple[float, int], Dict[str, Any]]] = {}
+
+
+def load_regressions(session_dir: Path) -> Dict[str, Any]:
+    """The cross-run regression verdict (``regressions.json``: status,
+    fingerprint, per-metric checks against the baseline bands, issues)
+    as written at finalize; ``{}`` when the file is missing or
+    unreadable."""
+    return _load_cached_json(Path(session_dir) / "regressions.json", _REGRESSIONS_CACHE)
