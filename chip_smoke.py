@@ -65,7 +65,8 @@
    codec and no fallback, and no ring segment, descriptor or Unix socket
    of the session left once the launcher exits.  The healthy forward runs
    once more pinned to ``tcp`` (``TRACEML_TRANSPORT=tcp``), its step
-   reported against the ring's, not gated (the host paces the forward).
+   reported against the ring's, not gated (the host paces the forward);
+   its verdict is gated, so it runs ``RUN_FORWARD_STEPS`` steps too.
    Gates: the summary's step-time section on the device clock with at
    least 50 steps, its step-memory section with a positive peak, one
    ``step_time_samples`` row per traced step, the manifest ``completed``
@@ -109,11 +110,18 @@
    stdout, then the dashboard's last frame once; ``stdout_samples`` and
    ``rank_0/stdout.log`` holding those lines in order; the frame's median
    step within ``FRAME_STEP_REL_TOL`` of ``final_summary.json``'s and its
-   rank-0 output panel showing the script's last line.  Reported: the
-   ``cli`` run's step against the ``summary`` train run's, the same for
-   the forward script (``RUN_FORWARD_STEPS`` steps, not gated), and the
-   live tick's cost (``LiveComputer.payload()`` plus one render) in
-   process on the finished session DB, first, dirty and idle.
+   rank-0 output panel showing the script's last line.  The display runs
+   on the window engines (the default: the incremental step-time window,
+   the vector rule arms, the diagnosis cache), and the run's report
+   carries ``meta.window_build``.  Reported: the ``cli`` run's step
+   against the ``summary`` train run's, the same for the forward script
+   (``STEPS`` steps, not gated), and the live tick's cost
+   (``LiveComputer.payload()`` plus one render) in process on twin copies
+   of the finished session DB, the engines on one and the three switches
+   (``TRACEML_COLUMNAR_WINDOW``, ``TRACEML_INCR_WINDOW``,
+   ``TRACEML_VECTOR_DIAGNOSIS``) at 0 on the other, first, dirty and idle,
+   with every dirty tick's payloads gated equal (``canon_payload``) and
+   the engine's window extended more often than rebuilt.
 
 8. The HTML report and the browser dashboard.  Every ``run`` call above
    (forward, train, remat, the killed run, ``cli``) and the one below
@@ -127,7 +135,9 @@
    trains by a ``DashboardProbe`` (``/healthz``, ``/``, ``/api/live``
    with its ETag, ``?since=`` delta and gzip paths, ``/api/stream``, and
    one stream held open across the run's end), held to the healthy train
-   run's gates and the dashboard's.  Reported: its step against the
+   run's gates and the dashboard's; the last ``/api/live`` carries the
+   window engine's ``window_build`` (more incremental builds than full
+   ones, no vector fallback).  Reported: its step against the
    ``summary`` train run's, the serving tier's poll cost on its finished
    DB (``serving_cost``) and ``render_html_summary``'s on the ``summary``
    train run's payload.
@@ -199,6 +209,18 @@
    verdicts.  The second healthy run's launches have their own path,
    ``train_baseline_run``, on the kernels line.
 
+13. The window engines at many ranks (``engine_tick_phase``, after 7):
+   the ``cli`` train run's rank-0 rows fanned out to ``ENGINE_RANKS``
+   ranks (a 32-node x 8-GPU job; seeded per-rank jitter, one rank
+   ``ENGINE_SLOW`` x slower) into twin databases through the port's
+   writer, a ``LiveComputer`` on each, the engines on one and the three
+   switches at 0 on the other: a first tick, ``ENGINE_TICKS`` dirty ticks
+   of one row per rank, as many idle ticks.  Gates: the payloads equal on
+   every dirty tick, both verdicts naming the slow rank, the engine's
+   window extended more often than rebuilt, the two databases' reports
+   equal (timestamps and ``meta.window_build`` aside).  Reported: ms a
+   tick for each arm, their ratio, the builds by path and reason.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
@@ -252,7 +274,7 @@ FLOPS_REL_TOL = 0.02  # estimate_step_flops against the analytic count
 # such products stay far inside these
 LM_HEAD_LOGITS_REL_FRO = 5e-3
 LM_HEAD_LOSS_REL = 1e-3
-RUN_FORWARD_STEPS = 300  # ~5 s of the healthy forward at the 0.1 s tick
+RUN_FORWARD_STEPS = 300  # ~5 s of the healthy forward at the 0.1 s tick (the system rules' last 30 samples)
 UTIL_HEALTHY_MIN_PCT = 70.0  # NVML utilization of the healthy train run
 # shapes at which planted faults are put through the kernel's checks
 PLANT_AT = ((BATCH, SEQ, 16, 64), (1, 4096, 4, 64), (1, 4096, 4, 128))
@@ -1478,7 +1500,7 @@ def remat_run_phase(cfg, remat: dict) -> dict:
 
 FRAME_HEADER = "TraceML (PyTorch) — live · session"
 FRAME_STEP_REL_TOL = 0.05  # the frame's median step vs final_summary.json's (display rounding is 0.1 ms)
-LIVE_TICKS = 200
+LIVE_TICKS = 100  # dirty and idle live ticks, for each of the two arms
 
 
 def check_cli_output(name: str, run: dict, got: dict) -> dict:
@@ -1540,14 +1562,55 @@ def _row_appender(db: Path):
     return conn, append
 
 
+ENGINE_SWITCHES = ("TRACEML_COLUMNAR_WINDOW", "TRACEML_INCR_WINDOW", "TRACEML_VECTOR_DIAGNOSIS")
+
+
+def engine_arm(arm: str):
+    """A context under one arm of the window engines: ``"engine"`` (the
+    three switches unset, the default) or ``"scalar"`` (all three at
+    ``0``).  The port reads them on every call, so a tick computed inside
+    takes that arm; the environment comes back as it was after it."""
+    env = {k: v for k, v in os.environ.items() if k not in ENGINE_SWITCHES}
+    if arm == "scalar":
+        env.update(dict.fromkeys(ENGINE_SWITCHES, "0"))
+    return mock.patch.dict(os.environ, env, clear=True)
+
+
+def canon_payload(payload: dict, db: Path) -> tuple:
+    """One tick's payload in canonical form, ``ts`` and the engine's
+    ``window_build_stats`` aside: as JSON, every fragment a viewer is
+    served (the views, findings, stdout, meta) and the step-time and
+    memory diagnoses; beside it the step-time window in plain form
+    (compared as a dict: its JSON would cost more than the tick at many
+    ranks, and a value the served JSON would tell apart reaches the
+    fragments).  Taken within the tick: an engine window's arrays are the
+    cache's until its next build."""
+    from traceml_tpu_torch.renderers.web_payload import FRAGMENT_ORDER, build_fragment
+    from traceml_tpu_torch.utils.columnar import window_to_plain
+
+    frags = {}
+    for name in FRAGMENT_ORDER:
+        frag = build_fragment(name, payload, session="canon", db_path=db)
+        if name == "meta":
+            frag.pop("window_build", None)
+        frags[name] = frag
+    st = payload.get("step_time") or {}
+    diagnoses = {k: (d.to_dict() if d is not None else None)
+                 for k, d in (("step_time", st.get("diagnosis")), ("memory", payload.get("step_memory_diagnosis")))}
+    return json.dumps({"fragments": frags, "diagnoses": diagnoses}, sort_keys=True), window_to_plain(st.get("window"))
+
+
 def live_tick_cost(db: Path) -> dict:
     """``LiveComputer.payload()`` plus one render of the dashboard (to a
     terminal console of 120 columns, styles included), timed in process
-    on a copy of a finished session DB: the first tick, ``LIVE_TICKS``
-    dirty ticks (before each, one step-time, system, process and
-    step-memory row more is committed, as a sender tick brings them), then
+    on copies of a finished session DB, for each arm of the window
+    engines: the engines (the default) on one copy, the three switches at
+    0 on its twin.  The first tick, ``LIVE_TICKS`` dirty ticks (before
+    each, one step-time, system, process and step-memory row more is
+    committed to both copies, as a sender tick brings them), then
     ``LIVE_TICKS`` idle ticks (no commit; each must return the cached
-    payload)."""
+    payload).  Gate: on the first and every dirty tick the two arms'
+    payloads are equal (``canon_payload``)."""
     import io
 
     from rich.console import Console
@@ -1557,36 +1620,59 @@ def live_tick_cost(db: Path) -> dict:
 
     work = RUN_DIR / "live_tick"
     shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    copy = work / "telemetry.sqlite"
-    shutil.copyfile(db, copy)
     console = Console(file=io.StringIO(), width=120, force_terminal=True, color_system="standard")
 
-    def tick(computer) -> float:
+    def tick(computer):
         t0 = time.perf_counter_ns()
         payload = computer.payload()
         console.print(dashboard(payload, "live_tick"))
         us = (time.perf_counter_ns() - t0) / 1e3
         console.file.seek(0)
         console.file.truncate()
-        return us
+        return us, payload
 
-    conn, append = _row_appender(copy)
-    computer = LiveComputer(copy)
+    arms = {}
+    for arm in ("engine", "scalar"):
+        copy = work / arm / "telemetry.sqlite"
+        copy.parent.mkdir(parents=True)
+        shutil.copyfile(db, copy)
+        conn, append = _row_appender(copy)
+        arms[arm] = {"db": copy, "conn": conn, "append": append, "computer": LiveComputer(copy),
+                     "first": [], "dirty": [], "idle": []}
     try:
-        first = tick(computer)
-        dirty = []
+        def both(i: int, kind: str) -> None:
+            canon = {}
+            for arm, a in arms.items():
+                if i:
+                    a["append"](i)
+                with engine_arm(arm):
+                    us, payload = tick(a["computer"])
+                    canon[arm] = canon_payload(payload, a["db"])
+                a[kind].append(us)
+            check(canon["engine"] == canon["scalar"], f"live tick {i}: the engine's payload differs from the "
+                                                      f"scalar arm's")
+
+        both(0, "first")
         for i in range(1, LIVE_TICKS + 1):
-            append(i)
-            dirty.append(tick(computer))
-        cached = computer.payload()
-        idle = [tick(computer) for _ in range(LIVE_TICKS)]
-        check(computer.payload() is cached, "an idle live tick did not return the cached payload")
+            both(i, "dirty")
+        for arm, a in arms.items():
+            with engine_arm(arm):
+                cached = a["computer"].payload()
+                a["idle"] = [tick(a["computer"])[0] for _ in range(LIVE_TICKS)]
+                check(a["computer"].payload() is cached, f"an idle live tick ({arm}) did not return the cached "
+                                                         f"payload")
+        with engine_arm("engine"):
+            build = arms["engine"]["computer"].store.window_build_stats()
     finally:
-        computer.close()
-        conn.close()
-    return {"first_tick_us": first, "dirty_tick_us": spread(dirty), "idle_tick_us": spread(idle),
-            "ticks": LIVE_TICKS}
+        for a in arms.values():
+            a["computer"].close()
+            a["conn"].close()
+    check(build["step_time"]["incr_ticks"] > build["step_time"]["full_rebuilds"],
+          f"the live engine's window was rebuilt more often than extended: {build['step_time']}")
+    out = {arm: {"first_tick_us": a["first"][0], "dirty_tick_us": spread(a["dirty"]),
+                 "idle_tick_us": spread(a["idle"])} for arm, a in arms.items()}
+    out.update({"ticks": LIVE_TICKS, "payloads_equal": LIVE_TICKS + 1, "window_build": build})
+    return out
 
 
 def cli_run_phase(cfg, train_healthy: dict, forward_healthy: dict) -> dict:
@@ -1597,22 +1683,23 @@ def cli_run_phase(cfg, train_healthy: dict, forward_healthy: dict) -> dict:
     end.  Gates: ``check_train_run``'s with the verdict of the MFU's band,
     the healthy utilization, and ``check_cli_output``'s.  Reported: its
     step against the ``summary`` train run's; the forward script's
-    (``RUN_FORWARD_STEPS`` steps) under ``cli`` against the ``summary``
+    (``STEPS`` steps) under ``cli`` against the ``summary``
     forward run's (not gated: the forward is paced by the host); the live
-    tick's cost on this run's DB (``live_tick_cost``)."""
+    tick's cost on twin copies of this run's DB, both arms (``live_tick_cost``)."""
     from traceml_tpu_torch.utils import timing as T
 
     name = "train_cli"
     run = launch_run(name, 0.0, 0.1, script="train_script.py", mode="cli")
     got = check_train_run(name, run, cfg, mfu_verdict)
     check_healthy_utilization(name, got)
+    check_report_window_build(name, run["summary"])
     out = {"train": {**check_cli_output(name, run, got), "flash_launches": got["flash_launches"],
                      "verdict": got["verdict"], "step_device_ms_cli": got["step_device_ms"],
                      "step_device_ms_summary": train_healthy["step_device_ms"],
                      "mfu_cli": got["efficiency"]["mfu_median"],
                      "mfu_summary": train_healthy["efficiency"]["mfu_median"],
                      "wall_s_cli": got["wall_s"], "wall_s_summary": train_healthy["wall_s"]}}
-    fwd = launch_run("forward_cli", 0.0, 0.1, steps=RUN_FORWARD_STEPS, mode="cli")
+    fwd = launch_run("forward_cli", 0.0, 0.1, steps=STEPS, mode="cli")
     fwd_ms = [json.loads(ev)[T.STEP_TIME]["device_ms"] for _, _, ev in fwd["rows"]]
     out["forward"] = {"step_device_ms_cli": spread(fwd_ms),
                       "step_device_ms_summary": forward_healthy["step_device_ms"],
@@ -1620,15 +1707,228 @@ def cli_run_phase(cfg, train_healthy: dict, forward_healthy: dict) -> dict:
                       "verdict_summary": forward_healthy["verdict"],
                       "wall_s_cli": fwd["wall_s"], "wall_s_summary": forward_healthy["wall_s"]}
     out["live_tick"] = live_tick_cost(run["session"] / "telemetry.sqlite")
+    out["session"] = run["session"]
     for path in ("train", "forward"):
         a, b = out[path]["step_device_ms_cli"], out[path]["step_device_ms_summary"]
         log("cli", f"{path} step device ms, cli vs summary: " + ", ".join(
             f"{k} {a[k]:.4f} vs {b[k]:.4f} ({a[k] / b[k]:.4f}x)" for k in a))
     tick = out["live_tick"]
-    log("cli", f"live tick (payload + render) µs: first {tick['first_tick_us']:.1f}; dirty median "
-               f"{tick['dirty_tick_us']['median']:.1f}, idle median {tick['idle_tick_us']['median']:.1f} "
-               f"over {LIVE_TICKS} ticks each")
-    log("cli", json.dumps(out))
+    for arm in ("engine", "scalar"):
+        t = tick[arm]
+        log("cli", f"live tick (payload + render) µs, {arm}: first {t['first_tick_us']:.1f}; dirty median "
+                   f"{t['dirty_tick_us']['median']:.1f}, idle median {t['idle_tick_us']['median']:.1f} "
+                   f"over {LIVE_TICKS} ticks each")
+    log("cli", f"live tick payloads equal on {tick['payloads_equal']} ticks; engine window builds "
+               + json.dumps(tick["window_build"]["step_time"]))
+    log("cli", json.dumps(out, default=str))
+    return out
+
+
+def check_report_window_build(name: str, summary: dict) -> None:
+    """A report written with the engines on carries ``meta.window_build``:
+    the step-time cache's one build and the report's one profiled tick."""
+    wb = summary["meta"].get("window_build") or {}
+    st = wb.get("step_time") or {}
+    check(st.get("full_rebuilds") == 1 and (wb.get("tick_profile") or {}).get("ticks") == 1,
+          f"run {name}: final_summary.json meta.window_build {wb}")
+
+
+ENGINE_RANKS = 256  # a 32-node x 8-GPU job, the reference's multi-node user
+ENGINE_SLOW_RANK = 137
+ENGINE_SLOW = 1.3  # the slow rank's durations, x the others'
+ENGINE_JITTER = 0.01  # per-rank duration factor ~ N(1, 0.01); per-row noise 0.2%
+ENGINE_TICKS = 50  # dirty ticks, one new row per rank each; then as many idle ticks
+
+
+def _fanout_sources(session: Path):
+    """Rank 0's step-time and step-memory rows of a finished session, in
+    step order, as the writer's envelopes carry them."""
+    conn = sqlite3.connect(session / "telemetry.sqlite")
+    conn.row_factory = sqlite3.Row
+    try:
+        steps = [{"step": r["step"], "timestamp": r["timestamp"], "clock": r["clock"],
+                  "late_markers": r["late_markers"], "events": json.loads(r["events_json"])}
+                 for r in conn.execute("SELECT step, timestamp, clock, late_markers, events_json FROM "
+                                       "step_time_samples WHERE global_rank = 0 ORDER BY step, id")]
+        memory = [dict(r) for r in conn.execute(
+            "SELECT step, timestamp, device_id, device_kind, current_bytes, peak_bytes, step_peak_bytes, "
+            "limit_bytes FROM step_memory_samples WHERE global_rank = 0 ORDER BY step, id")]
+    finally:
+        conn.close()
+    check(len(steps) >= STEPS and memory, f"engine phase: {len(steps)} step rows, {len(memory)} memory rows "
+                                          f"in {session}")
+    return steps, memory
+
+
+class _Fanout:
+    """Writes a run's rows as ``ENGINE_RANKS`` ranks would ship them, into
+    twin databases through the port's ``SQLiteWriter``: rank r's durations
+    are the source's times a seeded factor (``ENGINE_SLOW`` more on
+    ``ENGINE_SLOW_RANK``) times 0.2% noise a row, its bytes the source's
+    times a seeded factor; envelopes columnar, ``seq`` monotonic a rank."""
+
+    def __init__(self, dbs, steps, memory) -> None:
+        import numpy as np
+
+        from traceml_tpu_torch.aggregator.sqlite_writer import SQLiteWriter
+
+        self.np = np
+        self.rng = np.random.default_rng(SEED)
+        self.factor = self.rng.normal(1.0, ENGINE_JITTER, ENGINE_RANKS)
+        self.factor[ENGINE_SLOW_RANK] *= ENGINE_SLOW
+        self.mem_factor = self.rng.uniform(0.98, 1.02, ENGINE_RANKS)
+        self.steps, self.memory = steps, memory
+        self.writers = []
+        for db in dbs:
+            w = SQLiteWriter(db)
+            w.start()
+            self.writers.append(w)
+        self.seq = [0] * ENGINE_RANKS
+
+    def _step_row(self, rank: int, src: dict, step: int) -> dict:
+        f = float(self.factor[rank] * (1.0 + 0.002 * self.rng.standard_normal()))
+        events = {name: {k: (v * f if k in ("cpu_ms", "device_ms") and v is not None else v) for k, v in ev.items()}
+                  for name, ev in src["events"].items()}
+        return {**src, "step": step, "timestamp": src["timestamp"] + 0.001 * rank, "events": events}
+
+    def _memory_row(self, rank: int, src: dict, step: int) -> dict:
+        f = float(self.mem_factor[rank])
+        return {**src, "step": step, **{k: int(src[k] * f) for k in ("current_bytes", "peak_bytes",
+                                                                     "step_peak_bytes") if src[k] is not None}}
+
+    def _send(self, rank: int, table: str, rows) -> None:
+        from traceml_tpu_torch.telemetry.envelope import SenderIdentity, normalize_telemetry_envelope, rows_to_columns
+
+        ident = SenderIdentity(session_id="engine_tick", global_rank=rank, local_rank=rank % 8,
+                               world_size=ENGINE_RANKS, local_world_size=8, node_rank=rank // 8,
+                               hostname=f"node-{rank // 8}", pid=1000 + rank)
+        self.seq[rank] += 1
+        meta = ident.to_meta()
+        meta.update({"schema": 2, "sampler": table, "timestamp": time.time(), "seq": self.seq[rank]})
+        env = normalize_telemetry_envelope({"meta": meta, "body": {"tables": {table: rows_to_columns(rows)}}})
+        for w in self.writers:  # the writers only read an envelope
+            check(w.ingest(env), f"engine phase: the writer refused rank {rank}'s {table} envelope")
+
+    def write(self, first: int, n: int) -> None:
+        """Steps ``first`` to ``first + n - 1`` on every rank, the source
+        rows reused in turn."""
+        for rank in range(ENGINE_RANKS):
+            idx = [(first - 1 + i) % len(self.steps) for i in range(n)]
+            self._send(rank, "step_time", [self._step_row(rank, self.steps[j], first + i) for i, j in enumerate(idx)])
+            mem = [(first - 1 + i) % len(self.memory) for i in range(n)]
+            self._send(rank, "step_memory", [self._memory_row(rank, self.memory[j], first + i)
+                                             for i, j in enumerate(mem)])
+        for w in self.writers:
+            check(w.force_flush(timeout=120), "engine phase: a writer did not flush")
+
+    def finalize(self) -> None:
+        for w in self.writers:
+            check(w.finalize(timeout=120), "engine phase: a writer did not finalize")
+
+
+def engine_tick_phase(session: Path) -> dict:
+    """The window engines at many ranks, in process on the card's host: the
+    healthy full-width ``cli`` train run's rank-0 step-time and step-memory
+    rows fanned out to ``ENGINE_RANKS`` ranks (``_Fanout``: seeded per-rank
+    jitter, rank ``ENGINE_SLOW_RANK`` ``ENGINE_SLOW`` x slower) into twin
+    databases; a ``LiveComputer`` with the engines (the default) on one and
+    one under the three switches at 0 on the other: a first tick, then
+    ``ENGINE_TICKS`` dirty ticks (one more row per rank each), then as many
+    idle ticks.  Gates: on every dirty tick the two payloads are equal
+    (``canon_payload``); both name the slow rank in the step-time verdict;
+    the engine's cache extends the window more often than it rebuilds it;
+    re-finalizing each database under its arm writes the same
+    ``final_summary.json``, ``generated_at`` and ``meta.window_build``
+    aside.  Reported: ms a tick for each arm and their ratio, the engine's
+    builds by path and invalidation reason, each arm's report ms."""
+    from traceml_tpu_torch.renderers.compute import LiveComputer
+    from traceml_tpu_torch.reporting.final import generate_summary
+    from traceml_tpu_torch.runtime.settings import TraceMLSettings
+
+    steps, memory = _fanout_sources(session)
+    work = RUN_DIR / "engine_tick"
+    shutil.rmtree(work, ignore_errors=True)
+    arms = {}
+    for arm in ("engine", "scalar"):
+        (work / arm).mkdir(parents=True)
+        arms[arm] = {"db": work / arm / "telemetry.sqlite", "ticks": {"first": [], "dirty": [], "idle": []}}
+    fan = _Fanout([a["db"] for a in arms.values()], steps, memory)
+    t0 = time.perf_counter()
+    fan.write(1, len(steps))
+    write_s = time.perf_counter() - t0
+    for a in arms.values():
+        a["computer"] = LiveComputer(a["db"])
+    verdicts = {}
+    try:
+        def both(kind: str, tick_no: int) -> None:
+            canon = {}
+            for arm, a in arms.items():
+                with engine_arm(arm):
+                    t = time.perf_counter_ns()
+                    payload = a["computer"].payload()
+                    a["ticks"][kind].append((time.perf_counter_ns() - t) / 1e6)
+                    if kind == "idle":
+                        check(payload is a["last"], f"engine phase: an idle {arm} tick rebuilt its payload")
+                        continue
+                    a["last"] = payload
+                    canon[arm] = canon_payload(payload, a["db"])
+                    verdicts[arm] = payload["step_time"]["diagnosis"].diagnosis
+            if canon:
+                check(canon["engine"] == canon["scalar"], f"engine phase: {kind} tick {tick_no}: the engine's "
+                                                          f"payload differs from the scalar arm's")
+
+        both("first", 0)
+        for i in range(1, ENGINE_TICKS + 1):
+            fan.write(len(steps) + i, 1)
+            both("dirty", i)
+        for i in range(1, ENGINE_TICKS + 1):
+            both("idle", i)
+        with engine_arm("engine"):
+            build = arms["engine"]["computer"].store.window_build_stats()
+    finally:
+        for a in arms.values():
+            if "computer" in a:
+                a["computer"].close()
+        fan.finalize()
+    for arm, v in verdicts.items():
+        check(v.kind.endswith("STRAGGLER") and f"Rank {ENGINE_SLOW_RANK} " in v.summary,
+              f"engine phase: the {arm} arm's step-time verdict {v.kind}: {v.summary}")
+    st_build = build["step_time"]
+    check(st_build["incr_ticks"] > st_build["full_rebuilds"] >= 1 and not [
+        k for k in build["tick_profile"]["counters"] if k.startswith("vector_fallbacks_")],
+          f"engine phase: the engine's builds {build}")
+    reports = {}
+    for arm, a in arms.items():
+        session_dir = work / f"report_{arm}" / "s"  # its own logs dir: its own baseline store
+        with engine_arm(arm):
+            t = time.perf_counter()
+            check(generate_summary(a["db"], session_dir, TraceMLSettings(session_id="engine_tick", mode="summary")),
+                  f"engine phase: the {arm} report failed")
+            a["report_ms"] = (time.perf_counter() - t) * 1e3
+        report = json.loads((session_dir / "final_summary.json").read_text())
+        wb = report["meta"].pop("window_build", None)
+        check((wb is not None) == (arm == "engine"), f"engine phase: the {arm} report's meta.window_build {wb}")
+        del report["meta"]["generated_at"]
+        reports[arm] = report
+    check(reports["engine"] == reports["scalar"], "engine phase: the two arms' final_summary.json differ")
+    primary = reports["engine"]["primary_diagnosis"]
+    out = {"ranks": ENGINE_RANKS, "slow_rank": ENGINE_SLOW_RANK, "source_steps": len(steps),
+           "source_memory_rows": len(memory), "write_s": write_s, "dirty_ticks": ENGINE_TICKS,
+           "verdict": {"kind": verdicts["engine"].kind, "summary": verdicts["engine"].summary},
+           "report_primary": {"kind": primary.get("kind"), "summary": primary.get("summary")},
+           "window_build": st_build, "tick_profile_counters": build["tick_profile"]["counters"]}
+    for arm, a in arms.items():
+        out[arm] = {"first_ms": a["ticks"]["first"][0], "dirty_ms": spread(a["ticks"]["dirty"]),
+                    "idle_ms": spread(a["ticks"]["idle"]), "report_ms": a["report_ms"]}
+    out["dirty_ratio_scalar_over_engine"] = out["scalar"]["dirty_ms"]["median"] / out["engine"]["dirty_ms"]["median"]
+    for arm in ("engine", "scalar"):
+        t = out[arm]
+        log("engine", f"{arm}: {ENGINE_RANKS} ranks, ms a tick: first {t['first_ms']:.2f}; dirty median "
+                      f"{t['dirty_ms']['median']:.2f} p90 {t['dirty_ms']['p90']:.2f} over {ENGINE_TICKS}; idle "
+                      f"median {t['idle_ms']['median']:.4f}; the report {t['report_ms']:.1f} ms")
+    log("engine", f"dirty tick scalar / engine {out['dirty_ratio_scalar_over_engine']:.2f}x; engine builds "
+                  + json.dumps(st_build) + f"; verdict {verdicts['engine'].kind}: {verdicts['engine'].summary}")
+    log("engine", json.dumps(out))
     return out
 
 
@@ -1932,6 +2232,13 @@ def dashboard_run_phase(cfg, train_healthy: dict) -> dict:
     held = probe.held
     check(held["closed_at"] is not None and held["closed_at"] <= probe.run_ended_at and held["events"] >= 1,
           f"run {name}: the SSE stream held across the run's end: {held}")
+    build = (probe.last_live or {}).get("window_build") or {}
+    st_build = build.get("step_time") or {}
+    fallbacks = [k for k in ((build.get("tick_profile") or {}).get("counters") or {})
+                 if k.startswith("vector_fallbacks_")]
+    check(st_build.get("incr_ticks", 0) > st_build.get("full_rebuilds", 0) >= 1 and not fallbacks,
+          f"run {name}: the last /api/live's window_build {build}")
+    check_report_window_build(name, run["summary"])
     train_summary = json.loads((Path(train_healthy["session"]) / "final_summary.json").read_text())
     out = {"flash_launches": got["flash_launches"], "verdict": got["verdict"],
            "step_device_ms_dashboard": got["step_device_ms"],
@@ -1943,7 +2250,7 @@ def dashboard_run_phase(cfg, train_healthy: dict) -> dict:
            "delta": {"code": delta["code"], "attempt": delta["attempt"]}, "stream_events_at_s": [
                e["at_s"] for e in events], "held_stream_events": held["events"],
            "held_stream_closed_before_exit_s": probe.run_ended_at - held["closed_at"],
-           "html": run["html"], "serving": serving_cost(run["session"]),
+           "window_build": build, "html": run["html"], "serving": serving_cost(run["session"]),
            "html_render": html_render_cost(train_summary)}
     a, b = out["step_device_ms_dashboard"], out["step_device_ms_summary"]
     log("dashboard", "train step device ms, dashboard vs summary: " + ", ".join(
@@ -1953,6 +2260,8 @@ def dashboard_run_phase(cfg, train_healthy: dict) -> dict:
                      f"{cost['dirty_us']['median']:.1f} p90 {cost['dirty_us']['p90']:.1f}, idle median "
                      f"{cost['idle_us']['median']:.1f} p90 {cost['idle_us']['p90']:.1f} over {POLL_TIMES} each; "
                      f"full body {cost['full_body_bytes']} bytes, gzip {cost['full_body_gzip_bytes']}")
+    log("dashboard", "the last /api/live's window_build: step_time " + json.dumps(st_build) + ", tick profile "
+        + json.dumps(build["tick_profile"]))
     log("dashboard", f"render_html_summary on the summary train run's payload: "
                      f"{out['html_render']['ms_median']:.3f} ms, {out['html_render']['bytes']} bytes")
     log("dashboard", json.dumps(out))
@@ -2529,6 +2838,9 @@ def main() -> int:
     kernel["launches"] += cli["train"]["flash_launches"]
     kernel["launches_by_path"]["train_cli_run"] = cli["train"]["flash_launches"]
     log("time", f"cli run phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    engine_tick_phase(cli["session"])
+    log("time", f"engine tick phase {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     dashboard = dashboard_run_phase(cfg, train_healthy)
     kernel["launches"] += dashboard["flash_launches"]

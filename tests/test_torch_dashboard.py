@@ -10,10 +10,14 @@ federation pages, which the port leaves out) and
   seeded session DB (``tests/test_torch_live_display.py``'s scenarios,
   written by the port's writer, plus an ``ingest_stats.json``), the JAX
   side on its scalar arm (``TRACEML_COLUMNAR_WINDOW=0
-  TRACEML_INCR_WINDOW=0 TRACEML_VECTOR_DIAGNOSIS=0``): the same keys in
-  the same order, equal values with ``ts`` aside, floats within 1e-9
-  relative, the findings' actions and summaries through
-  ``tests/test_torch_advice.py``'s table.
+  TRACEML_INCR_WINDOW=0 TRACEML_VECTOR_DIAGNOSIS=0``), the port's with
+  its engines on, as by default: the same keys in the same order, equal
+  values with ``ts`` aside, floats within 1e-9 relative, the findings'
+  actions and summaries through ``tests/test_torch_advice.py``'s table.
+  The port's meta fragment also carries ``window_build`` (the engine's
+  counters and tick profile), which the JAX scalar arm leaves out; its
+  shape against the JAX engine's is held in
+  ``tests/test_torch_tick_profile.py``.
 * **Serving.**  Deltas replayed in any interleaving equal the full
   payload; an idle delta is a 204 with a stable token; the full payload's
   shape and version; SSE with ``Last-Event-ID`` resume; ETag and gzip on
@@ -60,7 +64,14 @@ import pytest
 
 from tests.test_torch_advice import port_advice
 from tests.test_torch_html_report import JAX_WORDS
-from tests.test_torch_live_display import SCENARIOS, _GatingDB, _gating_step_rows, _jax_scalar_arm, _seed
+from tests.test_torch_live_display import (
+    SCENARIOS,
+    _GatingDB,
+    _gating_step_rows,
+    _jax_scalar_arm,
+    _port_engines_on,
+    _seed,
+)
 from traceml_tpu_torch.aggregator.display_drivers.browser import _PAGE, BrowserDisplayDriver, wait_until_ready
 from traceml_tpu_torch.aggregator.display_drivers.browser_sections.pages import ALL_SECTIONS
 from traceml_tpu_torch.aggregator.trace_aggregator import write_ready_file
@@ -93,6 +104,14 @@ def _ingest_stats(session_dir):
         "group_commit": {"commits": 7}, "corrupt_frame_drops": {}, "pending_frames_hwm": 2,
         "producers": {"0": {"codec": "msgpack"}}, "final": False, "ts": 1.7e9,
     })
+
+
+def _engine_keys_aside(port):
+    """The port payload less ``ts`` and the ``window_build`` key its
+    engines add (present, with a step_time cache and a tick profile)."""
+    wb = port["window_build"]
+    assert wb["step_time"]["full_rebuilds"] >= 1 and wb["tick_profile"]["ticks"] >= 1
+    return {k: v for k, v in port.items() if k not in ("ts", "window_build")}
 
 
 def _close(a, b, path="$"):
@@ -134,16 +153,17 @@ def test_payload_equals_the_jax_payload(tmp_path, monkeypatch, name):
     _ingest_stats(db.parent)
     try:
         jax = jax_build(db, "dash")
+        _port_engines_on(monkeypatch)
         port = web_payload.build_web_payload(db, "dash")
     finally:
         writer.finalize()
-    assert list(port) == list(jax)
+    assert [k for k in port if k != "window_build"] == list(jax)
     assert list(port)[:3] == ["version", "session", "ts"] and port["version"] == 3
     assert port["collectives"] is None and "serving" not in port and "history" not in port
     assert port["ingest"]["envelopes_ingested"] == 42 and port["rank_status"]["states"]
     assert port["findings"] and port["stdout"]
     jax = port_advice({k: v for k, v in jax.items() if k != "ts"})
-    assert _close({k: v for k, v in port.items() if k != "ts"}, jax) is None
+    assert _close(_engine_keys_aside(port), jax) is None
 
 
 def test_fragments_and_token_are_the_jax_ones():
@@ -576,10 +596,10 @@ def test_payload_with_history_equals_the_jax_payload(folded_payload, monkeypatch
     _jax_scalar_arm(monkeypatch)
     db, port = folded_payload
     jax = jax_build(db, "folded")
-    assert list(port) == list(jax) and "history" in port
+    assert [k for k in port if k != "window_build"] == list(jax) and "history" in port
     assert port["history"]["step_time"]["ranks"] == 2 and port["history"]["step_time"]["points"]
     jax = port_advice({k: v for k, v in jax.items() if k != "ts"})
-    assert _close({k: v for k, v in port.items() if k != "ts"}, jax) is None
+    assert _close(_engine_keys_aside(port), jax) is None
 
 
 def test_every_js_element_id_exists_in_the_markup():

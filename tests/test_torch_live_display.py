@@ -5,8 +5,10 @@ split, model_stats, step memory, system and process rows with their GPU
 rows, stdout rows, from a numpy seed; written by the port's
 ``SQLiteWriter``, whose tables equal the JAX writer's) is read by the JAX
 ``LiveComputer`` (its scalar arm: ``TRACEML_COLUMNAR_WINDOW=0
-TRACEML_INCR_WINDOW=0 TRACEML_VECTOR_DIAGNOSIS=0``) and by the port's.
-Every view's ``as_dict`` is equal, exactly (tolerance 0: the same scalar
+TRACEML_INCR_WINDOW=0 TRACEML_VECTOR_DIAGNOSIS=0``) and by the port's
+with its engines on, as by default (the port's engines equal its scalar
+arm bit for bit, ``tests/test_torch_columnar_window.py``).
+Every view's ``as_dict`` is equal, exactly (tolerance 0: the same
 arithmetic in the same order), and so are the topology, the stdout tail,
 the freshness stamp and the liveness strip; the per-domain diagnoses are
 equal once the JAX actions and summaries go through
@@ -122,9 +124,19 @@ def _seed(tmp_path, name):
     return db, writer
 
 
+ENGINE_SWITCHES = ("TRACEML_COLUMNAR_WINDOW", "TRACEML_INCR_WINDOW", "TRACEML_VECTOR_DIAGNOSIS")
+
+
 def _jax_scalar_arm(monkeypatch):
-    for flag in ("TRACEML_COLUMNAR_WINDOW", "TRACEML_INCR_WINDOW", "TRACEML_VECTOR_DIAGNOSIS"):
+    for flag in ENGINE_SWITCHES:
         monkeypatch.setenv(flag, "0")
+
+
+def _port_engines_on(monkeypatch):
+    """Both packages read the same switch names on every call: unset them
+    after the JAX scalar arm ran, so the port runs its engines."""
+    for flag in ENGINE_SWITCHES:
+        monkeypatch.delenv(flag, raising=False)
 
 
 def _both_payloads(tmp_path, monkeypatch, name):
@@ -134,7 +146,11 @@ def _both_payloads(tmp_path, monkeypatch, name):
     db, writer = _seed(tmp_path, name)
     jax_c, port_c = JaxComputer(db), LiveComputer(db)
     try:
-        return jax_c.payload(), port_c.payload()
+        jax = jax_c.payload()
+        _port_engines_on(monkeypatch)
+        port = port_c.payload()
+        assert getattr(port["step_time"]["window"], "col", None) is not None  # the engine's window
+        return jax, port
     finally:
         jax_c.close()
         port_c.close()

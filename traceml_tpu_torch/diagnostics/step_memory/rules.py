@@ -1,13 +1,16 @@
-"""Step-memory rules, scalar arm.
+"""Step-memory rules.
 
-Counterpart of ``traceml_tpu/diagnostics/step_memory/rules.py`` without
-the columnar context build and the vectorized imbalance gate (the JAX
-package's scalar branch is its golden reference).  Rule texts are kept
-verbatim, except the actions, which name PyTorch/CUDA remedies.
+Counterpart of ``traceml_tpu/diagnostics/step_memory/rules.py``.  Rule
+texts are kept verbatim, except the actions, which name PyTorch/CUDA
+remedies.
 
 Context shape: per-rank per-device :class:`MemorySeries` (sorted step
-series of ``{step, current_bytes, step_peak_bytes, limit_bytes}``) built
-from row dicts.
+series of ``{step, current_bytes, step_peak_bytes, limit_bytes}``),
+built either from row dicts or directly from the snapshot store's
+:class:`~traceml_tpu_torch.utils.columnar.MemoryColumns` ring buffers;
+both paths yield identical series, so every rule has one implementation.
+The imbalance rule's cross-rank scan has a vectorized arm
+(``vector.median_worst_skew``) beside the scalar reference.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 import statistics
 from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
 
 from traceml_tpu_torch.analytics.trends.core import (
     compute_trend_evidence,
@@ -27,8 +32,9 @@ from traceml_tpu_torch.diagnostics.common import (
     DiagnosticIssue,
     confidence_from,
 )
+from traceml_tpu_torch.diagnostics.step_memory import vector
 from traceml_tpu_torch.diagnostics.step_memory.policy import DEFAULT_POLICY, StepMemoryPolicy
-from traceml_tpu_torch.utils.columnar import MemorySeries
+from traceml_tpu_torch.utils.columnar import C_DEV, MemoryColumns, MemorySeries
 from traceml_tpu_torch.utils.formatting import fmt_bytes
 
 
@@ -58,6 +64,28 @@ def build_memory_context(
         key: MemorySeries.from_rows(key[0], key[1], rows)
         for key, rows in groups.items()
     }
+    return MemoryContext(series=series, policy=policy)
+
+
+def build_memory_context_from_columns(
+    rank_columns: Mapping[int, MemoryColumns],
+    policy: StepMemoryPolicy = DEFAULT_POLICY,
+) -> MemoryContext:
+    """Columnar context build: splits each rank's ring buffer by device
+    (first-encounter order, matching the row path's insertion order)
+    with no per-row dict copies."""
+    series: Dict[tuple, MemorySeries] = {}
+    for rank, cols in rank_columns.items():
+        data = cols.data_view()
+        if data.shape[0] == 0:
+            continue
+        devs = data[:, C_DEV]
+        uniq, first_idx = np.unique(devs, return_index=True)
+        for d in uniq[np.argsort(first_idx, kind="stable")].tolist():
+            key = (int(rank), int(d))
+            series[key] = MemorySeries.from_int_columns(
+                key[0], key[1], data[devs == d]
+            )
     return MemoryContext(series=series, policy=policy)
 
 
@@ -123,9 +151,15 @@ class ImbalanceRule:
                 )
         if len(per_rank) < 2:
             return []
-        med = statistics.median(per_rank.values())
-        worst_rank = max(per_rank, key=lambda r: per_rank[r])
-        skew = ((per_rank[worst_rank] - med) / med) if med > 0 else 0.0
+        stats = (
+            vector.median_worst_skew(per_rank) if vector.enabled() else None
+        )
+        if stats is not None:
+            med, worst_rank, skew = stats
+        else:  # scalar golden-reference arm
+            med = statistics.median(per_rank.values())
+            worst_rank = max(per_rank, key=lambda r: per_rank[r])
+            skew = ((per_rank[worst_rank] - med) / med) if med > 0 else 0.0
         if med <= 0:
             return []
         if skew < p.imbalance_warn:

@@ -1,9 +1,11 @@
-"""Step-time diagnostic rules, scalar arm.
+"""Step-time diagnostic rules.
 
-Counterpart of ``traceml_tpu/diagnostics/step_time/rules.py`` without the
-vectorized branches: the JAX package takes those only for a window that
-carries the columnar engine's cubes (``vector.gate``), and this port's
-windows carry none, so the scalar golden-reference arm is the whole rule.
+Counterpart of ``traceml_tpu/diagnostics/step_time/rules.py``.  A rule
+reading per-rank statistics has two arms: the vectorized one, taken when
+``vector.gate(window)`` hands out the columnar engine's cubes
+(``TRACEML_VECTOR_DIAGNOSIS`` on and a cube-backed window), and the
+scalar one, the golden reference, which the vectorized arm reproduces
+bit for bit (``tests/test_torch_vector_parity.py``).
 
 Rules:
 
@@ -43,6 +45,8 @@ from __future__ import annotations
 import statistics
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from traceml_tpu_torch.diagnostics.common import (
     SEVERITY_CRITICAL,
     SEVERITY_INFO,
@@ -50,7 +54,9 @@ from traceml_tpu_torch.diagnostics.common import (
     DiagnosticIssue,
     confidence_from,
 )
+from traceml_tpu_torch.diagnostics.step_time import vector
 from traceml_tpu_torch.diagnostics.step_time.policy import StepTimePolicy
+from traceml_tpu_torch.utils.columnar import KEY_INDEX, plain_fold, sum_fold
 from traceml_tpu_torch.utils.step_time_window import RESIDUAL_KEY, STEP_KEY, StepTimeWindow
 
 _STRAGGLER_KIND_BY_PHASE = {
@@ -109,15 +115,25 @@ class InputBoundRule:
         step: median input ≈ 0 on every rank) cannot be suppressed by
         a statistic mismatch."""
         w = ctx.window
-        shares = []
-        for r in w.ranks:
-            avg = w.rank_windows[r].averages
-            step = avg.get(STEP_KEY, 0.0)
-            if step > 0:
-                shares.append(avg.get("input", 0.0) / step)
-        if not shares:
-            return None
-        shares.sort()
+        col = vector.gate(w)
+        if col is not None:
+            step = col.averages[:, KEY_INDEX[STEP_KEY]]
+            mask = step > 0
+            if not bool(mask.any()):
+                return None
+            shares = np.sort(
+                col.averages[:, KEY_INDEX["input"]][mask] / step[mask]
+            ).tolist()
+        else:
+            shares = []
+            for r in w.ranks:
+                avg = w.rank_windows[r].averages
+                step = avg.get(STEP_KEY, 0.0)
+                if step > 0:
+                    shares.append(avg.get("input", 0.0) / step)
+            if not shares:
+                return None
+            shares.sort()
         if len(shares) <= 4:
             return shares[0]
         return shares[max(0, (len(shares) - 1) // 4)]
@@ -199,6 +215,34 @@ class CleanStragglerRule:
         only statistic that can SEE spiky per-rank pathologies (a rank
         checkpointing/recompiling on 1-in-10 steps has median ≈ healthy;
         cf. CompileBoundRule's means-over-medians rationale)."""
+        col = vector.gate(w)
+        if col is not None:
+            stats = col.medians if stat_name == "medians" else col.averages
+            step_a = stats[:, KEY_INDEX[STEP_KEY]]
+            if step_a.size == 0:
+                return None
+            sync_a = (
+                stats[:, KEY_INDEX[sync_phase]]
+                if sync_phase
+                else np.zeros_like(step_a)
+            )
+            non_sync_a = np.maximum(0.0, step_a - sync_a)
+            max_non_sync = float(np.max(non_sync_a))
+            clean_sync_a = np.maximum(
+                0.0, sync_a - np.maximum(0.0, max_non_sync - non_sync_a)
+            )
+            clean_step_a = non_sync_a + clean_sync_a
+            med_clean = float(np.median(clean_step_a))
+            med_actual = float(np.median(step_a))
+            if med_actual <= 0:
+                return None
+            ranks = col.ranks
+            clean_step = dict(zip(ranks, clean_step_a.tolist()))
+            clean_sync = dict(zip(ranks, clean_sync_a.tolist()))
+            step_stat = dict(zip(ranks, step_a.tolist()))
+            worst_rank = ranks[int(np.argmax(clean_step_a))]
+            score = (clean_step[worst_rank] - med_clean) / med_actual
+            return score, worst_rank, clean_step, clean_sync, step_stat
         step_stat = {
             r: getattr(w.rank_windows[r], stat_name)[STEP_KEY] for r in w.ranks
         }
@@ -258,18 +302,25 @@ class CleanStragglerRule:
         # cross-rank median, with the sync phase replaced by its clean
         # form — read from the SAME statistic that produced the score.
         keys = list(w.phases_present) + [RESIDUAL_KEY]
-        deltas: Dict[str, float] = {}
-        for key in keys:
-            per_rank = {
-                r: (
-                    clean_sync[r]
-                    if key == sync_phase
-                    else getattr(w.rank_windows[r], stat_name).get(key, 0.0)
-                )
-                for r in w.ranks
-            }
-            med = statistics.median(per_rank.values())
-            deltas[key] = max(0.0, per_rank[worst_rank] - med)
+        deltas: Optional[Dict[str, float]] = None
+        col = vector.gate(w)
+        if col is not None:
+            deltas = vector.component_deltas(
+                col, stat_name, keys, sync_phase, clean_sync, worst_rank
+            )
+        if deltas is None:  # scalar golden-reference arm
+            deltas = {}
+            for key in keys:
+                per_rank = {
+                    r: (
+                        clean_sync[r]
+                        if key == sync_phase
+                        else getattr(w.rank_windows[r], stat_name).get(key, 0.0)
+                    )
+                    for r in w.ranks
+                }
+                med = statistics.median(per_rank.values())
+                deltas[key] = max(0.0, per_rank[worst_rank] - med)
         ordered = sorted(deltas.items(), key=lambda kv: -kv[1])
         kind = "STRAGGLER"
         dominant_phase: Optional[str] = None
@@ -428,23 +479,35 @@ class CompileBoundRule:
         if step is None or step.mean_ms <= 0:
             return []
         p = ctx.policy
-        recompile_ms_per_rank = []
-        n_compile_steps = 0
-        for rw in w.rank_windows.values():
-            series = rw.series.get("compile", [])
-            recompile_total = 0.0
-            for step_id, v in zip(rw.steps, series):
-                if v > 0 and step_id > p.compile_warmup_steps:
-                    recompile_total += v
-                    n_compile_steps += 1
-            recompile_ms_per_rank.append(
-                recompile_total / max(1, len(series))
+        col = vector.gate(w)
+        if col is not None:
+            comp = col.series_cube[:, KEY_INDEX["compile"], :]  # (R, S)
+            mask = (comp > 0) & (col.steps > p.compile_warmup_steps)
+            n_compile_steps = int(mask.sum())
+            if n_compile_steps == 0:
+                return []
+            # the scalar arm's per-rank += fold, then sum() over the ranks
+            totals = plain_fold(np.where(mask, comp, 0.0).T)
+            per_rank = totals / max(1, comp.shape[1])
+            mean_recompile = float(sum_fold(per_rank[:, None])[0]) / per_rank.shape[0]
+        else:
+            recompile_ms_per_rank = []
+            n_compile_steps = 0
+            for rw in w.rank_windows.values():
+                series = rw.series.get("compile", [])
+                recompile_total = 0.0
+                for step_id, v in zip(rw.steps, series):
+                    if v > 0 and step_id > p.compile_warmup_steps:
+                        recompile_total += v
+                        n_compile_steps += 1
+                recompile_ms_per_rank.append(
+                    recompile_total / max(1, len(series))
+                )
+            if n_compile_steps == 0 or not recompile_ms_per_rank:
+                return []
+            mean_recompile = sum(recompile_ms_per_rank) / len(
+                recompile_ms_per_rank
             )
-        if n_compile_steps == 0 or not recompile_ms_per_rank:
-            return []
-        mean_recompile = sum(recompile_ms_per_rank) / len(
-            recompile_ms_per_rank
-        )
         share = mean_recompile / step.mean_ms
         if share < p.compile_share_warn:
             return []

@@ -4,7 +4,7 @@ Counterpart of ``traceml_tpu/renderers/cli/dashboard.py``: a header with
 the staleness badge and the rank liveness strip, then the panels in the
 JAX order (step time first, then findings, then resources; the cluster
 panel only in multi-node runs).  The JAX header's mesh strip waits for
-the mesh topology (ROADMAP queue 1 item 4).
+the mesh topology (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Serving tier: version-keyed publication of the dashboard payload to
 any number of viewers.
 
-Counterpart of ``traceml_tpu/renderers/serving.py`` (without the tick
-profiler's serialize stage and the fleet index's ``fragment`` peek, which
-serve the JAX window engine and session registry).
+Counterpart of ``traceml_tpu/renderers/serving.py`` (without the fleet
+index's ``fragment`` peek, which serves the JAX session registry).  Each
+fragment's JSON encode is timed into the store's tick profiler as its
+``serialize`` stage.
 
 One :class:`SessionPublisher` per live session owns the session's
 ``LiveComputer`` and a cache of serialized payload fragments keyed on the
@@ -153,7 +154,9 @@ class SessionPublisher:
                 obj = build_fragment(
                     name, payload, session=self.session, db_path=self.db_path
                 )
+                t0 = time.perf_counter_ns()
                 raw = json.dumps(obj).encode("utf-8")
+                self._computer.store.tick_profile.note_stage(name, "serialize", time.perf_counter_ns() - t0)
                 self.stats["builds"][name] += 1
                 if deps is not None:
                     self._computed_deps[name] = at

@@ -2,11 +2,18 @@
 lives (render surfaces only format).
 
 Counterpart of ``traceml_tpu/renderers/views.py`` for the domains the
-port writes: step time (the scalar arm, with the efficiency block),
-device memory, system and process.  The collectives and serving views
-come with their queues (ROADMAP queue 1 items 4 and 5).  Views are
-frozen dataclasses; ``as_dict`` gives the same dict as the JAX view's
-with ``TRACEML_VECTOR_DIAGNOSIS=0``.
+port writes: step time (with the efficiency block), device memory,
+system and process.  The collectives and serving views come with their
+queues (ROADMAP queue 1 items 5 and 6).  Views are frozen dataclasses;
+``as_dict`` gives the same dict as the JAX view's.
+
+As in JAX, the step-time tables and the memory view's per-row walk have
+columnar fast paths: a cube-backed window's series, cross-rank medians
+and per-rank averages are read off the cube, and a rank's memory ring
+gives its first non-null current bytes and history tail.  Both give the
+scalar paths' values exactly.  ``as_dict`` walks the view without
+``dataclasses.asdict``'s deep copies unless
+``TRACEML_VECTOR_DIAGNOSIS=0``; the dicts are equal either way.
 """
 
 from __future__ import annotations
@@ -16,9 +23,18 @@ import statistics
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
+
 from traceml_tpu_torch.analytics.efficiency import build_efficiency
+from traceml_tpu_torch.utils.columnar import (
+    C_CUR,
+    KEY_INDEX,
+    MemoryColumns,
+    vector_diagnosis_enabled,
+)
 from traceml_tpu_torch.utils.rankstats import closest_rank_to_median
 from traceml_tpu_torch.utils.step_time_window import (
+    ALL_KEYS,
     RESIDUAL_KEY,
     STEP_KEY,
     StepTimeWindow,
@@ -27,7 +43,30 @@ from traceml_tpu_torch.utils.step_time_window import (
 _STALE_AFTER_S = 5.0
 
 
+def _fast_asdict(obj: Any) -> Any:
+    """Value-identical replacement for the ``dataclasses.asdict`` walk,
+    which routes every leaf through ``copy.deepcopy``.  This walk builds
+    fresh dicts and lists (callers may cache the result) but passes
+    primitives through untouched; the inline float/int test keeps the
+    per-step series out of the recursion."""
+    if type(obj) is dict:
+        return {k: _fast_asdict(v) for k, v in obj.items()}
+    if type(obj) is list or type(obj) is tuple:
+        return [
+            v if type(v) is float or type(v) is int else _fast_asdict(v)
+            for v in obj
+        ]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {
+            f.name: _fast_asdict(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+        }
+    return obj
+
+
 def _asdict(obj: Any) -> Any:
+    if vector_diagnosis_enabled():
+        return _fast_asdict(obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.asdict(obj)
     return obj
@@ -86,8 +125,10 @@ class StepTimeView:
 
 
 def _step_time_tables(window: StepTimeWindow, series_tail: int) -> Dict[str, Any]:
-    """Every window-derived table in the step_time view (the JAX
-    function's scalar arm)."""
+    """Every window-derived table in the step_time view: a pure function
+    of the window, so ``LiveComputer`` memoizes it per step_time version
+    (``table_cache``) and a model_stats-only tick rebuilds only the MFU
+    block."""
     phases: List[PhaseStat] = []
     for key in [STEP_KEY] + window.phases_present + [RESIDUAL_KEY]:
         m = window.metric(key)
@@ -109,26 +150,45 @@ def _step_time_tables(window: StepTimeWindow, series_tail: int) -> Dict[str, Any
         )
     tail = window.steps[-series_tail:]
     offset = len(window.steps) - len(tail)
+    col = getattr(window, "col", None)
     phase_stack: Dict[str, List[float]] = {}
-    step_series = {
-        str(r): [round(v, 4) for v in w.series[STEP_KEY][offset:]]
-        for r, w in window.rank_windows.items()
-    }
-    # cross-rank median per phase per step — the stacking series the
-    # dashboard charts consume (reference: StepCombinedTimeSeries)
-    rw = list(window.rank_windows.values())
-    for key in window.phases_present + [RESIDUAL_KEY]:
-        per_step = []
-        for i in range(offset, len(window.steps)):
-            vals = [w.series[key][i] for w in rw if i < len(w.series[key])]
-            per_step.append(
-                round(statistics.median(vals), 4) if vals else 0.0
+    if col is not None:
+        # columnar fast path: series, per-phase cross-rank medians and
+        # per-rank averages straight off the cube (tolist() BEFORE
+        # round() so the values are native floats, as in the scalar arm)
+        step_series = {
+            str(r): [round(v, 4) for v in row]
+            for r, row in zip(
+                col.ranks, col.series_cube[:, KEY_INDEX[STEP_KEY], offset:].tolist()
             )
-        phase_stack[key] = per_step
-    per_rank_avg = {
-        r: {k: round(v, 4) for k, v in w.averages.items()}
-        for r, w in window.rank_windows.items()
-    }
+        }
+        for key in window.phases_present + [RESIDUAL_KEY]:
+            med = np.median(col.series_cube[:, KEY_INDEX[key], offset:], axis=0)
+            phase_stack[key] = [round(v, 4) for v in med.tolist()]
+        per_rank_avg = {
+            r: {k: round(v, 4) for k, v in zip(ALL_KEYS, row)}
+            for r, row in zip(col.ranks, col.averages.tolist())
+        }
+    else:
+        step_series = {
+            str(r): [round(v, 4) for v in w.series[STEP_KEY][offset:]]
+            for r, w in window.rank_windows.items()
+        }
+        # cross-rank median per phase per step — the stacking series the
+        # dashboard charts consume (reference: StepCombinedTimeSeries)
+        rw = list(window.rank_windows.values())
+        for key in window.phases_present + [RESIDUAL_KEY]:
+            per_step = []
+            for i in range(offset, len(window.steps)):
+                vals = [w.series[key][i] for w in rw if i < len(w.series[key])]
+                per_step.append(
+                    round(statistics.median(vals), 4) if vals else 0.0
+                )
+            phase_stack[key] = per_step
+        per_rank_avg = {
+            r: {k: round(v, 4) for k, v in w.averages.items()}
+            for r, w in window.rank_windows.items()
+        }
     return {
         "phases": phases,
         "tail": tail,
@@ -149,10 +209,16 @@ def build_step_time_view(
     latest_ts: Optional[float] = None,
     series_tail: int = 60,
     model_stats: Optional[Dict[int, Dict[str, Any]]] = None,
+    table_cache: Optional[Dict[str, Any]] = None,
 ) -> Optional[StepTimeView]:
     if window is None:
         return None
-    t = _step_time_tables(window, series_tail)
+    if table_cache is not None and "tables" in table_cache:
+        t = table_cache["tables"]
+    else:
+        t = _step_time_tables(window, series_tail)
+        if table_cache is not None:
+            table_cache["tables"] = t
     per_rank_avg = t["per_rank_avg"]
     world = max(world_size or 0, len(window.ranks))
     return StepTimeView(
@@ -221,6 +287,7 @@ def build_memory_view(
     rows_by_rank: Mapping[int, Sequence[Mapping[str, Any]]],
     *,
     history_tail: int = 60,
+    columns: Optional[Mapping[int, MemoryColumns]] = None,
 ) -> Optional[MemoryView]:
     if not isinstance(rows_by_rank, Mapping) or not rows_by_rank:
         return None
@@ -234,11 +301,21 @@ def build_memory_view(
         cur = last.get("current_bytes")
         step_peak = last.get("step_peak_bytes")
         limit = last.get("limit_bytes")
-        first_cur = next(
-            (r.get("current_bytes") for r in rows if r.get("current_bytes") is not None),
-            None,
-        )
-        history = [int(r.get("current_bytes") or 0) for r in rows[-history_tail:]]
+        # the per-row walk (first non-null current and the history tail)
+        # has a columnar fast path over the rank's ring; -1 == NULL, and
+        # arrival order matches the row list exactly
+        col = columns.get(rank) if columns is not None else None
+        if col is not None and len(col) == len(rows) and col.columnar_ok:
+            cur_col = col.column(C_CUR)
+            nn = np.flatnonzero(cur_col >= 0)
+            first_cur = int(cur_col[nn[0]]) if nn.size else None
+            history = np.maximum(cur_col[-history_tail:], 0).tolist()
+        else:
+            first_cur = next(
+                (r.get("current_bytes") for r in rows if r.get("current_bytes") is not None),
+                None,
+            )
+            history = [int(r.get("current_bytes") or 0) for r in rows[-history_tail:]]
         ts = last.get("timestamp")
         if ts is not None:
             latest_ts = max(latest_ts or 0.0, float(ts))

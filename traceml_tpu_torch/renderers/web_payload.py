@@ -17,10 +17,12 @@ JAX, until the writer's first prune folds a row.  The domains the port
 does not have yet read as the JAX payload does on a training session
 that recorded none: ``collectives`` is ``null`` (its sampler, ROADMAP
 queue 1 item 5), ``serving`` is left out (the serving probe, item 6),
-and ``meta`` has no ``mesh`` (``utils/topology.py``, item 5) or
-``window_build`` (the incremental window, item 4).  ``meta.regressions``
-is the finished run's cross-run verdict (``regressions.json``), left out
-until the report writes it, as in JAX.  The
+and ``meta`` has no ``mesh`` (``utils/topology.py``, item 5).
+``meta.regressions`` is the finished run's cross-run verdict
+(``regressions.json``), left out until the report writes it, as in JAX;
+``meta.window_build`` is the window engine's build counters and tick
+profile, which ``LiveComputer.payload_with_versions`` attaches while the
+incremental engine is on.  The
 findings carry no mesh ``attribution`` either: the port's diagnoses run
 with no topology, as the JAX ones do when no mesh was captured.
 """
@@ -130,8 +132,8 @@ def _diagnosis_fragment(payload: Dict[str, Any]) -> Dict[str, Any]:
 def _meta_fragment(payload: Dict[str, Any], session_dir: Path) -> Dict[str, Any]:
     """The aggregator's self-metrics for the page's meta strip
     (backpressure, per-domain drops, writer latency), the per-rank
-    liveness strip, live rather than only in the final summary, and the
-    finished run's cross-run verdict."""
+    liveness strip, live rather than only in the final summary, the
+    finished run's cross-run verdict and the window engine's counters."""
     out: Dict[str, Any] = {}
     if not payload.get("db_exists"):
         return out
@@ -167,6 +169,12 @@ def _meta_fragment(payload: Dict[str, Any], session_dir: Path) -> Dict[str, Any]
             out["regressions"] = regressions
     except Exception:
         pass
+    # the window engine's health: the incremental cache's builds by path
+    # and invalidation reason, and the tick profile; absent when the
+    # incremental engine is off or was never consulted
+    window_build = payload.get("window_build_stats")
+    if window_build:
+        out["window_build"] = window_build
     return out
 
 

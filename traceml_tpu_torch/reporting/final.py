@@ -3,9 +3,12 @@
 Counterpart of ``traceml_tpu/reporting/final.py`` for the system,
 process, step-time, step-memory and liveness domains.  Reads the SQLite
 projections through ``reporting/loaders.py``, builds the step-time
-window with the scalar ``utils/step_time_window.py`` (the JAX package's
-golden reference arm),
-runs each domain's diagnosis, promotes a run-level primary diagnosis,
+window as the live store does (the incremental cache over columnar rings
+of the rows read, the full columnar build under ``TRACEML_INCR_WINDOW=0``,
+the scalar ``utils/step_time_window.py`` under
+``TRACEML_COLUMNAR_WINDOW=0`` or for rows a ring cannot hold; the same
+window each way), runs each domain's diagnosis, promotes a run-level
+primary diagnosis,
 and writes ``final_summary.json``, ``final_summary.txt`` and
 ``final_summary.html`` atomically.  A failed section degrades to a
 NO_DATA payload: the report never fails because one domain did, nor
@@ -32,9 +35,13 @@ baseline" line and a ``[baseline] PERF_REGRESSION`` line per issue.  The
 port has no topology capture yet, so the check runs with
 ``topology=None`` and no issue carries the JAX rank attribution: the
 path the JAX report takes whenever no mesh was captured.  A store that
-cannot be used leaves the section out; nothing else fails.  The payload
-leaves out what the JAX report adds only when it has something for it:
-``meta.window_build`` (the columnar engine's counters).
+cannot be used leaves the section out; nothing else fails.
+
+As in JAX, the report is one profiled tick: its reads are the ``store``
+domain's ``refresh`` stage, each section's build its ``diagnose`` stage
+(``attribute`` is 0 ns: no mesh attribution), and with the incremental
+engine on ``meta.window_build`` holds the window cache's counters and
+that profile (``utils/columnar.py`` ``window_build_snapshot``).
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ import statistics
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
+
+import numpy as np
 
 from traceml_tpu_torch.analytics import baselines
 from traceml_tpu_torch.analytics.efficiency import build_efficiency
@@ -58,6 +67,17 @@ from traceml_tpu_torch.reporting.primary_diagnosis import build_primary_diagnosi
 from traceml_tpu_torch.reporting.rollup import build_rollup
 from traceml_tpu_torch.sdk import protocol
 from traceml_tpu_torch.utils.atomic_io import atomic_write_json, atomic_write_text, read_json
+from traceml_tpu_torch.utils.columnar import (
+    KEY_INDEX,
+    ColumnarFallback,
+    StepTimeColumns,
+    StepTimeWindowCache,
+    TickProfile,
+    columnar_window_enabled,
+    engine_step_time_window,
+    incr_window_enabled,
+    window_build_snapshot,
+)
 from traceml_tpu_torch.utils.error_log import get_error_log
 from traceml_tpu_torch.utils.formatting import fmt_bytes, fmt_ms, fmt_pct
 from traceml_tpu_torch.utils.step_time_window import (
@@ -102,10 +122,18 @@ def _steady_state(window: StepTimeWindow) -> Dict[str, Any]:
         return {}
     cut = max(3, window.n_steps // 4)
     per_rank_steady = {}
-    for r, w in window.rank_windows.items():
-        vals = w.series[STEP_KEY][cut:]
-        if vals:
-            per_rank_steady[str(r)] = statistics.median(vals)
+    col = getattr(window, "col", None)
+    if col is not None:
+        # columnar: one median over the (rank × steady-suffix) slab
+        steady_slab = col.series_cube[:, KEY_INDEX[STEP_KEY], cut:]
+        if steady_slab.shape[1]:
+            meds = np.median(steady_slab, axis=1).tolist()
+            per_rank_steady = {str(r): m for r, m in zip(col.ranks, meds)}
+    else:
+        for r, w in window.rank_windows.items():
+            vals = w.series[STEP_KEY][cut:]
+            if vals:
+                per_rank_steady[str(r)] = statistics.median(vals)
     if not per_rank_steady:
         return {}
     overall = statistics.median(per_rank_steady.values())
@@ -131,10 +159,28 @@ def _efficiency_block(model_stats, window: StepTimeWindow, steady) -> Optional[D
     return build_efficiency(model_stats, per_rank_step)
 
 
-def _build_step_time_section(rank_rows, mode: str, identities=None, model_stats=None):
+def _report_window(rank_rows, caches: Dict[str, StepTimeWindowCache]) -> Optional[StepTimeWindow]:
+    """The report's step window, built as the live store builds it: each
+    rank's rows into a columnar ring, then the incremental cache (kept in
+    ``caches`` for ``meta.window_build``) or the full columnar build, and
+    the scalar arm when the columnar engine is off or a ring is flagged."""
+    if columnar_window_enabled():
+        cols = {}
+        for rank, rows in rank_rows.items():
+            ring = cols[rank] = StepTimeColumns(len(rows))
+            for row in rows:
+                ring.append(row)
+        try:
+            return engine_step_time_window(cols, caches, REPORT_WINDOW_STEPS)
+        except ColumnarFallback:
+            pass
+    return build_step_time_window(rank_rows, max_steps=REPORT_WINDOW_STEPS)
+
+
+def _build_step_time_section(rank_rows, mode: str, identities, model_stats, caches):
     if not rank_rows:
         return _no_data_section("step_time"), None
-    window = build_step_time_window(rank_rows, max_steps=REPORT_WINDOW_STEPS)
+    window = _report_window(rank_rows, caches)
     steady = _steady_state(window) if window else {}
     efficiency = _efficiency_block(model_stats, window, steady) if window else None
     result = diagnose_window(window, mode=mode, efficiency=efficiency)
@@ -161,10 +207,17 @@ def _build_step_time_section(rank_rows, mode: str, identities=None, model_stats=
             }
         # short per-rank step series for charts
         tail = 120
-        series = {
-            str(r): [round(v, 3) for v in w.series[STEP_KEY][-tail:]]
-            for r, w in window.rank_windows.items()
-        }
+        col = getattr(window, "col", None)
+        if col is not None:
+            series = {
+                str(r): [round(v, 3) for v in row]
+                for r, row in zip(col.ranks, col.series_cube[:, KEY_INDEX[STEP_KEY], -tail:].tolist())
+            }
+        else:
+            series = {
+                str(r): [round(v, 3) for v in w.series[STEP_KEY][-tail:]]
+                for r, w in window.rank_windows.items()
+            }
         identities = identities or {}
         rank_cards = {
             str(r): {
@@ -848,45 +901,72 @@ def generate_summary(
         return True
 
     results: Dict[str, Optional[DiagnosticResult]] = {}
+    # the report is one profiled tick: reads are the store's refresh
+    # stage, each section's build and diagnosis its diagnose stage
+    prof = TickProfile()
+    prof.note_tick()
+    caches: Dict[str, StepTimeWindowCache] = {}
+    read_ns = 0
+
+    def read(fn):
+        nonlocal read_ns
+        t0 = time.perf_counter_ns()
+        try:
+            return fn()
+        finally:
+            ns = time.perf_counter_ns() - t0
+            read_ns += ns
+            prof.note_stage("store", "refresh", ns)
+
+    def timed_section(key, builder):
+        r0, t0 = read_ns, time.perf_counter_ns()
+        out = _safe_section(key, builder)
+        prof.note_stage(key, "diagnose", max(0, time.perf_counter_ns() - t0 - (read_ns - r0)))
+        prof.note_stage(key, "attribute", 0)  # no mesh attribution yet
+        return out
+
     conn = loaders._connect_ro(db_path)
     try:
         try:
-            identities = loaders.load_rank_identities(db_path, conn=conn)
+            identities = read(lambda: loaders.load_rank_identities(db_path, conn=conn))
         except Exception:
             identities = {}
 
         def run_step_time():
-            rows = loaders.load_step_time_rows(db_path, max_steps_per_rank=WINDOW_READ_STEPS, conn=conn)
-            stats = loaders.load_model_stats(db_path, conn=conn)
-            section, results["step_time"] = _build_step_time_section(rows, mode, identities, stats)
+            rows = read(lambda: loaders.load_step_time_rows(db_path, max_steps_per_rank=WINDOW_READ_STEPS,
+                                                            conn=conn))
+            stats = read(lambda: loaders.load_model_stats(db_path, conn=conn))
+            section, results["step_time"] = _build_step_time_section(rows, mode, identities, stats, caches)
             return section
 
         def run_step_memory():
-            rows = loaders.load_step_memory_rows(db_path, max_rows_per_rank=MEMORY_READ_ROWS, conn=conn)
+            rows = read(lambda: loaders.load_step_memory_rows(db_path, max_rows_per_rank=MEMORY_READ_ROWS,
+                                                              conn=conn))
             section, results["step_memory"] = _build_step_memory_section(rows, identities)
             return section
 
         def run_system():
-            host, devices = loaders.load_system_rows(db_path, max_rows=SAMPLE_READ_ROWS, conn=conn)
+            host, devices = read(lambda: loaders.load_system_rows(db_path, max_rows=SAMPLE_READ_ROWS, conn=conn))
             section, results["system"] = _build_system_section(host, devices)
             return section
 
         def run_process():
-            procs, devices = loaders.load_process_rows(db_path, max_rows=SAMPLE_READ_ROWS, conn=conn)
+            procs, devices = read(lambda: loaders.load_process_rows(db_path, max_rows=SAMPLE_READ_ROWS,
+                                                                    conn=conn))
             section, results["process"] = _build_process_section(procs, devices, identities)
             return section
 
         built = {
-            "system": _safe_section("system", run_system),
-            "process": _safe_section("process", run_process),
-            "step_time": _safe_section("step_time", run_step_time),
-            "step_memory": _safe_section("step_memory", run_step_memory),
+            "system": timed_section("system", run_system),
+            "process": timed_section("process", run_process),
+            "step_time": timed_section("step_time", run_step_time),
+            "step_memory": timed_section("step_memory", run_step_memory),
         }
         try:
-            topology = loaders.load_topology(db_path, conn=conn)
+            topology = read(lambda: loaders.load_topology(db_path, conn=conn))
         except Exception:
             topology = {"mode": "unknown", "world_size": 0}
-        history = _build_history_section(conn)
+        history = read(lambda: _build_history_section(conn))
     finally:
         conn.close()
 
@@ -897,7 +977,7 @@ def generate_summary(
     sections = {
         **built,
         "collectives": _no_data_section("collectives"),
-        "liveness": _safe_section("liveness", run_liveness),
+        "liveness": timed_section("liveness", run_liveness),
     }
     primary = build_primary_diagnosis(
         results.get("step_time"),
@@ -927,6 +1007,10 @@ def generate_summary(
             )
             if k in stats
         }
+    if incr_window_enabled():
+        window_build = window_build_snapshot(caches, prof)
+        if window_build:
+            meta["window_build"] = window_build
     payload = {
         "schema": SCHEMA_VERSION,
         "meta": meta,

@@ -32,13 +32,25 @@ raw-domain version) and ``stitched_overview`` read the tiers through
 ``reporting/tiers.py``.  Accumulated identity sets (topology) never
 shrink on a trim.
 
+Window engines, as in JAX: each step-time and step-memory rank buffer
+keeps a columnar ring (``utils/columnar.py``) in lockstep with its row
+deque: the ring self-evicts on overflow as the deque's ``maxlen`` does,
+follows a journal trim's prefix eviction, and is rebuilt from the kept
+rows when a watermark filter drops rows out of the middle.  The step-time
+window is built from the rings by the incremental cache
+(``StepTimeWindowCache``, one per store), or by the full columnar build
+under ``TRACEML_INCR_WINDOW=0``, and by the scalar arm
+(``utils/step_time_window.py``, the reference) under
+``TRACEML_COLUMNAR_WINDOW=0`` or when a rank's ring is flagged.  The
+store owns the tick profiler that the live computer, the serving tier and
+the final report write into; ``window_build_stats`` reads it with the
+caches' counters.
+
 Left out against the JAX store, with the port's queues that bring them:
 the ``MIN(id)`` trim detection for databases recorded before the journal
-existed (every database the port writes has it), the columnar,
-incremental and vector window engines (queue 1 item 4: the windows here
-are built by the scalar arm, ``utils/step_time_window.py``, which the
-JAX package treats as the reference) and the collectives, serving and
-mesh-topology tables (queue 1 item 5).
+existed (every database the port writes has it) and the collectives,
+serving and mesh-topology tables with their window engines (queue 1
+items 5 and 6).
 """
 
 from __future__ import annotations
@@ -52,6 +64,16 @@ from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from traceml_tpu_torch.aggregator.rollup import ROLLUP_SOURCES
+from traceml_tpu_torch.utils.columnar import (
+    ColumnarFallback,
+    MemoryColumns,
+    StepTimeColumns,
+    StepTimeWindowCache,
+    TickProfile,
+    columnar_window_enabled,
+    engine_step_time_window,
+    window_build_snapshot,
+)
 from traceml_tpu_torch.utils.error_log import get_error_log
 from traceml_tpu_torch.utils.step_time_window import StepTimeWindow, build_step_time_window
 
@@ -96,6 +118,11 @@ class _RankBuffer:
         self.ranks.append(rank)
         self.rows.append(row)
 
+    def clear(self) -> None:
+        self.ids.clear()
+        self.ranks.clear()
+        self.rows.clear()
+
     def evict_below(self, min_id: int) -> bool:
         """Prefix eviction for a single-rank buffer."""
         changed = False
@@ -116,12 +143,49 @@ class _RankBuffer:
         ]
         if len(keep) == len(self.ids):
             return False
-        self.ids.clear()
-        self.ranks.clear()
-        self.rows.clear()
+        self.clear()
         for i, rk, rw in keep:
             self.append(i, rk, rw)
         return True
+
+
+class _ColumnarBuffer(_RankBuffer):
+    """A row window and its columnar ring in lockstep: every append lands
+    in both, the ring self-evicts on overflow as the deque's ``maxlen``
+    does, a prefix eviction drops the same count from the ring's head,
+    and a filter that drops rows out of the middle rebuilds the ring from
+    the kept rows (through ``clear`` and ``append``).  So the columnar
+    build always sees the rows the scalar arm would."""
+
+    __slots__ = ("cols",)
+    ring_cls: Any = None
+
+    def __init__(self, maxlen: int) -> None:
+        super().__init__(maxlen)
+        self.cols = self.ring_cls(maxlen)
+
+    def append(self, row_id: int, rank: Optional[int], row: Any) -> None:
+        super().append(row_id, rank, row)
+        self.cols.append(row)
+
+    def clear(self) -> None:
+        super().clear()
+        self.cols.clear()
+
+    def evict_below(self, min_id: int) -> bool:
+        changed = super().evict_below(min_id)
+        self.cols.evict_head(len(self.cols) - len(self.ids))
+        return changed
+
+
+class _StepTimeBuffer(_ColumnarBuffer):
+    __slots__ = ()
+    ring_cls = StepTimeColumns
+
+
+class _MemoryBuffer(_ColumnarBuffer):
+    __slots__ = ()
+    ring_cls = MemoryColumns
 
 
 class _TopologySource:
@@ -174,9 +238,17 @@ class LiveSnapshotStore:
         self._pending_trims: Dict[str, Dict[int, int]] = {}
         self._rollup_dirty = False
         self._stitched_cache: Dict[Tuple, Tuple[Tuple[int, ...], Any]] = {}
-        # step_time / step_memory: per-rank bounded windows
-        self._step_time: Dict[int, _RankBuffer] = {}
-        self._step_memory: Dict[int, _RankBuffer] = {}
+        # step_time / step_memory: per-rank bounded windows (row deque
+        # and columnar ring in lockstep)
+        self._step_time: Dict[int, _StepTimeBuffer] = {}
+        self._step_memory: Dict[int, _MemoryBuffer] = {}
+        # the incremental step-time window cache, made on the first
+        # incremental build; it follows rank churn, evictions and clock
+        # flips through the rings' counters, so nothing resets it
+        self._window_caches: Dict[str, StepTimeWindowCache] = {}
+        # per-stage tick profiler: the live computer, the serving tier and
+        # the final report write into it; window_build_stats reads it
+        self.tick_profile = TickProfile()
         # system / process / stdout / model_stats: globally bounded
         # (loader semantics); system and process rows are (key, row)
         self._system_host = _RankBuffer(_SYSTEM_ROWS)
@@ -374,7 +446,7 @@ class LiveSnapshotStore:
             rank = int(r["global_rank"])
             buf = self._step_time.get(rank)
             if buf is None:
-                buf = self._step_time[rank] = _RankBuffer(self.window_steps)
+                buf = self._step_time[rank] = _StepTimeBuffer(self.window_steps)
             buf.append(r["id"], rank, {
                 "step": r["step"],
                 "timestamp": r["timestamp"],
@@ -395,7 +467,7 @@ class LiveSnapshotStore:
             rank = int(r["global_rank"])
             buf = self._step_memory.get(rank)
             if buf is None:
-                buf = self._step_memory[rank] = _RankBuffer(self.memory_rows_per_rank)
+                buf = self._step_memory[rank] = _MemoryBuffer(self.memory_rows_per_rank)
             row = dict(r)
             del row["id"], row["global_rank"]
             buf.append(r["id"], rank, row)
@@ -460,11 +532,44 @@ class LiveSnapshotStore:
             vals = [buf.rows[-1].get("timestamp") or 0.0 for buf in self._step_time.values() if buf.rows]
         return max(vals) if vals else None
 
+    def window_build_stats(self) -> Dict[str, Dict[str, Any]]:
+        """The incremental cache's build counters (empty until a columnar
+        build ran with the incremental engine on) and, once the tick
+        profiler saw a tick, a ``tick_profile`` entry."""
+        with self._lock:
+            return window_build_snapshot(self._window_caches, self.tick_profile)
+
     def build_step_time_window(self, max_steps: Optional[int] = None) -> Optional[StepTimeWindow]:
-        """The aligned cross-rank window over the held rows (the scalar
-        arm of the JAX store's builder)."""
+        """The aligned cross-rank window over the held rows: the
+        incremental cache over the rings, the full columnar build under
+        ``TRACEML_INCR_WINDOW=0``, and the scalar arm over the row deques
+        under ``TRACEML_COLUMNAR_WINDOW=0`` or when a rank's ring is
+        flagged.  All three give the same window."""
         limit = self.window_steps if max_steps is None else int(max_steps)
-        return build_step_time_window(self.step_time_rows(), max_steps=limit)
+        with self._lock:
+            if columnar_window_enabled():
+                cols = {rank: buf.cols for rank, buf in self._step_time.items() if buf.rows}
+                try:
+                    return engine_step_time_window(cols, self._window_caches, limit)
+                except ColumnarFallback:
+                    pass
+            rank_rows = {rank: list(buf.rows) for rank, buf in sorted(self._step_time.items()) if buf.rows}
+        return build_step_time_window(rank_rows, max_steps=limit)
+
+    def step_memory_columns(self) -> Optional[Dict[int, MemoryColumns]]:
+        """rank → memory ring, or None when a rank's ring is flagged (use
+        ``step_memory_rows``) or the columnar engine is off."""
+        if not columnar_window_enabled():
+            return None
+        with self._lock:
+            out: Dict[int, MemoryColumns] = {}
+            for rank, buf in sorted(self._step_memory.items()):
+                if not buf.rows:
+                    continue
+                if not buf.cols.columnar_ok:
+                    return None
+                out[rank] = buf.cols
+            return out or None
 
     @staticmethod
     def _group(buf: _RankBuffer) -> Dict[Any, List[Dict[str, Any]]]:
