@@ -221,6 +221,23 @@
    equal (timestamps and ``meta.window_build`` aside).  Reported: ms a
    tick for each arm, their ratio, the builds by path and reason.
 
+14. The collectives domain and the mesh (``collectives_run_phase``,
+   ``comm_bound_run_phase``, last): ``run --mode summary`` of
+   ``train_script.py`` at full width with ``--mesh --grad-sync
+   all_reduce``: the rank joins a one-rank NCCL process group
+   (``MASTER_ADDR`` and ``MASTER_PORT`` from this script's environment),
+   builds ``make_mesh()`` and, after each backward, all-reduces its flat
+   f32 gradients (700,551,168 bytes) through ``instrument_collective``.
+   ``train_collectives`` (60 steps, ``--disk-backup``): the healthy train
+   gates, the collectives section OK (``all_reduce``, ``float32``, group
+   size 1, 700,551,168 bytes a step), ALLREDUCE_QUANTIZABLE at 668.1
+   MiB/step, no COMM_BOUND, the one-rank four-axis mesh in the database
+   and ``meta``, ``inspect`` printing ``overlap_efficiency``, and the
+   steady step at most 1.10x ``train_healthy``'s.  ``train_comm_bound``
+   (30 steps): the sync synchronizes the device and stalls 100 ms on the
+   host before its all-reduce; COMM_BOUND in the collectives section.
+   Both runs' flash launches have their own paths on the kernels line.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
@@ -1500,7 +1517,7 @@ def remat_run_phase(cfg, remat: dict) -> dict:
 
 FRAME_HEADER = "TraceML (PyTorch) — live · session"
 FRAME_STEP_REL_TOL = 0.05  # the frame's median step vs final_summary.json's (display rounding is 0.1 ms)
-LIVE_TICKS = 100  # dirty and idle live ticks, for each of the two arms
+LIVE_TICKS = 50  # dirty and idle live ticks, for each of the two arms
 
 
 def check_cli_output(name: str, run: dict, got: dict) -> dict:
@@ -1737,7 +1754,7 @@ ENGINE_RANKS = 256  # a 32-node x 8-GPU job, the reference's multi-node user
 ENGINE_SLOW_RANK = 137
 ENGINE_SLOW = 1.3  # the slow rank's durations, x the others'
 ENGINE_JITTER = 0.01  # per-rank duration factor ~ N(1, 0.01); per-row noise 0.2%
-ENGINE_TICKS = 50  # dirty ticks, one new row per rank each; then as many idle ticks
+ENGINE_TICKS = 25  # dirty ticks, one new row per rank each; then as many idle ticks
 
 
 def _fanout_sources(session: Path):
@@ -1932,7 +1949,7 @@ def engine_tick_phase(session: Path) -> dict:
     return out
 
 
-DASHBOARD_STEPS = 100  # ~12 s of the full-width train step: the probe reads the page while the rank trains
+DASHBOARD_STEPS = 70  # ~8 s of the full-width train step: the probe reads the page while the rank trains
 STREAM_WINDOW_S = 5.0  # /api/stream must yield two events within this
 POLL_TIMES = 200
 
@@ -2745,6 +2762,148 @@ def transport_phase(bounded: dict) -> dict:
     return out
 
 
+COLLECTIVES_GRAD_BYTES = 700_551_168  # the flat f32 gradients: 175,137,792 parameters x 4 bytes
+COLLECTIVES_STEP_REL = 1.10  # the synced step's steady median against train_healthy's
+COMM_BOUND_STEPS = 30  # the collectives summary policy needs 10 steps
+COMM_BOUND_SLEEP_MS = 100.0  # the slow link: a host stall inside the sync, after the device synchronized
+COMM_BOUND_SHARE_WARN = 0.25  # the summary policy's exposed-share warning line (critical at 0.40)
+
+
+def _dist_env() -> dict:
+    """The process group's rendezvous for a one-rank NCCL group: the
+    caller's ``MASTER_ADDR`` and ``MASTER_PORT`` (a free local port), and
+    NCCL's bootstrap on the loopback interface."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "NCCL_SOCKET_IFNAME": "lo"}
+
+
+def _session_rows(run: dict, sql: str) -> list:
+    conn = sqlite3.connect(run["session"] / "telemetry.sqlite")
+    try:
+        return conn.execute(sql).fetchall()
+    finally:
+        conn.close()
+
+
+def check_mesh(name: str, run: dict) -> dict:
+    """The one-rank mesh of ``make_mesh()``: one ``mesh_topology`` row,
+    the four canonical axes of size 1 (ICI: one node), coordinates
+    [0, 0, 0, 0], source ``mesh``; the same in ``meta.topology.mesh``."""
+    axes = [{"name": a, "size": 1, "kind": "ici"} for a in ("data", "fsdp", "tensor", "context")]
+    rows = _session_rows(run, "SELECT global_rank, source, axes_json, coords_json FROM mesh_topology")
+    got = [(r[0], r[1], json.loads(r[2]), json.loads(r[3])) for r in rows]
+    check(got == [(0, "mesh", axes, [0, 0, 0, 0])], f"run {name}: mesh_topology rows {got}")
+    mesh = run["summary"]["meta"]["topology"].get("mesh")
+    check(mesh == {"axes": axes, "source": "mesh", "ranks": 1, "hosts": 1}, f"run {name}: meta mesh {mesh}")
+    return mesh
+
+
+def collectives_numbers(sec: dict) -> dict:
+    g = sec.get("global") or {}
+    return {k: g.get(k) for k in ("n_steps", "group_size", "bytes_per_step", "comm_ms_per_step",
+                                  "exposed_ms_per_step", "overlap_efficiency", "exposed_share_of_step",
+                                  "comm_share_of_step")} | {
+        "issues": [(i["kind"], i["severity"]) for i in sec.get("issues", [])]}
+
+
+def collectives_run_phase(cfg, train_healthy: dict) -> dict:
+    """``train_collectives``: the healthy full-width train run with a
+    data-parallel gradient sync (``--mesh --grad-sync all_reduce``): a
+    one-rank NCCL group, ``make_mesh()``, and after each backward one
+    ``dist.all_reduce`` of the flat f32 gradients recorded by
+    ``instrument_collective`` (``dev/workload.py`` ``gradient_sync``),
+    with ``--disk-backup``.  Gates: the healthy train run's; the
+    ``collectives`` section OK over 60 steps, op ``all_reduce`` alone,
+    group size 1, ``COLLECTIVES_GRAD_BYTES`` a step; every stored row
+    ``all_reduce``, ``float32``, those bytes, count 1; ALLREDUCE_QUANTIZABLE
+    at 668.1 MiB/step and no COMM_BOUND; the ``collective`` phase's device
+    time on every step row; the mesh (``check_mesh``); ``inspect
+    --domain collectives`` printing ``overlap_efficiency``; the steady
+    step at most ``COLLECTIVES_STEP_REL`` x ``train_healthy``'s."""
+    from traceml_tpu_torch.utils import timing as T
+
+    name = "train_collectives"
+    run = launch_run(name, 0.0, 0.1, script="train_script.py", script_args=("--mesh", "--grad-sync", "all_reduce"),
+                     launcher_args=("--disk-backup",), env_extra=_dist_env())
+    got = check_train_run(name, run, cfg, mfu_verdict)
+    check_healthy_utilization(name, got)
+    sec = run["summary"]["sections"]["collectives"]
+    numbers = collectives_numbers(sec)
+    log("run", f"{name}: collectives " + json.dumps(numbers))
+    check(sec["status"] == "OK", f"run {name}: collectives section {sec['status']}")
+    g = sec["global"]
+    check(g["n_steps"] == run["steps"] and g["group_size"] == 1 and list(g["per_op"]) == ["all_reduce"],
+          f"run {name}: collectives window {numbers} ops {list(g['per_op'])}")
+    check(g["bytes_per_step"] == float(COLLECTIVES_GRAD_BYTES),
+          f"run {name}: {g['bytes_per_step']} bytes a step, not {COLLECTIVES_GRAD_BYTES}")
+    rows = _session_rows(run, "SELECT step, op, dtype, count, bytes, group_size FROM collectives_samples ORDER BY id")
+    check([r[0] for r in rows] == list(range(1, run["steps"] + 1))
+          and {r[1:] for r in rows} == {("all_reduce", "float32", 1, COLLECTIVES_GRAD_BYTES, 1)},
+          f"run {name}: collectives rows {rows[:3]}... ({len(rows)})")
+    kinds = {i["kind"]: i for i in sec["issues"]}
+    quant = kinds.get("ALLREDUCE_QUANTIZABLE")
+    check(quant is not None and quant["evidence"]["fp32_allreduce_mib_per_step"] == 668.1,
+          f"run {name}: ALLREDUCE_QUANTIZABLE {quant}")
+    check("COMM_BOUND" not in kinds, f"run {name}: COMM_BOUND on a healthy sync: {kinds.get('COMM_BOUND')}")
+    coll_ms = [json.loads(ev).get(T.COLLECTIVE_TIME, {}).get("device_ms") for _, _, ev in run["rows"]]
+    check(all(v is not None and v > 0 for v in coll_ms), f"run {name}: collective device_ms {coll_ms[:5]}")
+    mesh = check_mesh(name, run)
+    proc = subprocess.run([sys.executable, "-m", "traceml_tpu_torch", "inspect", str(run["session"] / "rank_0" / "data"),
+                           "--domain", "collectives", "--limit", "3"], cwd=REPO, capture_output=True, text=True,
+                          timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    check(proc.returncode == 0 and "overlap_efficiency" in proc.stdout,
+          f"run {name}: inspect --domain collectives rc {proc.returncode}: {proc.stdout[-500:]}{proc.stderr[-500:]}")
+    first = next(l for l in proc.stdout.splitlines() if l.startswith("{"))
+    ratio = got["steady_state_ms"] / train_healthy["steady_state_ms"]
+    log("run", f"{name}: steady step {got['steady_state_ms']:.4f} ms vs train_healthy "
+               f"{train_healthy['steady_state_ms']:.4f} ms: {ratio:.4f}x (gate {COLLECTIVES_STEP_REL}x); "
+               f"collective phase device ms {json.dumps(spread([v for v in coll_ms if v is not None]))}; "
+               f"mesh {json.dumps(mesh)}; inspect {first}")
+    check(ratio <= COLLECTIVES_STEP_REL, f"run {name}: steady step {ratio:.4f}x train_healthy's")
+    return {**got, "collectives": numbers, "step_ratio": ratio,
+            "collective_device_ms": spread([v for v in coll_ms if v is not None])}
+
+
+def comm_bound_run_phase(cfg) -> dict:
+    """``train_comm_bound``: the synced train run at ``COMM_BOUND_STEPS``
+    steps with a slow link (``--sync-sleep-ms COMM_BOUND_SLEEP_MS``: the
+    sync synchronizes the device, then stalls on the host inside the
+    recorded window before its all-reduce).  Gates: exit 0, the manifest
+    ``completed`` / ``ok``, 12 launches a step, the collectives section OK
+    with COMM_BOUND among its issues and its exposed share of the step
+    past the warning line; the mesh.  Reported: exposed ms a step, the
+    share, the severity."""
+    name = "train_comm_bound"
+    run = launch_run(name, 0.0, 0.1, script="train_script.py", steps=COMM_BOUND_STEPS,
+                     script_args=("--mesh", "--grad-sync", "all_reduce", "--sync-sleep-ms", repr(COMM_BOUND_SLEEP_MS)),
+                     env_extra=_dist_env())
+    manifest, summary = run["manifest"], run["summary"]
+    check((manifest["status"], manifest["telemetry_status"]) == ("completed", "ok"),
+          f"run {name}: manifest {manifest['status']}/{manifest['telemetry_status']}")
+    launch_lines = [l for l in run["stdout"].splitlines() if l.startswith("flash_attention.launches ")]
+    launches = int(launch_lines[-1].split()[1]) if launch_lines else None
+    check(launches == cfg.n_layers * COMM_BOUND_STEPS, f"run {name}: {launches} flash launches")
+    sec = summary["sections"]["collectives"]
+    numbers = collectives_numbers(sec)
+    st = summary["sections"]["step_time"]
+    step_ms = (((st.get("global") or {}).get("phases") or {}).get("step_time") or {}).get("median_ms")
+    log("run", f"{name}: collectives " + json.dumps(numbers) + f"; step median {step_ms} ms; "
+               f"exposed_ms_per_step {numbers['exposed_ms_per_step']} share {numbers['exposed_share_of_step']}")
+    check(sec["status"] == "OK" and numbers["n_steps"] == COMM_BOUND_STEPS,
+          f"run {name}: collectives section {sec['status']} {numbers}")
+    comm = [i for i in sec["issues"] if i["kind"] == "COMM_BOUND"]
+    check(bool(comm), f"run {name}: no COMM_BOUND: {numbers['issues']}")
+    check((numbers["exposed_share_of_step"] or 0.0) >= COMM_BOUND_SHARE_WARN,
+          f"run {name}: exposed share {numbers['exposed_share_of_step']}")
+    check_mesh(name, run)
+    return {"collectives": numbers, "comm_bound": {k: comm[0].get(k) for k in ("severity", "summary", "evidence")},
+            "step_median_ms": step_ms, "flash_launches": launches, "wall_s": run["wall_s"]}
+
+
 def build_native() -> dict:
     """Build both C extensions of the transport tier (``traceml_tpu_torch/
     native/``) from the checkout, strictly: a failed build, a failed load
@@ -2865,6 +3024,14 @@ def main() -> int:
     t0 = time.perf_counter()
     transport_phase(bounded)
     log("time", f"transport phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    coll = collectives_run_phase(cfg, train_healthy)
+    kernel["launches"] += coll["flash_launches"]
+    kernel["launches_by_path"]["train_collectives_run"] = coll["flash_launches"]
+    comm_bound = comm_bound_run_phase(cfg)
+    kernel["launches"] += comm_bound["flash_launches"]
+    kernel["launches_by_path"]["train_comm_bound_run"] = comm_bound["flash_launches"]
+    log("time", f"collectives run phase {time.perf_counter() - t0:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

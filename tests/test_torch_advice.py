@@ -10,7 +10,7 @@ it rewrote (patterns, since summaries carry numbers).  The parity tests
 neither field leaves the comparison.
 
 Then every rule of every port pack (step time, step memory, system,
-process, liveness) is made to fire on seeded rows or snapshots, and no ``action`` or ``summary``
+process, liveness, collectives) is made to fire on seeded rows or snapshots, and no ``action`` or ``summary``
 it writes may name JAX, XLA, the MXU, the TPU, ``device_put``, remat,
 donation or the ``traceml-tpu`` command; the port's own package name,
 ``traceml_tpu_torch`` (in the PERF_REGRESSION action's ``python -m
@@ -263,6 +263,18 @@ def _system_process_issues(rng):
     return issues
 
 
+def _collectives_issues(rng):
+    from tests.test_torch_collectives import SCENARIOS
+    from traceml_tpu_torch.diagnostics.collectives.api import diagnose_collectives_window
+    from traceml_tpu_torch.utils.columnar import build_collectives_window_rows
+
+    issues = []
+    for build, step_ms in SCENARIOS.values():
+        window = build_collectives_window_rows(build(), 200)
+        issues += diagnose_collectives_window(window, mode="summary", step_time_ms=step_ms).issues
+    return issues
+
+
 def _liveness_issues(rng):
     from tests.test_torch_liveness import SNAPSHOTS
     from traceml_tpu_torch.diagnostics.liveness import diagnose_rank_status
@@ -297,6 +309,10 @@ RULE_KINDS = {
         "RankLostRule": {"RANK_LOST"}, "LikelyPreemptedRule": {"LIKELY_PREEMPTED"},
         "WorldStaleRule": {"WORLD_STALE"},
     },
+    "collectives": {
+        "CommBoundRule": {"COMM_BOUND"}, "PoorOverlapRule": {"POOR_OVERLAP"},
+        "AllreduceQuantizableRule": {"ALLREDUCE_QUANTIZABLE"},
+    },
 }
 
 
@@ -308,7 +324,7 @@ def test_every_rule_fires_and_names_no_jax_remedy(pack):
     assert sorted(type(r).__name__ for r in rules.DEFAULT_RULES) == sorted(RULE_KINDS[pack])
     collect = {"step_time": _step_time_issues, "step_memory": _step_memory_issues,
                "system": _system_process_issues, "process": _system_process_issues,
-               "liveness": _liveness_issues}[pack]
+               "liveness": _liveness_issues, "collectives": _collectives_issues}[pack]
     issues = collect(np.random.default_rng(7))
     kinds = {i.kind for i in issues}
     for rule, rule_kinds in RULE_KINDS[pack].items():
@@ -316,3 +332,21 @@ def test_every_rule_fires_and_names_no_jax_remedy(pack):
     for issue in issues:
         for text in (issue.action, issue.summary):
             assert not names_jax_remedy(text), (issue.kind, text)
+
+
+def test_collectives_actions_are_the_jax_ones_and_name_no_jax_remedy():
+    """No collectives action or summary names a JAX or TPU remedy, so the
+    port keeps the JAX texts as they are: nothing of the pack enters
+    ``ACTIONS``, and its actions equal the JAX rules' word for word."""
+    import inspect
+
+    from traceml_tpu.diagnostics.collectives import rules as jax_rules
+    from traceml_tpu_torch.diagnostics.collectives import rules
+
+    def actions(mod):
+        flat = re.sub(r'"\s*\n\s*(f?)"', "", inspect.getsource(mod))
+        return re.findall(r'action=\(\s*"([^"]+)"', flat)
+
+    ours = actions(rules)
+    assert len(ours) == 3 and ours == actions(jax_rules)
+    assert not any(names_jax_remedy(a) for a in ours) and not set(ours) & set(ACTIONS)

@@ -5,6 +5,7 @@ checks that scale with the output, not only ``allclose``."""
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # a checkout without torch still collects
 import torch
 
 from traceml_tpu_torch.dev.attention_check import TOLERANCES, compare, dense_causal, planted_faults

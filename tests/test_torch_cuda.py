@@ -4,6 +4,7 @@ Without a CUDA card they skip."""
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # a checkout without torch still collects
 import torch
 
 from traceml_tpu_torch.dev.attention_check import TOLERANCES, compare

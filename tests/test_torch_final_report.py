@@ -36,9 +36,8 @@ reasons, stage names and counters, but its numbers are timings and
 build counts (the JAX report builds the step window a second time for
 its collectives section), so only its shape is compared
 (``assert_window_build_shape``): what the JAX block has and the port's
-lacks is the collectives and serving domains and the mesh grouping
-cache's counters, which come with those modules (ROADMAP queue 1 items 5
-and 6).
+lacks is the serving domain, which comes with its module (ROADMAP queue 1
+item 6).
 """
 
 import json
@@ -69,10 +68,11 @@ LEFT_OUT = {"history"}
 LEFT_OUT_META = set()
 NOT_COMPARED_META = {"generated_at", "window_build"}
 REL = 1e-9
-# in the JAX window_build block only: the collectives and serving domains
-# and the mesh grouping cache's counters (ROADMAP queue 1 items 5 and 6)
-JAX_ONLY_DOMAINS = {"collectives", "serving"}
-JAX_ONLY_COUNTERS = {"grouping_cache_hits", "grouping_cache_misses"}
+# in the JAX window_build block only: the serving domain (ROADMAP queue 1
+# item 6); the collectives domain and the mesh grouping cache's counters
+# are in both
+JAX_ONLY_DOMAINS = {"serving"}
+JAX_ONLY_COUNTERS = set()
 INVALIDATE_REASONS = {getattr(columnar, n) for n in dir(columnar) if n.startswith("INVALIDATE_")}
 
 

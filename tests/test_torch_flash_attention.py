@@ -10,6 +10,7 @@ dispatcher.  Tolerances: f32 atol=rtol=2e-5 (sum order only), bf16 3e-2
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # a checkout without torch still collects
 import torch
 
 from traceml_tpu.ops.attention import causal_attention_reference as jax_reference

@@ -20,6 +20,7 @@
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # a checkout without torch still collects
 import torch
 
 from traceml_tpu.instrumentation.patches import jax_h2d_patch

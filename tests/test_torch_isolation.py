@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package.
 
 A fresh interpreter imports every module of ``traceml_tpu_torch`` (those
-of each slice named, the transport tier's too) and ``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
+of each slice named, the transport tier's and the collectives domain's
+too) and ``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
 ``traceml_tpu.*`` module may be loaded (names matched exactly, since
 ``traceml_tpu_torch`` starts with ``traceml_tpu``).  An AST scan of the
 same files finds no such import statement either, and the two C sources
@@ -85,6 +86,16 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "traceml_tpu_torch.transport.select", "traceml_tpu_torch.native", "traceml_tpu_torch.dev.transport_bench",
     }
     assert transport_tier <= set(out["imported"])
+    collectives_domain = {  # the mesh, the topology and the collectives domain
+        "traceml_tpu_torch.parallel.mesh", "traceml_tpu_torch.utils.topology",
+        "traceml_tpu_torch.diagnostics.attribution", "traceml_tpu_torch.instrumentation.collectives",
+        "traceml_tpu_torch.samplers.collectives_sampler",
+        "traceml_tpu_torch.aggregator.sqlite_writers.collectives_writer",
+        "traceml_tpu_torch.aggregator.sqlite_writers.mesh_topology_writer",
+        "traceml_tpu_torch.diagnostics.collectives.api", "traceml_tpu_torch.diagnostics.collectives.policy",
+        "traceml_tpu_torch.diagnostics.collectives.rules", "traceml_tpu_torch.diagnostics.collectives.vector",
+    }
+    assert collectives_domain <= set(out["imported"])
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 

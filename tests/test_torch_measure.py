@@ -4,6 +4,7 @@ would land silently in "other"."""
 
 import pytest
 
+pytest.importorskip("torch")  # a checkout without torch still collects
 from traceml_tpu_torch.dev.measure_main_path import kernel_group
 
 

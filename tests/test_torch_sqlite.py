@@ -216,9 +216,10 @@ def test_same_rows_give_the_same_tables(tmp_path, columnar):
 
 def test_unknown_domain_is_counted_not_written(tmp_path):
     payload = wire_payloads({0: step_rows(0, 3, 1.0, 1.0)}, {})[0]
-    payload["meta"]["sampler"] = "collectives"
+    # a domain the port has no writer for yet (collectives has one now)
+    payload["meta"]["sampler"] = "serving"
     writer = SQLiteWriter(tmp_path / "port.sqlite")
     write(writer, normalize_telemetry_envelope, [payload])
     stats = writer.stats()
-    assert stats["unknown_domain_drops"] == {"collectives": 1}
+    assert stats["unknown_domain_drops"] == {"serving": 1}
     assert stats["written"] == 0 and stats["enqueued"] == 1

@@ -21,6 +21,7 @@ from unittest import mock
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # a checkout without torch still collects
 import torch
 
 from traceml_tpu.samplers import step_time_sampler as jax_sampler

@@ -44,6 +44,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # a checkout without torch still collects
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 

@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")  # a checkout without torch still collects
 import torch
 
 from traceml_tpu.models import transformer as jax_tf

@@ -17,6 +17,13 @@ stores them in SQLite, draws the live display from them (``--mode cli``,
 the default; ``--mode summary`` prints the verdict at the end instead),
 tracks each rank's liveness and writes ``final_summary.json``;
 ``final_summary()`` asks for it from inside the script.
+``make_mesh`` builds a ``DeviceMesh`` whose placement each rank ships
+once (so findings can be attributed to a host, a mesh axis or one side
+of a node boundary); ``instrument_collective`` times a gradient sync as
+the ``collective`` phase and records it in the collectives domain
+(COMM_BOUND, POOR_OVERLAP, ALLREDUCE_QUANTIZABLE), and
+``patch_dist_collectives`` does the same for the eager
+``torch.distributed`` collectives.
 
 The JAX package ``traceml_tpu`` is the reference; this package imports
 neither it nor JAX.  The public API is a lazy facade, so importing the
@@ -35,6 +42,10 @@ _API_SYMBOLS = (
     "wrap_backward",
     "wrap_optimizer",
     "wrap_h2d",
+    "wrap_collective",
+    "instrument_collective",
+    "patch_dist_collectives",
+    "make_mesh",
     "set_step_flops",
     "set_step_tokens",
     "estimate_step_flops",

@@ -13,8 +13,9 @@ covered step range.  Grains: ``rank`` (one series per global rank, the
 read path's stitch grain) and ``host`` (per hostname, merged across
 ranks by the UPSERT).  The JAX engine also folds ``axis:<name>`` and
 ``dcn_side:<name>`` grains from a session's ``mesh_topology`` capture;
-the port captures no mesh yet (ROADMAP queue 1 item 5), and the JAX
-engine folds none for a session without one, so the tier rows are equal.
+the port does not fold them yet (ROADMAP queue 1 item 5(b)), so its tier
+rows equal the JAX ones for a session without a mesh, and lack those
+grains for one with a mesh.
 
 Every prune folds into both tiers, so the 10 s tier decays by plain
 deletion past its horizon (6 h by default) and the 1 m tier's horizon

@@ -35,7 +35,8 @@ Rich display in ``cli``, the browser dashboard's HTTP server in
 ``wait_for_data``, decodes frames on its own thread, hands telemetry
 envelopes to the writer and handles the control messages inline: ``rank_finished`` (the
 end-of-run barrier), ``rank_heartbeat``, ``producer_stats`` and
-``transport_hello`` (both kept latest-per-rank).  Every envelope and control message feeds the
+``transport_hello`` (both kept latest-per-rank) and ``mesh_topology``
+(stored through the writer in the ``mesh_topology`` table).  Every envelope and control message feeds the
 liveness tracker (a ``step_time`` envelope is step progress).  Every
 few seconds, and once at the end, it writes ``ingest_stats.json`` and
 ``rank_status.json``.  Every 0.5 s (the JAX render interval) the loop
@@ -69,6 +70,7 @@ from traceml_tpu_torch.aggregator.summary_service import FinalSummaryService
 from traceml_tpu_torch.dev import chaos
 from traceml_tpu_torch.runtime.settings import TraceMLSettings
 from traceml_tpu_torch.telemetry.control import (
+    MESH_TOPOLOGY,
     PRODUCER_STATS,
     RANK_FINISHED,
     RANK_HEARTBEAT,
@@ -76,7 +78,7 @@ from traceml_tpu_torch.telemetry.control import (
     control_kind,
     is_control_message,
 )
-from traceml_tpu_torch.telemetry.envelope import normalize_telemetry_envelope
+from traceml_tpu_torch.telemetry.envelope import TelemetryEnvelope, normalize_telemetry_envelope
 from traceml_tpu_torch.transport.select import server_transport_config
 from traceml_tpu_torch.transport.shm_ring import ShmRingRegistry
 from traceml_tpu_torch.transport.tcp_transport import TCPServer
@@ -303,8 +305,32 @@ class TraceMLAggregator:
             if payload.get("fallback_from"):
                 hello["fallback_from"] = payload["fallback_from"]
             self._transport_hellos[rank] = hello
+        elif kind == MESH_TOPOLOGY:
+            self._persist_mesh_topology(payload)
         elif kind != RANK_HEARTBEAT:
             get_error_log().warning(f"unknown control message {kind!r}; dropped")
+
+    def _persist_mesh_topology(self, payload: Dict[str, Any]) -> None:
+        """Store a rank's mesh placement through the writer: the control
+        meta is identity-shaped already, and without a ``seq`` the
+        envelope bypasses the replay dedup (a replay may deliver it
+        again; readers keep the latest row per rank)."""
+        topo = payload.get("topology")
+        if not isinstance(topo, dict):
+            return
+        try:
+            meta = dict(payload.get("meta") or {})
+            meta.pop("seq", None)
+            meta["sampler"] = "mesh_topology"
+            row = {
+                "timestamp": float(payload.get("timestamp") or time.time()),
+                "source": str(topo.get("source") or "mesh"),
+                "axes_json": json.dumps(topo.get("axes") or []),
+                "coords_json": json.dumps(topo.get("coords")),
+            }
+            self.writer.ingest(TelemetryEnvelope(meta=meta, tables={"mesh_topology": [row]}))
+        except Exception as exc:
+            get_error_log().warning("mesh_topology persist failed", exc)
 
     def _write_ingest_stats(self, final: bool = False) -> None:
         w = self.writer.stats()

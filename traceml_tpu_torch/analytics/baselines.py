@@ -18,12 +18,13 @@ band it is judged against.  Everything is fail-open: a missing or
 unwritable store returns None and the final summary leaves its
 ``regressions`` section out.
 
-The JAX module attributes a step-time regression to ranks and hosts
-through its mesh topology (``utils.topology.attribute_ranks``).  The
-port has no topology capture yet, so its report passes ``topology=None``
-and the issue carries no ``attribution``: the path the JAX package takes
-whenever no mesh was captured.  The PERF_REGRESSION action names the
-port's own command, ``python -m traceml_tpu_torch compare``.
+As in JAX, a regression of ``steady_step_ms`` is attributed to ranks and
+hosts through the captured mesh (``utils.topology.attribute_ranks`` over
+each rank's current-minus-baseline steady step): with ``topology`` the
+PERF_REGRESSION issue carries an ``attribution`` when a host, a mesh
+axis or one side of a node boundary explains the shift.  The
+PERF_REGRESSION action names the port's own command, ``python -m
+traceml_tpu_torch compare``.
 """
 
 from __future__ import annotations
@@ -267,8 +268,8 @@ def evaluate(
     """Check each metric against its band over the baseline runs.
     Returns the ``regressions`` payload section: overall status, one
     entry per evaluable metric, and PERF_REGRESSION issues.  ``topology``
-    is the JAX signature's: the port has none to give, and none is read
-    (the JAX module's rank attribution needs a mesh)."""
+    is the captured ``MeshTopology`` (or None): a step-time regression's
+    issue then names the ranks' grouping that explains it."""
     checks: List[Dict[str, Any]] = []
     issues: List[Dict[str, Any]] = []
     for metric, spec in METRICS.items():
@@ -307,7 +308,7 @@ def evaluate(
         }
         checks.append(check)
         if outside_bad:
-            issues.append(_regression_issue(metric, spec, check))
+            issues.append(_regression_issue(metric, spec, check, stats, baseline_runs, topology))
     status = (
         "regression" if any(c["status"] == "regression" for c in checks)
         else "ok" if checks
@@ -322,7 +323,12 @@ def evaluate(
 
 
 def _regression_issue(
-    metric: str, spec: Dict[str, Any], check: Dict[str, Any]
+    metric: str,
+    spec: Dict[str, Any],
+    check: Dict[str, Any],
+    stats: Optional[Dict[str, Any]] = None,
+    baseline_runs: Optional[List[Dict[str, Any]]] = None,
+    topology: Any = None,
 ) -> Dict[str, Any]:
     delta = check.get("delta_pct")
     worse = (
@@ -331,7 +337,7 @@ def _regression_issue(
         if delta is not None
         else "outside"
     )
-    return {
+    issue = {
         "kind": "PERF_REGRESSION",
         "severity": "warn",
         "metric": metric,
@@ -342,6 +348,37 @@ def _regression_issue(
         ),
         "action": REGRESSION_ACTION,
     }
+    # the cross-run analogue of the within-run attribution: which ranks moved
+    if metric == "steady_step_ms" and topology is not None:
+        deltas = _per_rank_step_deltas(stats or {}, baseline_runs or [])
+        if deltas:
+            try:
+                from traceml_tpu_torch.utils.topology import attribute_ranks
+
+                attribution = attribute_ranks(deltas, topology)
+                if attribution is not None:
+                    issue["attribution"] = attribution.to_dict()
+            except Exception:
+                pass
+    return issue
+
+
+def _per_rank_step_deltas(stats: Dict[str, Any], baseline_runs: List[Dict[str, Any]]) -> Dict[int, float]:
+    """Per-rank current-minus-baseline steady step ms (the baseline is
+    each rank's median across the matching runs)."""
+    current = stats.get("per_rank_step_ms") or {}
+    history: Dict[str, List[float]] = {}
+    for run in baseline_runs:
+        for r, v in (run["stats"].get("per_rank_step_ms") or {}).items():
+            if v is not None:
+                history.setdefault(str(r), []).append(float(v))
+    deltas: Dict[int, float] = {}
+    for r, v in current.items():
+        base = history.get(str(r))
+        if v is None or not base:
+            continue
+        deltas[int(r)] = float(v) - statistics.median(base)
+    return deltas
 
 
 # -- the finalize entry point ---------------------------------------------

@@ -7,6 +7,10 @@ compute, f32 parameters) with random weights made from a numpy seed in
 the flax params layout and loaded through ``params_from_jax``, plus host
 token batches from a seed: (8, 1024) for the forward, (8, 1025) for the
 train step, whose model sees ``tokens[:, :-1]`` at S=1024.
+:func:`gradient_sync` is the data-parallel gradient sync of the
+collectives runs: one all-reduce of the flattened f32 gradients
+(175,137,792 values, 700,551,168 bytes at full width), recorded through
+``instrument_collective``.
 """
 
 from __future__ import annotations
@@ -173,3 +177,52 @@ def kill_after(step: int, after: int, rank: int) -> None:
 
     if after and step == after and int(os.environ.get("RANK", 0)) == rank:
         os.kill(os.getpid(), signal.SIGKILL)
+
+
+def gradient_sync(model: torch.nn.Module, kind: str = "all_reduce", sleep_ms: float = 0.0) -> Callable[[], Any]:
+    """The gradient sync a train step calls between backward and the
+    update, as ``instrument_collective(op="all_reduce")`` records it (the
+    ``collective`` phase, device-timed, and one collectives-domain record
+    a call with the flat buffer's bytes and dtype).  It flattens the
+    gradients into one f32 buffer, ``dist.all_reduce``s it (``kind``
+    ``"all_reduce"``; the default process group) or leaves it local
+    (``"local"``: a sync whose cost is this rank's alone, as the JAX
+    ``collective_straggler`` scenario's is), divides by the world size and
+    copies the mean back.  DDP's bucketed all-reduce runs in its C++
+    reducer, where no Python wrapper sees it; this sync is the loop's own.
+
+    ``sleep_ms`` slows the sync on the host, inside the recorded window:
+    a link too slow to hide.  On CUDA the device is synchronized first,
+    outside the window, so the window holds the slow link and not the
+    backward it waited for."""
+    import torch.distributed as dist
+
+    import traceml_tpu_torch as tm
+
+    params = list(model.parameters())
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+    def sync() -> torch.Tensor:
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        if sleep_ms:
+            time.sleep(sleep_ms / 1000.0)
+        if kind == "all_reduce":
+            dist.all_reduce(flat)
+        if world > 1:
+            flat.div_(world)
+        offset = 0
+        for g in grads:
+            n = g.numel()
+            g.copy_(flat[offset:offset + n].view_as(g))
+            offset += n
+        return flat
+
+    timed = tm.instrument_collective(sync, op="all_reduce")
+
+    def step_sync() -> torch.Tensor:
+        if sleep_ms and params and params[0].is_cuda:
+            torch.cuda.synchronize()
+        return timed()
+
+    return step_sync

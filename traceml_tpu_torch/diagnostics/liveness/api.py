@@ -1,11 +1,12 @@
 """Liveness diagnosis entrypoint.
 
-Counterpart of ``traceml_tpu/diagnostics/liveness/api.py`` without the
-topology attribution (the port captures no mesh yet).  Consumes a
+Counterpart of ``traceml_tpu/diagnostics/liveness/api.py``.  Consumes a
 persisted ``rank_status.json`` snapshot (written by the aggregator on
 the ingest-stats cadence and at settle-end).  The states
 are used exactly as written — at report time every rank is silent, so
-re-deriving from wall clock would mark the whole world LOST.
+re-deriving from wall clock would mark the whole world LOST.  With a
+captured mesh (``topology``), a lost or stale cohort that maps onto one
+host or one side of a node boundary gains an ``attribution`` block.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ DOMAIN = "liveness"
 def diagnose_rank_status(
     snapshot: Optional[Dict[str, Any]],
     mode: str = "summary",
+    topology: Optional[Any] = None,
 ) -> DiagnosticResult:
     policy = policy_for(mode)
     if not snapshot or not isinstance(snapshot.get("ranks"), dict):
@@ -48,4 +50,19 @@ def diagnose_rank_status(
     ctx = build_context(snapshot, policy)
     if len(ctx.ranks) < policy.min_ranks:
         return DiagnosticResult(domain=DOMAIN, issues=[])
-    return run_rules(DOMAIN, DEFAULT_RULES, ctx)
+    result = run_rules(DOMAIN, DEFAULT_RULES, ctx)
+    if topology is not None:
+        from traceml_tpu_torch.diagnostics.attribution import attach_attribution
+
+        # binary per-rank indicator: unhealthy (lost/stale) vs fine — eta
+        # squared then measures how cleanly the dead set tiles a grouping
+        values = {}
+        for rank_s, info in (snapshot.get("ranks") or {}).items():
+            try:
+                rank = int(rank_s)
+            except (TypeError, ValueError):
+                continue
+            state = str((info or {}).get("state", "")).upper()
+            values[rank] = 1.0 if state in ("LOST", "STALE") else 0.0
+        result = attach_attribution(result, topology, values)
+    return result

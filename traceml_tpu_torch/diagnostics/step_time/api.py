@@ -3,7 +3,9 @@
 Counterpart of ``traceml_tpu/diagnostics/step_time/api.py``: a rank's step
 rows become an aligned window, the rules run over it, and the result's
 ``diagnosis`` is the verdict (INPUT_BOUND, COMPUTE_BOUND, LOW_MFU, …).
-Topology attribution comes in a later slice.
+With a captured mesh (``topology``), fired issues whose ranks map onto a
+host, mesh-axis or node-boundary grouping of the per-rank step times
+gain an ``attribution`` block (``diagnostics/attribution.py``).
 """
 
 from __future__ import annotations
@@ -27,9 +29,12 @@ def diagnose_window(
     window: Optional[StepTimeWindow],
     mode: str = "summary",
     efficiency: Optional[Mapping[str, Any]] = None,
+    topology: Optional[Any] = None,
 ) -> DiagnosticResult:
     """``efficiency`` is the MFU block when model FLOPs are known (feeds
-    the LowMfuRule; the final report passes it, live views do not yet)."""
+    the LowMfuRule; the final report passes it, live views do not yet).
+    ``topology`` is the captured ``MeshTopology`` (or None, which leaves
+    the result byte-identical to the output without one)."""
     policy = policy_for(mode)
     if window is None or window.n_steps < policy.min_steps:
         return DiagnosticResult(
@@ -48,8 +53,14 @@ def diagnose_window(
             ],
         )
     ctx = build_context(window, policy, efficiency=efficiency)
-    result = run_rules(DOMAIN, DEFAULT_RULES, ctx)
-    return _prefer_cause_over_symptom(result)
+    result = _prefer_cause_over_symptom(run_rules(DOMAIN, DEFAULT_RULES, ctx))
+    if topology is not None:
+        from traceml_tpu_torch.diagnostics.attribution import attach_attribution
+        from traceml_tpu_torch.utils.step_time_window import STEP_KEY
+
+        step = window.metric(STEP_KEY)
+        result = attach_attribution(result, topology, step.per_rank_avg_ms if step else None)
+    return result
 
 
 #: kinds that EXPLAIN idleness — when one fires at the symptom's
@@ -96,6 +107,7 @@ def diagnose_rank_rows(
     rank_rows: Mapping[int, Sequence[Mapping[str, Any]]],
     mode: str = "summary",
     max_steps: int = 200,
+    topology: Optional[Any] = None,
 ) -> DiagnosticResult:
     window = build_step_time_window(rank_rows, max_steps=max_steps)
-    return diagnose_window(window, mode=mode)
+    return diagnose_window(window, mode=mode, topology=topology)

@@ -17,7 +17,14 @@ from INSUFFICIENT_DATA to EQUIVALENT, ranked findings; ``--output P``
 writes the payload to P and the text beside it), ``inspect`` decodes the disk backups (``--domain rollup``: the stitched
 history of the tiers).
 
+A multi-node run starts one ``run`` per node, each with ``--nnodes N
+--node-rank I --aggregator-port P`` and the same ``TRACEML_SESSION_ID``:
+node 0 owns the aggregator (bound on ``0.0.0.0``) and writes the report;
+every other node's ranks dial ``--aggregator-host`` (node 0's address)
+over TCP.
+
     python -m traceml_tpu_torch run [--mode cli|summary|dashboard] [options] script.py [-- script args]
+    python -m traceml_tpu_torch run --nnodes 2 --node-rank 0|1 --aggregator-host H --aggregator-port P ...
     python -m traceml_tpu_torch view <session dir | final_summary.json> [--format text|json]
     python -m traceml_tpu_torch compare <baseline> <candidate> [--output P]
     python -m traceml_tpu_torch inspect <rank data dir | .msgpack | session dir> [--limit N] [--domain D]
@@ -48,7 +55,14 @@ def _build_parser() -> argparse.ArgumentParser:
                           "dashboard (the browser dashboard; its URL is printed)")
     run.add_argument("--run-name", dest="run_name", default=None)
     run.add_argument("--logs-dir", dest="logs_dir", default=None)
-    run.add_argument("--nprocs", type=int, default=1, help="rank processes to start")
+    run.add_argument("--nprocs", type=int, default=1, help="rank processes to start on this node")
+    run.add_argument("--nnodes", type=int, default=1, help="nodes of a multi-node run (one launcher each)")
+    run.add_argument("--node-rank", dest="node_rank", type=int, default=0,
+                     help="this node's index; node 0 owns the aggregator and the report")
+    run.add_argument("--aggregator-host", dest="aggregator_host", default=None,
+                     help="the address the ranks dial (the owner node's address in a multi-node run)")
+    run.add_argument("--aggregator-port", dest="aggregator_port", type=int, default=None,
+                     help="the aggregator's port (required with --nnodes > 1)")
     run.add_argument("--sampler-interval", dest="sampler_interval_sec", type=float, default=None)
     run.add_argument("--trace-max-steps", dest="trace_max_steps", type=int, default=None,
                      help="stop recording after this many steps (the script trains on)")
@@ -101,8 +115,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     cli = {
         k: getattr(args, k)
-        for k in ("mode", "run_name", "logs_dir", "nprocs", "sampler_interval_sec", "trace_max_steps",
-                  "summary_window_rows", "finalize_timeout_sec", "disk_backup", "capture_stderr", "disable")
+        for k in ("mode", "run_name", "logs_dir", "nprocs", "nnodes", "node_rank", "aggregator_host",
+                  "aggregator_port", "sampler_interval_sec", "trace_max_steps", "summary_window_rows",
+                  "finalize_timeout_sec", "disk_backup", "capture_stderr", "disable")
     }
     script_args = list(args.script_args or [])
     if script_args[:1] == ["--"]:

@@ -2,7 +2,7 @@
 
 Counterpart of ``traceml_tpu/launcher/commands.py`` for the ``cli`` (the
 default, as in JAX for a single-node run), ``summary`` and ``dashboard``
-modes on one node (no yaml config or multi-node launch yet).  The settings carry ``--trace-max-steps``,
+modes (no yaml config yet).  The settings carry ``--trace-max-steps``,
 ``--summary-window-rows``, ``--disk-backup`` and ``--no-capture-stderr``
 to every child, resolved as in JAX (CLI > ``TRACEML_<KEY>`` > default),
 and the transport tier's fields from the environment
@@ -33,6 +33,18 @@ with the summary written.  On every way out, once the aggregator is gone,
 the launcher removes the ranks' shm ring segments (they live outside the
 session directory, in ``/dev/shm`` by default) with their descriptors,
 and the session's Unix socket, which a killed aggregator leaves behind.
+
+Multi-node, as in JAX: one launcher per node with ``--nnodes N
+--node-rank I`` and an explicit ``--aggregator-port`` (the owner's
+ephemeral port is unknowable to the other nodes), every node with the
+same ``TRACEML_SESSION_ID``.  The mode defaults to ``summary``.  Node 0
+owns the aggregator, bound on ``0.0.0.0``, expects ``nprocs × nnodes``
+ranks and finalizes; a rank's ``RANK`` is ``node_rank × nprocs +
+local_rank``.  Another node starts only its ranks, which dial
+``--aggregator-host``: its aggregator is remote, so under
+``TRACEML_TRANSPORT=auto`` its ranks take TCP, the tier JAX's selection
+gives a remote aggregator (no ring registry of theirs is ever polled,
+even when the host name is loopback), and that node writes no report.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ from traceml_tpu_torch.runtime.session import generate_session_id
 from traceml_tpu_torch.runtime.settings import (
     ENV_AGG_PORT,
     ENV_DISABLE,
+    ENV_TRANSPORT,
     ENV_SCRIPT,
     ENV_SCRIPT_ARGS,
     AggregatorEndpoint,
@@ -102,16 +115,25 @@ def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
             return v
         return str(v).strip().lower() in ("1", "true", "yes", "on")
 
+    nnodes = int(cli.get("nnodes") or 1)
     run_name = pick("run_name")
     max_steps = pick("trace_max_steps")
+    port = int(pick("aggregator_port", 0) or 0)
+    if nnodes > 1 and port == 0:
+        # the owner's ephemeral port is unknowable to other nodes
+        raise ValueError(
+            "multi-node runs require an explicit --aggregator-port "
+            "(every node must agree on the owner's port)"
+        )
     return TraceMLSettings(
         session_id=pick("session_id") or generate_session_id(run_name),
         logs_dir=Path(pick("logs_dir", "./traceml_logs")),
-        mode=str(pick("mode", "cli")),
+        # a multi-node run defaults to summary mode, as in JAX
+        mode=str(pick("mode", "summary" if nnodes > 1 else "cli")),
         aggregator=AggregatorEndpoint(
             connect_host=str(pick("aggregator_host", "127.0.0.1")),
-            bind_host=str(pick("aggregator_bind_host", "127.0.0.1")),
-            port=int(pick("aggregator_port", 0) or 0),
+            bind_host=str(pick("aggregator_bind_host", "0.0.0.0" if nnodes > 1 else "127.0.0.1")),
+            port=port,
         ),
         sampler_interval_sec=float(pick("sampler_interval_sec", 1.0)),
         trace_max_steps=int(max_steps) if max_steps else None,
@@ -119,7 +141,7 @@ def resolve_settings(cli: Dict[str, Any]) -> TraceMLSettings:
         disk_backup=pick_bool("disk_backup", False),
         capture_stderr=pick_bool("capture_stderr", True),
         run_name=run_name,
-        expected_world_size=int(cli.get("nprocs") or 1),
+        expected_world_size=int(cli.get("nprocs") or 1) * nnodes,
         finalize_timeout_sec=float(pick("finalize_timeout_sec", 300.0)),
         summary_window_rows=int(pick("summary_window_rows", 10000)),
         transport=str(pick("transport", "auto")),
@@ -199,11 +221,18 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
     if not script_path.is_file():
         print(f"[TraceML] script not found: {script_path}")
         return 2
-    settings = resolve_settings(cli)
+    try:
+        settings = resolve_settings(cli)
+    except ValueError as exc:
+        print(f"[TraceML] {exc}")
+        return 2
     if settings.mode not in SUPPORTED_MODES and not settings.disabled:
         print(f"[TraceML] unknown --mode {settings.mode}; use one of {', '.join(SUPPORTED_MODES)}")
         return 2
     nprocs = int(cli.get("nprocs") or 1)
+    nnodes = int(cli.get("nnodes") or 1)
+    node_rank = int(cli.get("node_rank") or 0)
+    owner = node_rank == 0
     session_dir = settings.session_dir
     session_dir.mkdir(parents=True, exist_ok=True)
     mf.write_run_manifest(
@@ -211,7 +240,8 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
         session_id=settings.session_id,
         script=str(script_path),
         mode=settings.mode,
-        world_size=nprocs,
+        world_size=nprocs * nnodes,
+        extra={"nnodes": nnodes, "node_rank": node_rank} if nnodes > 1 else None,
     )
     t0 = time.perf_counter()
     try:
@@ -232,31 +262,39 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
     base_env = settings_to_env(settings)
     crash_logs: List[str] = []
 
-    # 1. the aggregator
-    agg_child, agg_port = _start_aggregator(settings, base_env, crash_logs)
-    telemetry_ok = agg_child is not None
-    if not telemetry_ok:
-        mf.update_run_manifest(
-            session_dir, telemetry_status="degraded", **({"crash_logs": crash_logs} if crash_logs else {})
-        )
+    # 1. the aggregator, on the owner node
+    agg_child: Optional[SupervisedChild] = None
+    agg_port = settings.aggregator.port
+    telemetry_ok = True
+    if owner:
+        agg_child, agg_port = _start_aggregator(settings, base_env, crash_logs)
+        telemetry_ok = agg_child is not None
+        if not telemetry_ok:
+            mf.update_run_manifest(
+                session_dir, telemetry_status="degraded", **({"crash_logs": crash_logs} if crash_logs else {})
+            )
 
     # 2. the rank processes
     rank_env = dict(base_env)
     rank_env[ENV_AGG_PORT] = str(agg_port)
     if not telemetry_ok:
         rank_env[ENV_DISABLE] = "1"
+    if not owner and settings.transport.strip().lower() == "auto":
+        # the aggregator is on node 0: a ring here would never be polled
+        rank_env[ENV_TRANSPORT] = "tcp"
     rank_env[ENV_SCRIPT] = str(script_path)
     if script_args:
         rank_env[ENV_SCRIPT_ARGS] = " ".join(shlex.quote(a) for a in script_args)
     procs: List[SupervisedChild] = []
-    for rank in range(nprocs):
+    for local_rank in range(nprocs):
+        rank = node_rank * nprocs + local_rank
         env = dict(rank_env)
         env.update({
             "RANK": str(rank),
-            "WORLD_SIZE": str(nprocs),
-            "LOCAL_RANK": str(rank),
+            "WORLD_SIZE": str(nprocs * nnodes),
+            "LOCAL_RANK": str(local_rank),
             "LOCAL_WORLD_SIZE": str(nprocs),
-            "NODE_RANK": "0",
+            "NODE_RANK": str(node_rank),
         })
         procs.append(spawn_supervised(
             python_argv("traceml_tpu_torch.runtime.executor"), label=f"rank_{rank}", env=env
@@ -341,13 +379,14 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
                     mf.update_run_manifest(session_dir, finalize_sec=time.monotonic() - ranks_done_at)
             if crash_logs:
                 mf.update_run_manifest(session_dir, crash_logs=crash_logs)
-            _cleanup_ring_segments(session_dir)
-            uds_path = server_transport_config(settings)["uds_path"]
-            if uds_path:
-                try:
-                    os.unlink(uds_path)  # a stopped aggregator removed it; a killed one did not
-                except OSError:
-                    pass
+            if owner:
+                _cleanup_ring_segments(session_dir)
+                uds_path = server_transport_config(settings)["uds_path"]
+                if uds_path:
+                    try:
+                        os.unlink(uds_path)  # a stopped aggregator removed it; a killed one did not
+                    except OSError:
+                        pass
         finally:
             if old_sigterm is not None:
                 signal.signal(signal.SIGTERM, old_sigterm)
@@ -357,7 +396,7 @@ def launch_process(script: str, script_args: Optional[List[str]] = None, **cli: 
 
     # 4. summary-mode enforcement: the verdict on stdout (in cli mode the
     #    display's last frame is on stdout instead, as in JAX)
-    if telemetry_ok and settings.mode == "summary":
+    if owner and telemetry_ok and settings.mode == "summary":
         summary_path = protocol.get_final_summary_json_path(session_dir)
         if not summary_path.exists():
             print(f"[TraceML] WARNING: expected summary missing: {summary_path}")

@@ -8,20 +8,24 @@ carries several tables per frame, so each row is printed with a
 file.
 
 ``--domain <table>`` keeps the rows of one table (``step_time``,
-``system``, ...).  The JAX command adds a derived
-``overlap_efficiency`` column to collectives rows; the port ships no
-collectives sampler yet (ROADMAP queue 1 item 5), so it prints every
-row as stored.
+``system``, ``collectives``, ...).  Collectives rows get a derived
+``overlap_efficiency`` column (``1 − exposed_ms/duration_ms``, 1.0 for a
+zero-duration row), as in JAX, so overlap is readable straight off the
+backups.
+
+``--domain topology`` reads the captured mesh out of the session's
+``telemetry.sqlite`` (the one-shot ``mesh_topology`` rows) and prints the
+axis names and sizes, each axis's interconnect kind and the rank → host
+→ coordinates table.
 
 ``--domain rollup`` reads the stitched full-run series of the session's
 rollup tiers (``reporting/tiers.py``): per source and metric, the
 ranks, buckets, span and resolutions, then the tail of each rank's
 step-time series.
 
-``--domain topology`` and ``--domain serving`` read tables the port does
-not write yet (the mesh capture, queue 1 item 5; the serving probe,
-item 6): they print what the JAX command prints for a session without
-them.
+``--domain serving`` reads a table the port does not write yet (the
+serving probe, ROADMAP queue 1 item 6): it prints what the JAX command
+prints for a session without it.
 """
 
 from __future__ import annotations
@@ -29,10 +33,23 @@ from __future__ import annotations
 import json
 import sqlite3
 from pathlib import Path
-from typing import Optional
+from typing import Any, Dict, Optional
 
 from traceml_tpu_torch.database.database_writer import iter_backup_tables
 from traceml_tpu_torch.reporting import tiers
+
+
+def _enrich_row(table: Optional[str], row: Dict[str, Any]) -> Dict[str, Any]:
+    """Derived columns per domain.  Collectives: overlap efficiency."""
+    if table == "collectives" or (table is None and "exposed_ms" in row):
+        try:
+            dur = float(row.get("duration_ms", 0.0) or 0.0)
+            exp = float(row.get("exposed_ms", 0.0) or 0.0)
+            row = dict(row)
+            row["overlap_efficiency"] = round(1.0 - exp / dur, 4) if dur > 0 else 1.0
+        except Exception:
+            pass
+    return row
 
 
 def _find_session_db(path: Path) -> Optional[Path]:
@@ -51,16 +68,40 @@ def _find_session_db(path: Path) -> Optional[Path]:
 
 
 def _inspect_topology(path: Path) -> int:
+    from traceml_tpu_torch.reporting.loaders import load_mesh_topology
+
     db = _find_session_db(path)
     if db is None:
         print(f"no telemetry.sqlite at or under {path}")
         return 1
-    print(
-        f"no mesh topology captured in {db}\n"
-        "(pre-topology session, or the run never built a mesh — "
-        "set TRACEML_MESH or call parallel.mesh.make_mesh)"
-    )
-    return 1
+    try:
+        topo = load_mesh_topology(db)
+    except Exception as exc:
+        print(f"failed to read mesh topology from {db}: {exc}")
+        return 1
+    if topo is None:
+        print(
+            f"no mesh topology captured in {db}\n"
+            "(pre-topology session, or the run never built a mesh — "
+            "set TRACEML_MESH or call parallel.mesh.make_mesh)"
+        )
+        return 1
+    print(f"── mesh topology ({db})")
+    print(f"source: {topo.source}")
+    axes = "  ·  ".join(f"{a.name}×{a.size} [{a.kind}]" for a in topo.axes)
+    print(f"axes:   {axes}")
+    hosts = sorted(set(topo.rank_hosts.values()))
+    if hosts:
+        print(f"hosts:  {len(hosts)}")
+    print(f"ranks:  {len(topo.rank_coords)}")
+    coord_hdr = ",".join(a.name for a in topo.axes)
+    print(f"{'rank':>6}  {'host':>6}  hostname{'':<12} ({coord_hdr})")
+    for rank in sorted(topo.rank_coords):
+        host = topo.rank_hosts.get(rank)
+        name = topo.rank_hostnames.get(rank, "")
+        coords = ",".join(str(c) for c in topo.rank_coords[rank])
+        print(f"{rank:>6}  {'' if host is None else host:>6}  {name:<20} ({coords})")
+    return 0
 
 
 def _inspect_serving(path: Path) -> int:
@@ -150,6 +191,7 @@ def run_inspect(path: Path, limit: int = 20, domain: Optional[str] = None) -> in
             if not printed_header:
                 print(f"── {f}")
                 printed_header = True
+            row = _enrich_row(effective, row)
             if table is None:
                 print(json.dumps(row, default=str))
             else:

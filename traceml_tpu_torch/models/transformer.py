@@ -333,15 +333,21 @@ def init_train_state(
 
 
 def make_train_step(
-    model: DecoderLM, optimizer: torch.optim.Optimizer
+    model: DecoderLM,
+    optimizer: torch.optim.Optimizer,
+    grad_sync: Optional[Callable[[], Any]] = None,
 ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """The train step ``step(tokens) → {"loss": loss}``: the loss of
-    ``tokens`` (B, S+1), its gradients, one optimizer update, and the
-    gradients freed.  The loss is returned on the device, unsynchronized."""
+    ``tokens`` (B, S+1), its gradients, ``grad_sync()`` when given (a
+    data-parallel gradient all-reduce between backward and the update),
+    one optimizer update, and the gradients freed.  The loss is returned
+    on the device, unsynchronized."""
 
     def train_step(tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
         loss = loss_fn(model, tokens)
         loss.backward()
+        if grad_sync is not None:
+            grad_sync()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return {"loss": loss.detach()}

@@ -13,8 +13,10 @@ instead.  They frame the same bytes, so a broken fast path never reaches
 training code.
 
 The build is the port's own: ``cc -O2 -shared -fPIC -I<Python include>``
-writes ``build/traceml_tpu_torch/_<name>-<hash>.so`` (beside the CUDA
-libraries of ``ops/_build.py``, nothing under the package).  The hash
+writes ``_<name>-<hash>.so`` into the build directory of the CUDA
+libraries (``ops/_build.py`` ``resolve_build_dir``: ``build/traceml_tpu_torch``
+beside a writable package tree, else ``TRACEML_TORCH_BUILD_DIR``, else the
+user cache directory; nothing under the package).  The hash
 covers the source, the flags and the interpreter's include directory and
 ABI suffix, so an edited source, or another interpreter, builds anew.  A
 build goes through a temporary file and ``os.replace``, so processes that

@@ -1,8 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exports a plain C interface and becomes its own
-shared library, ``build/traceml_tpu_torch/lib<name>-<hash>.so``, at first
-use.  The hash covers the source, every ``csrc/*.cuh`` header and the
+shared library, ``<build dir>/lib<name>-<hash>.so``, at first use.  The
+build directory (:func:`resolve_build_dir`) is ``build/traceml_tpu_torch``
+beside the package when that tree is writable (a checkout), else
+``TRACEML_TORCH_BUILD_DIR``, else ``traceml_tpu_torch`` under the user
+cache directory (``$XDG_CACHE_HOME`` or ``~/.cache``): an installed
+package's ``site-packages`` is often read-only.  The hash covers the source, every ``csrc/*.cuh`` header and the
 compiler flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is.  ``build()`` starts one ``nvcc`` per missing library,
 all at once, and waits for them together.
@@ -22,11 +26,37 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "traceml_tpu_torch"
+ENV_BUILD_DIR = "TRACEML_TORCH_BUILD_DIR"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+def _writable(path: Path) -> bool:
+    """Whether ``path`` can be created or written: the path itself when
+    it exists, else its nearest existing parent."""
+    for p in (path, *path.parents):
+        if p.exists():
+            return p.is_dir() and os.access(p, os.W_OK | os.X_OK)
+    return False
+
+
+def resolve_build_dir() -> Path:
+    """Where the kernel and native libraries are built: the package
+    tree's ``build/traceml_tpu_torch`` when it is writable, else
+    ``TRACEML_TORCH_BUILD_DIR``, else the user cache directory."""
+    tree = Path(__file__).resolve().parents[2] / "build" / "traceml_tpu_torch"
+    if _writable(tree):
+        return tree
+    env = os.environ.get(ENV_BUILD_DIR)
+    if env:
+        return Path(env).expanduser()
+    cache = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
+    return Path(cache) / "traceml_tpu_torch"
+
+
+BUILD_DIR = resolve_build_dir()
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,10 @@
 """Live CLI dashboard composition.
 
 Counterpart of ``traceml_tpu/renderers/cli/dashboard.py``: a header with
-the staleness badge and the rank liveness strip, then the panels in the
-JAX order (step time first, then findings, then resources; the cluster
-panel only in multi-node runs).  The JAX header's mesh strip waits for
-the mesh topology (ROADMAP queue 1 item 5).
+the staleness badge, the rank liveness strip and, once a rank shipped
+its mesh placement, the mesh strip ("mesh: data×2 (dcn) · fsdp×4 · 2
+hosts"), then the panels in the JAX order (step time first, then
+findings, then resources; the cluster panel only in multi-node runs).
 """
 
 from __future__ import annotations
@@ -59,6 +59,25 @@ def _append_rank_strip(header: Text, payload: Dict[str, Any]) -> None:
         header.append(f" (rank {shown}{more})", style="red")
 
 
+def _append_mesh_strip(header: Text, payload: Dict[str, Any]) -> None:
+    """The captured mesh at a glance, only when a mesh_topology message
+    arrived: a session without one renders the header it had before."""
+    mesh = (payload.get("topology") or {}).get("mesh")
+    if not mesh or not mesh.get("axes"):
+        return
+    parts = []
+    for ax in mesh["axes"]:
+        label = f"{ax.get('name')}×{ax.get('size')}"
+        if ax.get("kind") == "dcn":
+            label += " (dcn)"
+        parts.append(label)
+    header.append("   mesh: ", style="dim")
+    header.append(" · ".join(parts), style="cyan")
+    hosts = mesh.get("hosts")
+    if hosts:
+        header.append(f" · {hosts} host{'s' if hosts != 1 else ''}", style="dim")
+
+
 def dashboard(payload: Dict[str, Any], session: str) -> Group:
     header = Text(f"TraceML (PyTorch) — live · session {session}", style="bold")
     # staleness = age of the NEWEST telemetry row, not of the payload
@@ -69,6 +88,7 @@ def dashboard(payload: Dict[str, Any], session: str) -> Group:
         if age > 5.0:
             header.append(f"   ⚠ telemetry {age:.0f}s stale", style="yellow")
     _append_rank_strip(header, payload)
+    _append_mesh_strip(header, payload)
     parts = [header, step_time_panel(payload), diagnostics_panel(payload)]
     cluster = cluster_panel(payload)
     if cluster is not None:

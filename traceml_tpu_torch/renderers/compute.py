@@ -20,12 +20,15 @@ store's ``TickProfile`` (stages ``refresh``, ``build``, ``diagnose``,
 ``payload_with_versions`` exports the store's ``window_build_stats``,
 version-gated, for the dashboard's ``meta.window_build``.
 
-Left out against the JAX computer: the collectives and serving domains
-(ROADMAP queue 1 items 5 and 6) with the collectives memo, and the mesh
-attribution of the diagnoses (``diagnostics/attribution.py`` needs
-``utils/topology.py``, queue 1 item 5): the port's diagnoses run with no
-topology, as the JAX ones do when no mesh was captured, so their
-``attribute`` stage reads 0 ns as the JAX one does then.  The
+The collectives domain, as in JAX, depends on the step-time version too
+(COMM_BOUND reads the median step time as the denominator of the exposed
+share), so its whole result is memoized on (collectives version,
+topology version, median step ms), and the step-time window object is
+shared with the step-time domain.  Every diagnosis gets the store's
+captured mesh (``mesh_topology()``, None without one), and the time its
+attribution takes is the ``attribute`` stage, split out of ``diagnose``.
+Left out against the JAX computer: the serving domain (ROADMAP queue 1
+item 6).  The
 ``history`` domain, as in JAX, is the stitched step-time series of the
 rollup tiers collapsed to a cross-rank band (mean of the ranks' means,
 min, max per bucket); it is empty until the writer's first prune.
@@ -38,6 +41,8 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
+from traceml_tpu_torch.diagnostics.attribution import attribution_ns_total
+from traceml_tpu_torch.diagnostics.collectives.api import diagnose_collectives_window
 from traceml_tpu_torch.diagnostics.common import rule_eval_counts
 from traceml_tpu_torch.diagnostics.process.api import diagnose as diagnose_process
 from traceml_tpu_torch.diagnostics.step_memory.api import diagnose_columns as diagnose_memory_columns
@@ -54,6 +59,8 @@ _DOMAIN_DEPS: Dict[str, Tuple[Tuple[str, ...], Optional[str]]] = {
     "topology": (("topology",), None),
     "step_time": (("step_time", "model_stats", "topology"), "step_time"),
     "memory": (("step_memory", "topology"), "memory"),
+    # COMM_BOUND needs the median step time as its denominator
+    "collectives": (("collectives", "step_time", "topology"), "collectives"),
     "system": (("system", "topology"), "system"),
     "process": (("process",), "process"),
     "stdout": (("stdout",), None),
@@ -88,6 +95,11 @@ class LiveComputer:
         # TRACEML_VECTOR_DIAGNOSIS)
         self._window_memo: Dict[str, Tuple[Tuple, Any]] = {}
         self._st_tables_memo: Dict[str, Any] = {}
+        # the median step ms per step_time version, and the whole
+        # collectives result (its re-dirty through the step_time
+        # dependency usually changes nothing it reads)
+        self._step_ms_memo: Optional[Tuple[Tuple, Optional[float]]] = None
+        self._coll_memo: Optional[Tuple[Tuple, Tuple[Dict[str, Any], Any]]] = None
         # the last exported window_build_stats, keyed on the store
         # versions it was taken at (payload_with_versions)
         self._stats_export: Optional[Tuple[Tuple, Dict[str, Any]]] = None
@@ -177,11 +189,21 @@ class LiveComputer:
         except Exception:
             pass
 
+    def _mesh_topology(self):
+        """The store's merged ``MeshTopology``, or None: every diagnosis
+        gets it, so findings carry attribution once a mesh was captured
+        (fail-open: attribution is garnish)."""
+        try:
+            return self._store.mesh_topology()
+        except Exception:
+            return None
+
     def _diagnose_cached(self, domain: str, cache_key: Tuple, build):
         """Run a pack's diagnosis under the per-(domain, version-key)
         cache and the tick profiler.  ``cache_key`` holds every input of
         the diagnosis that can change between ticks; a match returns the
-        previous DiagnosticResult without evaluating a rule."""
+        previous DiagnosticResult without evaluating a rule.  The time the
+        pack's attribution took is the ``attribute`` stage."""
         prof = self._store.tick_profile
         if vector_diagnosis_enabled():
             hit = self._diag_cache.get(domain)
@@ -189,10 +211,13 @@ class LiveComputer:
                 prof.bump("diag_cache_hits")
                 return hit[1]
         r0 = sum(rule_eval_counts().values())
+        a0 = attribution_ns_total()
         t0 = time.perf_counter_ns()
         result = build()
-        prof.note_stage(domain, "diagnose", time.perf_counter_ns() - t0)
-        prof.note_stage(domain, "attribute", 0)  # no mesh attribution yet
+        total_ns = time.perf_counter_ns() - t0
+        attr_ns = attribution_ns_total() - a0
+        prof.note_stage(domain, "diagnose", max(0, total_ns - attr_ns))
+        prof.note_stage(domain, "attribute", attr_ns)
         prof.bump("rule_evals", sum(rule_eval_counts().values()) - r0)
         if vector_diagnosis_enabled():
             prof.bump("diag_cache_misses")
@@ -216,6 +241,27 @@ class LiveComputer:
             prof.bump("window_memo_misses")
             self._window_memo[domain] = (key, window)
         return window
+
+    def _median_step_ms(self, versions: Dict[str, int]) -> Optional[float]:
+        """The cross-rank median step ms (the collectives share
+        denominator), memoized per step_time version."""
+        key = (versions["step_time"],)
+        if vector_diagnosis_enabled() and self._step_ms_memo is not None and self._step_ms_memo[0] == key:
+            return self._step_ms_memo[1]
+        step_time_ms: Optional[float] = None
+        try:
+            st = self._window_cached(
+                "step_time", key, lambda: self._store.build_step_time_window(max_steps=self.window_steps)
+            )
+            if st is not None:
+                m = st.metric("step_time")
+                if m is not None and m.median_ms > 0:
+                    step_time_ms = m.median_ms
+        except Exception:
+            pass
+        if vector_diagnosis_enabled():
+            self._step_ms_memo = (key, step_time_ms)
+        return step_time_ms
 
     # -- per-domain builders ---------------------------------------------
     # Each returns (top-level payload updates, typed view or None); a
@@ -268,7 +314,7 @@ class LiveComputer:
                     "diagnosis": self._diagnose_cached(
                         "step_time",
                         (versions["step_time"], versions["topology"]),
-                        lambda: diagnose_window(window, mode="live"),
+                        lambda: diagnose_window(window, mode="live", topology=self._mesh_topology()),
                     )
                     if self._store.has_step_time_rows()
                     else None,
@@ -289,12 +335,15 @@ class LiveComputer:
             t0 = time.perf_counter_ns()
             view = V.build_memory_view(mem_rows, columns=mem_cols)
             prof.note_stage("memory", "view", time.perf_counter_ns() - t0)
+            mesh = self._mesh_topology()
             key = (versions["step_memory"], versions["topology"])
             if mem_cols is not None:
-                diagnosis = self._diagnose_cached("memory", key, lambda: diagnose_memory_columns(mem_cols))
+                diagnosis = self._diagnose_cached(
+                    "memory", key, lambda: diagnose_memory_columns(mem_cols, topology=mesh)
+                )
             else:
                 diagnosis = (
-                    self._diagnose_cached("memory", key, lambda: diagnose_memory(mem_rows))
+                    self._diagnose_cached("memory", key, lambda: diagnose_memory(mem_rows, topology=mesh))
                     if mem_rows else None
                 )
             updates = {
@@ -304,6 +353,45 @@ class LiveComputer:
             return updates, view
         except Exception as exc:
             return {"step_memory": {"error": str(exc)}}, None
+
+    def _compute_collectives(self) -> Tuple[Dict[str, Any], Any]:
+        prof = self._store.tick_profile
+        try:
+            versions = self._store.versions
+            # the share denominator first: the domain re-runs on every
+            # step_time advance, but everything below reads only the
+            # median step ms, so the whole result is memoized on
+            # (collectives, topology, median)
+            step_time_ms = self._median_step_ms(versions)
+            rkey = (versions["collectives"], versions["topology"], step_time_ms)
+            if vector_diagnosis_enabled() and self._coll_memo is not None and self._coll_memo[0] == rkey:
+                prof.bump("domain_memo_hits")
+                return self._coll_memo[1]
+            window = self._window_cached(
+                "collectives", (versions["collectives"],),
+                lambda: self._store.build_collectives_window(max_steps=self.window_steps),
+            )
+            t0 = time.perf_counter_ns()
+            view = V.build_collectives_view(window, step_time_ms=step_time_ms)
+            prof.note_stage("collectives", "view", time.perf_counter_ns() - t0)
+            updates = {
+                "collectives": {
+                    "window": window,
+                    "diagnosis": self._diagnose_cached(
+                        "collectives", rkey,
+                        lambda: diagnose_collectives_window(
+                            window, mode="live", step_time_ms=step_time_ms, topology=self._mesh_topology()
+                        ),
+                    )
+                    if self._store.has_collectives_rows()
+                    else None,
+                },
+            }
+            if vector_diagnosis_enabled():
+                self._coll_memo = (rkey, (updates, view))
+            return updates, view
+        except Exception as exc:
+            return {"collectives": {"error": str(exc)}}, None
 
     def _compute_system(self) -> Tuple[Dict[str, Any], Any]:
         nodes = int((self._store.topology() or {}).get("nodes") or 0)

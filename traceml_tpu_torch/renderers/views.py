@@ -3,8 +3,8 @@ lives (render surfaces only format).
 
 Counterpart of ``traceml_tpu/renderers/views.py`` for the domains the
 port writes: step time (with the efficiency block), device memory,
-system and process.  The collectives and serving views come with their
-queues (ROADMAP queue 1 items 5 and 6).  Views are frozen dataclasses;
+collectives (compute/comm overlap), system and process.  The serving view
+comes with its queue (ROADMAP queue 1 item 6).  Views are frozen dataclasses;
 ``as_dict`` gives the same dict as the JAX view's.
 
 As in JAX, the step-time tables and the memory view's per-row walk have
@@ -30,6 +30,7 @@ from traceml_tpu_torch.utils.columnar import (
     C_CUR,
     KEY_INDEX,
     MemoryColumns,
+    note_vector_fallback,
     vector_diagnosis_enabled,
 )
 from traceml_tpu_torch.utils.rankstats import closest_rank_to_median
@@ -343,6 +344,167 @@ def build_memory_view(
         ranks=stats,
         worst_pressure_rank=worst,
         total_current_bytes=sum(s.current_bytes or 0 for s in stats),
+        latest_ts=latest_ts,
+    )
+
+
+# ---------------------------------------------------------------------------
+# collectives (compute/comm overlap)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveOpStat:
+    """Window totals for one collective op kind."""
+
+    op: str
+    count: int
+    bytes: int
+    duration_ms: float
+    exposed_ms: float
+    overlap_efficiency: float
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectivesView:
+    n_steps: int
+    ranks_present: int
+    group_size: int
+    steps: List[int]                      # aligned step ids (tail)
+    comm_ms_series: List[float]           # per-step total collective time
+    exposed_ms_series: List[float]        # per-step exposed (un-overlapped)
+    overlap_series: List[float]           # per-step 1 − exposed/total
+    comm_ms_per_step: float
+    exposed_ms_per_step: float
+    bytes_per_step: float
+    overlap_efficiency: float             # window total
+    # shares of the mean step time, when step_time telemetry is present
+    comm_share: Optional[float]
+    exposed_share: Optional[float]
+    ops: List[CollectiveOpStat]           # sorted by duration desc
+    per_rank_efficiency: Dict[str, float]
+    worst_overlap_rank: Optional[int]
+    latest_ts: Optional[float]
+
+    def as_dict(self) -> Dict[str, Any]:
+        return _asdict(self)
+
+
+def _collectives_rank_table(
+    per_rank: Mapping[int, Mapping[str, float]],
+) -> Optional[Tuple[Dict[str, float], Optional[int]]]:
+    """Vectorized per-rank table: gather the window's per-rank dicts
+    into rank-slot arrays once, then do the cross-rank reductions
+    (sort, masked first-min) in numpy.  tolist() BEFORE round() so the
+    values are native floats, identical to the scalar twin.  None on
+    any surprise — the caller falls back to the scalar arm."""
+    try:
+        items = list(per_rank.items())
+        ranks = np.asarray([r for r, _ in items], dtype=np.int64)
+        eff = np.asarray(
+            [float(v["overlap_efficiency"]) for _, v in items],
+            dtype=np.float64,
+        )
+        dur = np.asarray(
+            [float(v.get("duration_ms", 0.0)) for _, v in items],
+            dtype=np.float64,
+        )
+        order = np.argsort(ranks, kind="stable")
+        table = {
+            str(r): round(v, 4)
+            for r, v in zip(ranks[order].tolist(), eff[order].tolist())
+        }
+        # first minimum among comm-active ranks in insertion order ==
+        # the scalar arm's min()-with-key tie-break
+        mask = dur > 0.0
+        worst = None
+        if bool(mask.any()):
+            idx = np.flatnonzero(mask)
+            worst = int(ranks[idx[int(np.argmin(eff[idx]))]])
+        return table, worst
+    except Exception:
+        note_vector_fallback("collectives_view")
+        return None
+
+
+def build_collectives_view(
+    window: Any,
+    *,
+    step_time_ms: Optional[float] = None,
+    latest_ts: Optional[float] = None,
+    series_tail: int = 60,
+) -> Optional[CollectivesView]:
+    """``window`` is a :class:`~traceml_tpu_torch.utils.columnar.CollectivesWindow`;
+    ``step_time_ms`` is the mean step duration from the step_time window so
+    the view can express comm as a share of the step."""
+    if window is None or not window.n_steps:
+        return None
+    n = window.n_steps
+    offset = max(0, n - series_tail)
+    dur = window.per_step["duration_ms"]
+    exp = window.per_step["exposed_ms"]
+    eff = window.per_step["overlap_efficiency"]
+    comm_per_step = window.totals["duration_ms"] / n
+    exposed_per_step = window.totals["exposed_ms"] / n
+    comm_share = exposed_share = None
+    if step_time_ms is not None and step_time_ms > 0:
+        comm_share = round(comm_per_step / step_time_ms, 4)
+        exposed_share = round(exposed_per_step / step_time_ms, 4)
+    ops = [
+        CollectiveOpStat(
+            op=op,
+            count=int(v.get("count", 0)),
+            bytes=int(v.get("bytes", 0)),
+            duration_ms=round(float(v.get("duration_ms", 0.0)), 4),
+            exposed_ms=round(float(v.get("exposed_ms", 0.0)), 4),
+            overlap_efficiency=round(
+                1.0 - v["exposed_ms"] / v["duration_ms"]
+                if v.get("duration_ms", 0.0) > 0
+                else 1.0,
+                4,
+            ),
+        )
+        for op, v in window.per_op.items()
+    ]
+    ops.sort(key=lambda o: -o.duration_ms)
+    vec = (
+        _collectives_rank_table(window.per_rank)
+        if vector_diagnosis_enabled()
+        else None
+    )
+    if vec is not None:
+        per_rank_eff, worst = vec
+    else:  # scalar golden-reference arm (TRACEML_VECTOR_DIAGNOSIS=0)
+        per_rank_eff = {
+            str(r): round(float(v["overlap_efficiency"]), 4)
+            for r, v in sorted(window.per_rank.items())
+        }
+        comm_ranks = [
+            (r, v)
+            for r, v in window.per_rank.items()
+            if v.get("duration_ms", 0.0) > 0
+        ]
+        worst = (
+            min(comm_ranks, key=lambda kv: kv[1]["overlap_efficiency"])[0]
+            if comm_ranks
+            else None
+        )
+    return CollectivesView(
+        n_steps=n,
+        ranks_present=len(window.ranks),
+        group_size=int(window.group_size),
+        steps=list(window.steps[offset:]),
+        comm_ms_series=[round(float(v), 4) for v in dur[offset:]],
+        exposed_ms_series=[round(float(v), 4) for v in exp[offset:]],
+        overlap_series=[round(float(v), 4) for v in eff[offset:]],
+        comm_ms_per_step=round(comm_per_step, 4),
+        exposed_ms_per_step=round(exposed_per_step, 4),
+        bytes_per_step=round(window.totals["bytes"] / n, 1),
+        overlap_efficiency=round(window.totals["overlap_efficiency"], 4),
+        comm_share=comm_share,
+        exposed_share=exposed_share,
+        ops=ops,
+        per_rank_efficiency=per_rank_eff,
+        worst_overlap_rank=int(worst) if worst is not None else None,
         latest_ts=latest_ts,
     )
 

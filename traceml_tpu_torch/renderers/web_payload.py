@@ -13,18 +13,18 @@ the delta and SSE endpoints ship them one by one
 All eleven JAX fragments keep their names and order, so the version
 token and the page's client are the JAX ones.  ``history`` is the
 full-run step-time band of the stitched rollup tiers, left out, as in
-JAX, until the writer's first prune folds a row.  The domains the port
-does not have yet read as the JAX payload does on a training session
-that recorded none: ``collectives`` is ``null`` (its sampler, ROADMAP
-queue 1 item 5), ``serving`` is left out (the serving probe, item 6),
-and ``meta`` has no ``mesh`` (``utils/topology.py``, item 5).
+JAX, until the writer's first prune folds a row.  ``collectives`` is the
+collectives view (``null`` when no rank recorded a collective), and
+``meta.mesh`` the captured mesh's compact block (left out without one).
+The domain the port does not have yet reads as the JAX payload does on
+a training session that recorded none: ``serving`` is left out (the
+serving probe, ROADMAP queue 1 item 6).
 ``meta.regressions`` is the finished run's cross-run verdict
 (``regressions.json``), left out until the report writes it, as in JAX;
 ``meta.window_build`` is the window engine's build counters and tick
 profile, which ``LiveComputer.payload_with_versions`` attaches while the
-incremental engine is on.  The
-findings carry no mesh ``attribution`` either: the port's diagnoses run
-with no topology, as the JAX ones do when no mesh was captured.
+incremental engine is on.  A finding carries its mesh ``attribution``
+when its pack attached one, and no such key otherwise, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,26 +59,26 @@ _FRAGMENT_KEYS: Dict[str, Tuple[str, ...]] = {
 FRAGMENT_ORDER: Tuple[str, ...] = tuple(_FRAGMENT_KEYS)
 
 #: fragment → the snapshot-store domains whose versions gate its
-#: rebuild.  The two fragments the port has no domain for depend on
-#: none, so they are built once.  ``header`` is constant and ``meta`` is
+#: rebuild.  ``serving``, which the port has no domain for, depends on
+#: none, so it is built once.  ``header`` is constant and ``meta`` is
 #: read from files (ingest_stats.json, rank_status.json,
 #: regressions.json), so both are
 #: rebuilt on every poll and compared by content.
 FRAGMENT_DEPS: Dict[str, Tuple[str, ...]] = {
     "step_time": ("step_time", "model_stats", "topology"),
     "memory": ("step_memory", "topology"),
-    "collectives": (),
+    "collectives": ("collectives", "step_time", "topology"),
     "serving": (),
     "system": ("system", "topology"),
     "process": ("process",),
     "stdout": ("stdout",),
     "history": ("rollup", "step_time"),
-    "diagnosis": ("step_time", "model_stats", "topology", "step_memory", "system", "process"),
+    "diagnosis": ("step_time", "model_stats", "topology", "step_memory", "collectives", "system", "process"),
 }
 
 
 def _issue_dict(issue: Any) -> Dict[str, Any]:
-    return {
+    out = {
         "kind": issue.kind,
         "severity": issue.severity,
         "summary": issue.summary,
@@ -86,6 +86,12 @@ def _issue_dict(issue: Any) -> Dict[str, Any]:
         "confidence": getattr(issue, "confidence", None),
         "confidence_label": confidence_label(getattr(issue, "confidence", None)),
     }
+    # the mesh attribution rides only when present: a session without a
+    # mesh serializes the shape it had before
+    attribution = getattr(issue, "attribution", None)
+    if attribution:
+        out["attribution"] = attribution
+    return out
 
 
 def _view_fragment(payload: Dict[str, Any], key: str) -> Dict[str, Any]:
@@ -113,7 +119,7 @@ def _diagnosis_fragment(payload: Dict[str, Any]) -> Dict[str, Any]:
     domain_results = {
         "step_time": st_result,
         "step_memory": payload.get("step_memory_diagnosis"),
-        "collectives": None,
+        "collectives": (payload.get("collectives") or {}).get("diagnosis"),
         "serving": None,
         "system": payload.get("system_diagnosis"),
         "process": payload.get("process_diagnosis"),
@@ -162,6 +168,15 @@ def _meta_fragment(payload: Dict[str, Any], session_dir: Path) -> Dict[str, Any]
                     if isinstance(info, dict)
                 },
             }
+    except Exception:
+        pass
+    # the mesh strip: the topology's compact block, only once a mesh was
+    # captured (the fragment is compared by content, so a late
+    # mesh_topology message republishes it)
+    mesh = (payload.get("topology") or {}).get("mesh")
+    if mesh:
+        out["mesh"] = mesh
+    try:
         # the cross-run regression verdict, written at finalize: a
         # dashboard left open shows it the moment the run completes
         regressions = load_regressions(session_dir)
@@ -184,10 +199,8 @@ def build_fragment(name: str, payload: Dict[str, Any], *, session: str, db_path:
     serving tier serializes once per version."""
     if name == "header":
         return {"version": PAYLOAD_VERSION, "session": session}
-    if name in ("step_time", "memory", "system", "process"):
+    if name in ("step_time", "memory", "collectives", "system", "process"):
         return _view_fragment(payload, name)
-    if name == "collectives":
-        return {"collectives": None}
     if name == "serving":
         return {}
     if name == "history":

@@ -1,9 +1,8 @@
 """Per-section comparers.
 
 Counterpart of ``traceml_tpu/reporting/compare/sections.py`` (copied),
-against the final-summary schema both packages write.  The port's
-summaries have no ``collectives`` or ``serving`` data; neither has a
-comparer here, as in JAX.
+against the final-summary schema both packages write.  The
+``collectives`` and ``serving`` sections have no comparer, as in JAX.
 
 Each comparer consumes the same section from two ``final_summary.json``
 payloads and returns a :class:`SectionComparison`:

@@ -17,8 +17,12 @@ in JAX, a session without a telemetry DB gets the JSON and text only.
 
 The liveness section reads the aggregator's ``rank_status.json`` and
 ``finalization_warning.json``, not the database: a rank killed mid-run
-left no closing rows.  The ``collectives`` section is a NO_DATA stub (its
-sampler comes later).  The ``history`` block, as in JAX, holds the whole
+left no closing rows.  The ``collectives`` section, as in JAX, folds the
+``collectives_samples`` rows into the union-aligned window (the
+incremental cache over ``CollectivesColumns`` rings, or the scalar fold)
+and diagnoses it with the step window's median step time as the
+denominator of the exposed-comm share (COMM_BOUND); it is NO_DATA when
+no rank recorded a collective.  The ``history`` block, as in JAX, holds the whole
 run at bounded cost once the writer's retention prune has folded rows
 into the rollup tiers: per domain and metric, the stitched series
 (``reporting/tiers.py``) collapsed to a cross-rank band and decimated to
@@ -31,17 +35,22 @@ judged against the last runs of its fingerprint in the logs dir's
 (``analytics/baselines.py``), before the section cards are attached; the
 section goes into the payload and into ``regressions.json`` beside it,
 and the text summary gives a "Cross-run regression" or "Cross-run
-baseline" line and a ``[baseline] PERF_REGRESSION`` line per issue.  The
-port has no topology capture yet, so the check runs with
-``topology=None`` and no issue carries the JAX rank attribution: the
-path the JAX report takes whenever no mesh was captured.  A store that
-cannot be used leaves the section out; nothing else fails.
+baseline" line and a ``[baseline] PERF_REGRESSION`` line per issue.
+The captured mesh (``loaders.load_mesh_topology``; None when no rank
+shipped one) is threaded into every diagnosing section, the liveness
+one too, and into the check, so a finding or a step-time regression
+whose ranks map onto a host, a mesh axis or one side of a node boundary
+carries an ``attribution`` block, and ``meta.topology`` carries the
+compact ``mesh`` block.  A store that cannot be used leaves the
+regressions section out; nothing else fails.
 
 As in JAX, the report is one profiled tick: its reads are the ``store``
 domain's ``refresh`` stage, each section's build its ``diagnose`` stage
-(``attribute`` is 0 ns: no mesh attribution), and with the incremental
-engine on ``meta.window_build`` holds the window cache's counters and
-that profile (``utils/columnar.py`` ``window_build_snapshot``).
+less the time its mesh attribution took, which is its ``attribute``
+stage (``diagnostics/attribution.py`` ``attribution_ns_total``), and
+with the incremental engine on ``meta.window_build`` holds the window
+caches' counters and that profile (``utils/columnar.py``
+``window_build_snapshot``).
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ import numpy as np
 from traceml_tpu_torch.analytics import baselines
 from traceml_tpu_torch.analytics.efficiency import build_efficiency
 from traceml_tpu_torch.analytics.trends.core import compute_window_trend
+from traceml_tpu_torch.diagnostics.attribution import attribution_ns_total
+from traceml_tpu_torch.diagnostics.collectives.api import diagnose_collectives_window
 from traceml_tpu_torch.diagnostics.common import DiagnosticResult
 from traceml_tpu_torch.diagnostics.liveness.api import diagnose_rank_status
 from traceml_tpu_torch.diagnostics.process.api import diagnose as diagnose_process
@@ -69,11 +80,15 @@ from traceml_tpu_torch.sdk import protocol
 from traceml_tpu_torch.utils.atomic_io import atomic_write_json, atomic_write_text, read_json
 from traceml_tpu_torch.utils.columnar import (
     KEY_INDEX,
+    CollectivesColumns,
+    CollectivesWindow,
     ColumnarFallback,
     StepTimeColumns,
     StepTimeWindowCache,
     TickProfile,
+    build_collectives_window_rows,
     columnar_window_enabled,
+    engine_collectives_window,
     engine_step_time_window,
     incr_window_enabled,
     window_build_snapshot,
@@ -92,6 +107,7 @@ SCHEMA_VERSION = "traceml-tpu/1"
 REPORT_WINDOW_STEPS = 200
 WINDOW_READ_STEPS = 600
 MEMORY_READ_ROWS = 20000
+COLLECTIVES_READ_ROWS = WINDOW_READ_STEPS * 8  # several (op, dtype) rows share a step
 SAMPLE_READ_ROWS = 2000  # newest system and process rows read
 
 
@@ -177,13 +193,13 @@ def _report_window(rank_rows, caches: Dict[str, StepTimeWindowCache]) -> Optiona
     return build_step_time_window(rank_rows, max_steps=REPORT_WINDOW_STEPS)
 
 
-def _build_step_time_section(rank_rows, mode: str, identities, model_stats, caches):
+def _build_step_time_section(rank_rows, mode: str, identities, model_stats, caches, topology=None):
     if not rank_rows:
-        return _no_data_section("step_time"), None
+        return _no_data_section("step_time"), None, None
     window = _report_window(rank_rows, caches)
     steady = _steady_state(window) if window else {}
     efficiency = _efficiency_block(model_stats, window, steady) if window else None
-    result = diagnose_window(window, mode=mode, efficiency=efficiency)
+    result = diagnose_window(window, mode=mode, efficiency=efficiency, topology=topology)
     section: Dict[str, Any] = {
         "status": "OK" if window else "NO_DATA",
         "diagnosis": result.diagnosis.to_dict(),
@@ -252,13 +268,13 @@ def _build_step_time_section(rank_rows, mode: str, identities, model_stats, cach
             "step_series_ms": series,
             "step_series_steps": window.steps[-tail:],
         }
-    return section, result
+    return section, result, window
 
 
-def _build_step_memory_section(rank_rows, identities=None):
+def _build_step_memory_section(rank_rows, identities=None, topology=None):
     if not rank_rows:
         return _no_data_section("step_memory"), None
-    result = diagnose_memory(rank_rows)
+    result = diagnose_memory(rank_rows, topology=topology)
     identities = identities or {}
     per_rank = {}
     for rank, rows in rank_rows.items():
@@ -311,6 +327,103 @@ def _build_step_memory_section(rank_rows, identities=None):
         "global": {"per_rank": per_rank, "rollup": rollup},
         "units": {"memory": "bytes"},
     }
+    return section, result
+
+
+def _report_collectives_window(rank_rows, caches: Dict[str, Any]) -> Optional[CollectivesWindow]:
+    """The report's collectives window, built as the live store builds
+    it: each rank's rows into a ring, then the incremental cache (kept in
+    ``caches`` for ``meta.window_build``) or the full columnar build, and
+    the scalar fold when the columnar engine is off or a ring is
+    flagged."""
+    if columnar_window_enabled():
+        cols = {}
+        for rank, rows in rank_rows.items():
+            ring = cols[rank] = CollectivesColumns(len(rows))
+            for row in rows:
+                ring.append(row)
+        try:
+            return engine_collectives_window(cols, caches, REPORT_WINDOW_STEPS)
+        except ColumnarFallback:
+            pass
+    return build_collectives_window_rows(rank_rows, max_steps=REPORT_WINDOW_STEPS)
+
+
+def _build_collectives_section(rank_rows, mode: str, caches, step_time_ms=None, topology=None):
+    if not rank_rows:
+        return _no_data_section("collectives"), None
+    window = _report_collectives_window(rank_rows, caches)
+    result = diagnose_collectives_window(
+        window, mode=mode, step_time_ms=step_time_ms, topology=topology
+    )
+    section: Dict[str, Any] = {
+        "status": "OK" if window else "NO_DATA",
+        "diagnosis": result.diagnosis.to_dict(),
+        "issues": [i.to_dict() for i in result.issues],
+        "units": {"time": "ms", "volume": "bytes"},
+    }
+    if window:
+        n = window.n_steps
+        comm_per_step = window.totals["duration_ms"] / n
+        exposed_per_step = window.totals["exposed_ms"] / n
+        per_op = {
+            op: {
+                "count": int(v.get("count", 0)),
+                "bytes": int(v.get("bytes", 0)),
+                "duration_ms": round(float(v.get("duration_ms", 0.0)), 4),
+                "exposed_ms": round(float(v.get("exposed_ms", 0.0)), 4),
+            }
+            for op, v in sorted(window.per_op.items())
+        }
+        per_rank = {
+            str(r): {
+                "duration_ms": round(float(v["duration_ms"]), 4),
+                "exposed_ms": round(float(v["exposed_ms"]), 4),
+                "bytes": int(v["bytes"]),
+                "overlap_efficiency": round(float(v["overlap_efficiency"]), 4),
+            }
+            for r, v in sorted(window.per_rank.items())
+        }
+        tail = 120
+        section["global"] = {
+            "n_steps": n,
+            "step_range": [window.steps[0], window.steps[-1]],
+            "ranks": window.ranks,
+            "group_size": int(window.group_size),
+            "comm_ms_per_step": round(comm_per_step, 4),
+            "exposed_ms_per_step": round(exposed_per_step, 4),
+            "bytes_per_step": round(window.totals["bytes"] / n, 1),
+            "overlap_efficiency": round(
+                window.totals["overlap_efficiency"], 4
+            ),
+            "exposed_share_of_step": (
+                round(exposed_per_step / step_time_ms, 4)
+                if step_time_ms
+                else None
+            ),
+            "comm_share_of_step": (
+                round(comm_per_step / step_time_ms, 4)
+                if step_time_ms
+                else None
+            ),
+            "per_op": per_op,
+            "per_rank": per_rank,
+            # aligned per-step series — the acceptance artifact: every
+            # step's overlap efficiency is in the final summary
+            "series_steps": window.steps[-tail:],
+            "overlap_efficiency_series": [
+                round(float(v), 4)
+                for v in window.per_step["overlap_efficiency"][-tail:]
+            ],
+            "comm_ms_series": [
+                round(float(v), 4)
+                for v in window.per_step["duration_ms"][-tail:]
+            ],
+            "exposed_ms_series": [
+                round(float(v), 4)
+                for v in window.per_step["exposed_ms"][-tail:]
+            ],
+        }
     return section, result
 
 
@@ -568,6 +681,46 @@ def _system_card(sec: Dict[str, Any]) -> str:
     return "\n".join(out)
 
 
+def _collectives_card(sec: Dict[str, Any]) -> str:
+    g = sec.get("global") or {}
+    if not g:
+        return ""
+    out = [
+        f"{g.get('n_steps')} steps · group size {g.get('group_size')} · "
+        f"comm {fmt_ms(g.get('comm_ms_per_step'))}/step "
+        f"(exposed {fmt_ms(g.get('exposed_ms_per_step'))}) · "
+        f"overlap {fmt_pct(g.get('overlap_efficiency'))}"
+    ]
+    share = g.get("exposed_share_of_step")
+    if share is not None:
+        out[-1] += f" · exposed share of step {fmt_pct(share)}"
+    for op, v in (g.get("per_op") or {}).items():
+        dur = v.get("duration_ms") or 0.0
+        eff = 1.0 - (v.get("exposed_ms") or 0.0) / dur if dur > 0 else 1.0
+        out.append(
+            f"{op:<15} {v.get('count', 0):>6}×  {fmt_bytes(v.get('bytes')):>10}  "
+            f"{fmt_ms(dur):>10}  overlap {fmt_pct(eff)}"
+        )
+    per_rank = g.get("per_rank") or {}
+    if len(per_rank) > 1:
+        worst = min(
+            (
+                (r, v)
+                for r, v in per_rank.items()
+                if (v.get("duration_ms") or 0.0) > 0
+            ),
+            key=lambda kv: kv[1].get("overlap_efficiency", 1.0),
+            default=None,
+        )
+        if worst is not None:
+            out.append(
+                f"worst-overlap rank {worst[0]}: "
+                f"{fmt_pct(worst[1].get('overlap_efficiency'))} "
+                f"({fmt_ms(worst[1].get('exposed_ms'))} exposed)"
+            )
+    return "\n".join(out)
+
+
 def _process_card(sec: Dict[str, Any]) -> str:
     per_rank = (sec.get("global") or {}).get("per_rank") or {}
     if not per_rank:
@@ -590,12 +743,11 @@ def _process_card(sec: Dict[str, Any]) -> str:
     return "\n".join(out)
 
 
-# every section with a text card in the JAX report (liveness has none);
-# the collectives section is NO_DATA in the port so far, so its card is ""
+# every section with a text card in the JAX report (liveness has none)
 _CARD_BUILDERS = {
     "step_time": _step_time_card,
     "step_memory": _step_memory_card,
-    "collectives": None,
+    "collectives": _collectives_card,
     "system": _system_card,
     "process": _process_card,
 }
@@ -708,7 +860,11 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
         )
         out.append("")
 
-    for key, title in (("system", "System"), ("process", "Processes")):
+    for key, title in (
+        ("collectives", "Collectives (compute/comm overlap)"),
+        ("system", "System"),
+        ("process", "Processes"),
+    ):
         card = (sections.get(key) or {}).get("card")
         if card:
             out.append(f"{title}:")
@@ -746,7 +902,7 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
         )
         out.append("")
 
-    for key in ("liveness", "system", "process", "step_memory", "step_time"):
+    for key in ("liveness", "system", "process", "collectives", "step_memory", "step_time"):
         diag = (sections.get(key) or {}).get("diagnosis") or {}
         if diag.get("status") == "issue":
             out.append(f"[{key}] {diag.get('kind')}: {diag.get('summary')}")
@@ -755,13 +911,13 @@ def render_text_summary(payload: Dict[str, Any]) -> str:
     return "\n".join(out) + "\n"
 
 
-def _build_liveness_section(session_dir: Path, mode: str):
+def _build_liveness_section(session_dir: Path, mode: str, topology=None):
     """Rank liveness and the data gaps, from the aggregator's persisted
     snapshots (``rank_status.json``, ``finalization_warning.json``)."""
     snap = loaders.load_rank_status(session_dir)
     if not snap:
         return _no_data_section("liveness"), None
-    result = diagnose_rank_status(snap, mode=mode)
+    result = diagnose_rank_status(snap, mode=mode, topology=topology)
     ranks = snap.get("ranks") or {}
     # a lost rank's telemetry holds only up to its last contact: past
     # gap_from_ts the cross-rank aggregates cover the survivors
@@ -905,7 +1061,8 @@ def generate_summary(
     # stage, each section's build and diagnosis its diagnose stage
     prof = TickProfile()
     prof.note_tick()
-    caches: Dict[str, StepTimeWindowCache] = {}
+    caches: Dict[str, Any] = {}
+    windows: Dict[str, Any] = {}
     read_ns = 0
 
     def read(fn):
@@ -919,10 +1076,11 @@ def generate_summary(
             prof.note_stage("store", "refresh", ns)
 
     def timed_section(key, builder):
-        r0, t0 = read_ns, time.perf_counter_ns()
+        r0, a0, t0 = read_ns, attribution_ns_total(), time.perf_counter_ns()
         out = _safe_section(key, builder)
-        prof.note_stage(key, "diagnose", max(0, time.perf_counter_ns() - t0 - (read_ns - r0)))
-        prof.note_stage(key, "attribute", 0)  # no mesh attribution yet
+        attr_ns = attribution_ns_total() - a0
+        prof.note_stage(key, "diagnose", max(0, time.perf_counter_ns() - t0 - (read_ns - r0) - attr_ns))
+        prof.note_stage(key, "attribute", attr_ns)
         return out
 
     conn = loaders._connect_ro(db_path)
@@ -931,18 +1089,40 @@ def generate_summary(
             identities = read(lambda: loaders.load_rank_identities(db_path, conn=conn))
         except Exception:
             identities = {}
+        # the captured mesh (or None), threaded into every diagnosing
+        # section: None keeps each diagnosis as it is without a mesh
+        try:
+            mesh = read(lambda: loaders.load_mesh_topology(db_path, conn=conn))
+        except Exception:
+            mesh = None
 
         def run_step_time():
             rows = read(lambda: loaders.load_step_time_rows(db_path, max_steps_per_rank=WINDOW_READ_STEPS,
                                                             conn=conn))
             stats = read(lambda: loaders.load_model_stats(db_path, conn=conn))
-            section, results["step_time"] = _build_step_time_section(rows, mode, identities, stats, caches)
+            section, results["step_time"], windows["step_time"] = _build_step_time_section(
+                rows, mode, identities, stats, caches, topology=mesh)
             return section
 
         def run_step_memory():
             rows = read(lambda: loaders.load_step_memory_rows(db_path, max_rows_per_rank=MEMORY_READ_ROWS,
                                                               conn=conn))
-            section, results["step_memory"] = _build_step_memory_section(rows, identities)
+            section, results["step_memory"] = _build_step_memory_section(rows, identities, topology=mesh)
+            return section
+
+        def run_collectives():
+            rows = read(lambda: loaders.load_collectives_rows(db_path, max_rows_per_rank=COLLECTIVES_READ_ROWS,
+                                                              conn=conn))
+            # the cross-domain join: the step window's median step time is
+            # the denominator of the exposed-comm share (COMM_BOUND)
+            step_time_ms = None
+            st = windows.get("step_time")
+            if st is not None:
+                m = st.metric(STEP_KEY)
+                if m is not None and m.median_ms > 0:
+                    step_time_ms = m.median_ms
+            section, results["collectives"] = _build_collectives_section(
+                rows, mode, caches, step_time_ms=step_time_ms, topology=mesh)
             return section
 
         def run_system():
@@ -961,22 +1141,24 @@ def generate_summary(
             "process": timed_section("process", run_process),
             "step_time": timed_section("step_time", run_step_time),
             "step_memory": timed_section("step_memory", run_step_memory),
+            "collectives": timed_section("collectives", run_collectives),
         }
         try:
             topology = read(lambda: loaders.load_topology(db_path, conn=conn))
         except Exception:
             topology = {"mode": "unknown", "world_size": 0}
+        if mesh is not None:
+            topology["mesh"] = mesh.summary()
         history = read(lambda: _build_history_section(conn))
     finally:
         conn.close()
 
     def run_liveness():
-        section, results["liveness"] = _build_liveness_section(session_dir, mode)
+        section, results["liveness"] = _build_liveness_section(session_dir, mode, topology=mesh)
         return section
 
     sections = {
         **built,
-        "collectives": _no_data_section("collectives"),
         "liveness": timed_section("liveness", run_liveness),
     }
     primary = build_primary_diagnosis(
@@ -985,6 +1167,7 @@ def generate_summary(
         results.get("system"),
         results.get("process"),
         step_time_error=sections["step_time"].get("error"),
+        collectives=results.get("collectives"),
         liveness=results.get("liveness"),
     )
     meta: Dict[str, Any] = {
@@ -1023,7 +1206,7 @@ def generate_summary(
     # it; the verdict also goes to regressions.json, which the dashboard's
     # meta fragment serves
     try:
-        regressions = baselines.evaluate_and_record(session_dir, payload, topology=None)
+        regressions = baselines.evaluate_and_record(session_dir, payload, topology=mesh)
         if regressions is not None:
             payload["regressions"] = regressions
             atomic_write_json(Path(session_dir) / "regressions.json", regressions)

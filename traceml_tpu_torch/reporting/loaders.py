@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import sqlite3
+from collections import deque
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -234,6 +235,51 @@ def load_topology(db_path: Path, conn: Optional[sqlite3.Connection] = None) -> D
         "nodes": len(nodes),
         "hostnames": sorted({str(r["hostname"]) for r in rows}),
     }
+
+
+def load_mesh_topology(db_path: Path, conn: Optional[sqlite3.Connection] = None):
+    """The merged mesh topology from the one-shot ``mesh_topology`` rows,
+    or None for a session that captured no mesh (or a database without
+    the table).  The latest row per rank wins: an ascending-id scan, later
+    rows overwrite."""
+    from traceml_tpu_torch.utils.topology import topology_from_rank_rows
+
+    with _reading(db_path, conn) as c:
+        if not _table_exists(c, "mesh_topology"):
+            return None
+        latest: Dict[int, Dict[str, Any]] = {}
+        for r in c.execute(
+            "SELECT global_rank, node_rank, hostname, source, axes_json, coords_json"
+            " FROM mesh_topology ORDER BY id ASC"
+        ):
+            latest[int(r["global_rank"])] = dict(r)
+    if not latest:
+        return None
+    return topology_from_rank_rows([latest[r] for r in sorted(latest)])
+
+
+def load_collectives_rows(
+    db_path: Path, max_rows_per_rank: int = 4800, conn: Optional[sqlite3.Connection] = None
+) -> Dict[int, List[Dict[str, Any]]]:
+    """global_rank → its last ``max_rows_per_rank`` (step, op, dtype)
+    aggregate rows in (step, id) order: what the JAX report's snapshot
+    store holds (its 600-step window keeps 8 rows a step a rank)."""
+    out: Dict[int, deque] = {}
+    with _reading(db_path, conn) as c:
+        if not _table_exists(c, "collectives_samples"):
+            return {}
+        for r in c.execute(
+            "SELECT global_rank, step, timestamp, op, dtype, count, bytes, group_size,"
+            " duration_ms, exposed_ms FROM collectives_samples ORDER BY global_rank, step, id"
+        ):
+            rank = int(r["global_rank"])
+            buf = out.get(rank)
+            if buf is None:
+                buf = out[rank] = deque(maxlen=int(max_rows_per_rank))
+            row = dict(r)
+            del row["global_rank"]
+            buf.append(row)
+    return {rank: list(rows) for rank, rows in sorted(out.items()) if rows}
 
 
 def load_rank_identities(

@@ -1,14 +1,17 @@
 """Run-level primary diagnosis.
 
 Counterpart of ``traceml_tpu/reporting/primary_diagnosis.py`` for the
-five domains the port diagnoses.  A non-healthy liveness finding (a lost
+six domains the port diagnoses.  A non-healthy liveness finding (a lost
 rank) scores its severity rank plus 0.7 and outranks every performance
 finding: the run's world shrank, and the cross-rank metrics past the
 loss cover the survivors only.  Promotes the step-time finding to run
 level (a severity rank plus 0.6); a non-healthy step-memory, system or
 process finding scores its severity rank alone, so a warning there (1.0)
 outranks an info-grade step-time verdict such as COMPUTE_BOUND (0.6) but
-not a step-time warning (1.6); otherwise it falls back to
+not a step-time warning (1.6); a non-healthy collectives finding scores
+its severity rank plus 0.5 (a COMM_BOUND verdict outranks environment
+findings of its severity but defers to a step-time one); otherwise it
+falls back to
 ``NO_CLEAR_PERFORMANCE_BOTTLENECK`` / ``INSUFFICIENT_STEP_TIME_DATA``.
 """
 
@@ -31,6 +34,7 @@ def build_primary_diagnosis(
     system: Optional[DiagnosticResult] = None,
     process: Optional[DiagnosticResult] = None,
     step_time_error: Optional[str] = None,
+    collectives: Optional[DiagnosticResult] = None,
     liveness: Optional[DiagnosticResult] = None,
 ) -> Dict[str, Any]:
     candidates = []
@@ -45,6 +49,11 @@ def build_primary_diagnosis(
             # step-time issues get a priority bump: they ARE the
             # performance story
             candidates.append((_SEV_ORDER.get(issue.severity, 0) + 0.6, "step_time", issue))
+    if collectives is not None and not collectives.healthy:
+        # the user's schedule causes it, as it does a step-time finding,
+        # but step time is where the comm tax is paid
+        issue = collectives.diagnosis
+        candidates.append((_SEV_ORDER.get(issue.severity, 0) + 0.5, "collectives", issue))
     for domain, result in (("step_memory", step_memory), ("system", system), ("process", process)):
         if result is not None and not result.healthy:
             issue = result.diagnosis

@@ -46,11 +46,19 @@ store owns the tick profiler that the live computer, the serving tier and
 the final report write into; ``window_build_stats`` reads it with the
 caches' counters.
 
+The collectives table's rank buffers keep a ``CollectivesColumns`` ring
+in the same lockstep (``window_steps * 8`` rows a rank: several
+(op, dtype) rows share a step), and ``build_collectives_window`` builds
+its window through ``CollectivesWindowCache`` the same way.  The
+``mesh_topology`` control rows are kept latest-per-rank (the table is
+never trimmed); ``mesh_topology()`` merges them into one ``MeshTopology``
+(cached per topology version), and ``topology()`` carries its compact
+``mesh`` block once a rank shipped one.
+
 Left out against the JAX store, with the port's queues that bring them:
 the ``MIN(id)`` trim detection for databases recorded before the journal
-existed (every database the port writes has it) and the collectives,
-serving and mesh-topology tables with their window engines (queue 1
-items 5 and 6).
+existed (every database the port writes has it) and the serving table
+with its window engine (queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -65,12 +73,15 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from traceml_tpu_torch.aggregator.rollup import ROLLUP_SOURCES
 from traceml_tpu_torch.utils.columnar import (
+    CollectivesColumns,
+    CollectivesWindow,
     ColumnarFallback,
     MemoryColumns,
     StepTimeColumns,
-    StepTimeWindowCache,
     TickProfile,
+    build_collectives_window_rows,
     columnar_window_enabled,
+    engine_collectives_window,
     engine_step_time_window,
     window_build_snapshot,
 )
@@ -85,7 +96,10 @@ _READ_PRAGMAS = (
 )
 
 # domains exposed through per-domain versions (what dirty-gating keys on)
-DOMAINS = ("step_time", "step_memory", "system", "process", "stdout", "model_stats", "topology", "rollup")
+DOMAINS = (
+    "step_time", "step_memory", "collectives", "system", "process", "stdout", "model_stats", "topology",
+    "rollup",
+)
 _ROLLUP_SOURCE_SET = frozenset(ROLLUP_SOURCES)
 
 # the JAX store's bounds: system and process rows over all nodes and
@@ -188,6 +202,11 @@ class _MemoryBuffer(_ColumnarBuffer):
     ring_cls = MemoryColumns
 
 
+class _CollectivesBuffer(_ColumnarBuffer):
+    __slots__ = ()
+    ring_cls = CollectivesColumns
+
+
 class _TopologySource:
     """Accumulated identity sets for one projection table."""
 
@@ -225,6 +244,8 @@ class LiveSnapshotStore:
         self.db_path = Path(db_path)
         self.window_steps = int(window_steps)
         self.memory_rows_per_rank = self.window_steps * 4
+        # several (op, dtype) rows share one step
+        self.collectives_rows_per_rank = self.window_steps * 8
         self._lock = threading.RLock()
         self._conn: Optional[sqlite3.Connection] = None
         self._primed = False
@@ -242,10 +263,12 @@ class LiveSnapshotStore:
         # and columnar ring in lockstep)
         self._step_time: Dict[int, _StepTimeBuffer] = {}
         self._step_memory: Dict[int, _MemoryBuffer] = {}
-        # the incremental step-time window cache, made on the first
-        # incremental build; it follows rank churn, evictions and clock
-        # flips through the rings' counters, so nothing resets it
-        self._window_caches: Dict[str, StepTimeWindowCache] = {}
+        self._collectives: Dict[int, _CollectivesBuffer] = {}
+        # the incremental window caches (step_time, collectives), each made
+        # on its first incremental build; they follow rank churn,
+        # evictions and clock flips through the rings' counters, so
+        # nothing resets them
+        self._window_caches: Dict[str, Any] = {}
         # per-stage tick profiler: the live computer, the serving tier and
         # the final report write into it; window_build_stats reads it
         self.tick_profile = TickProfile()
@@ -264,6 +287,11 @@ class LiveSnapshotStore:
         }
         self._topology_cache: Optional[Dict[str, Any]] = None
         self._topology_cache_version = -1
+        # mesh_topology control rows: the latest per rank (a replay may
+        # append duplicates; the table is never trimmed)
+        self._mesh_rows: Dict[int, Dict[str, Any]] = {}
+        self._mesh_cache: Any = None
+        self._mesh_cache_version = -1
 
     # -- connection ------------------------------------------------------
 
@@ -339,12 +367,14 @@ class LiveSnapshotStore:
             readers: Tuple[Tuple[str, Callable, str], ...] = (
                 ("step_time_samples", self._read_step_time, "step_time"),
                 ("step_memory_samples", self._read_step_memory, "step_memory"),
+                ("collectives_samples", self._read_collectives, "collectives"),
                 ("system_samples", self._read_system_host, "system"),
                 ("system_device_samples", self._read_system_dev, "system"),
                 ("process_samples", self._read_process, "process"),
                 ("process_device_samples", self._read_process_dev, "process"),
                 ("stdout_samples", self._read_stdout, "stdout"),
                 ("model_stats_samples", self._read_model_stats, "model_stats"),
+                ("mesh_topology", self._read_mesh_topology, "topology"),
             )
             for table, reader, domain in readers:
                 try:
@@ -473,6 +503,32 @@ class LiveSnapshotStore:
             buf.append(r["id"], rank, row)
         return self._apply_trims(table, rank_bufs=self._step_memory) or bool(rows)
 
+    def _read_collectives(self, conn, table, dirty) -> bool:
+        rows = self._fetch(
+            conn, table,
+            "id, global_rank, step, timestamp, op, dtype, count, bytes, group_size, duration_ms, exposed_ms",
+            "global_rank, step, id",
+        )
+        for r in rows:
+            rank = int(r["global_rank"])
+            buf = self._collectives.get(rank)
+            if buf is None:
+                buf = self._collectives[rank] = _CollectivesBuffer(self.collectives_rows_per_rank)
+            row = dict(r)
+            del row["id"], row["global_rank"]
+            buf.append(r["id"], rank, row)
+        return self._apply_trims(table, rank_bufs=self._collectives) or bool(rows)
+
+    def _read_mesh_topology(self, conn, table, dirty) -> bool:
+        """One-shot per-rank mesh placement; the latest row per rank (no
+        trims: the table is not pruned)."""
+        rows = self._fetch(
+            conn, table, "id, global_rank, node_rank, hostname, source, axes_json, coords_json", "id"
+        )
+        for r in rows:
+            self._mesh_rows[int(r["global_rank"])] = dict(r)
+        return bool(rows)
+
     def _read_keyed(self, conn, table, buf: _RankBuffer, key_fn, dirty: Set[str]) -> bool:
         rows = self._fetch(conn, table, "*", "id")
         topo = self._topology.get(table)
@@ -555,6 +611,50 @@ class LiveSnapshotStore:
                     pass
             rank_rows = {rank: list(buf.rows) for rank, buf in sorted(self._step_time.items()) if buf.rows}
         return build_step_time_window(rank_rows, max_steps=limit)
+
+    def collectives_rows(self) -> Dict[int, List[Dict[str, Any]]]:
+        """global_rank → (step, op, dtype) aggregate rows."""
+        with self._lock:
+            return {rank: list(buf.rows) for rank, buf in sorted(self._collectives.items()) if buf.rows}
+
+    def has_collectives_rows(self) -> bool:
+        with self._lock:
+            return any(buf.rows for buf in self._collectives.values())
+
+    def build_collectives_window(self, max_steps: Optional[int] = None) -> Optional[CollectivesWindow]:
+        """The cross-rank collectives window (overlap efficiency per step):
+        the incremental cache over the rings, the full columnar build
+        under ``TRACEML_INCR_WINDOW=0``, the scalar fold over the row
+        deques under ``TRACEML_COLUMNAR_WINDOW=0`` or for a flagged ring.
+        All three give the same window."""
+        limit = self.window_steps if max_steps is None else int(max_steps)
+        with self._lock:
+            if columnar_window_enabled():
+                cols = {rank: buf.cols for rank, buf in self._collectives.items() if buf.rows}
+                try:
+                    return engine_collectives_window(cols, self._window_caches, limit)
+                except ColumnarFallback:
+                    pass
+            rank_rows = {rank: list(buf.rows) for rank, buf in sorted(self._collectives.items()) if buf.rows}
+        return build_collectives_window_rows(rank_rows, max_steps=limit)
+
+    def _mesh_topology_locked(self):
+        if self._mesh_cache_version == self._versions["topology"] and self._mesh_cache is not None:
+            return self._mesh_cache
+        if not self._mesh_rows:
+            return None
+        from traceml_tpu_torch.utils.topology import topology_from_rank_rows
+
+        self._mesh_cache = topology_from_rank_rows([self._mesh_rows[r] for r in sorted(self._mesh_rows)])
+        self._mesh_cache_version = self._versions["topology"]
+        return self._mesh_cache
+
+    def mesh_topology(self):
+        """The merged ``MeshTopology``, or None when no rank shipped a
+        ``mesh_topology`` message: the signal every diagnosis call site
+        uses to stay on flat rank lists."""
+        with self._lock:
+            return self._mesh_topology_locked()
 
     def step_memory_columns(self) -> Optional[Dict[int, MemoryColumns]]:
         """rank → memory ring, or None when a rank's ring is flagged (use
@@ -641,6 +741,11 @@ class LiveSnapshotStore:
                     "nodes": len(src.nodes),
                     "hostnames": sorted(src.hostnames),
                 }
+            mesh = self._mesh_topology_locked()
+            if mesh is not None:
+                # only once captured: a session without a mesh keeps the
+                # dict shape it had before
+                out["mesh"] = mesh.summary()
             self._topology_cache = out
             self._topology_cache_version = self._versions["topology"]
             return out

@@ -23,6 +23,10 @@ first DRAINING tick drains only the drain-on-stop samplers (step_time,
 step_memory: the steps flushed so far, past N too), moves to COMPLETE
 and publishes with the send-once ``rank_finished`` marker; from then on
 the rank samples and publishes nothing, while the script trains on.
+Each tick until it succeeds also tries to capture the rank's mesh
+placement (``utils/topology.py``: a mesh ``parallel/mesh.make_mesh``
+built, or ``TRACEML_MESH``) and publishes it once as the
+``mesh_topology`` control message, as the JAX runtime does.
 At stop the final drain runs as in JAX: every sampler drains once more
 and the final publish ships what it collected, the steps flushed after
 the drain tick among it (the SDK keeps tracing after the cap).
@@ -51,7 +55,7 @@ from traceml_tpu_torch.runtime.state import COMPLETE, DRAINING, RECORDING, Recor
 from traceml_tpu_torch.runtime.stdout_capture import CAPTURE_MODES, StreamCapture
 from traceml_tpu_torch.samplers.base_sampler import BaseSampler
 from traceml_tpu_torch.sdk.state import get_state
-from traceml_tpu_torch.telemetry.control import build_rank_finished
+from traceml_tpu_torch.telemetry.control import build_mesh_topology, build_rank_finished
 from traceml_tpu_torch.transport.select import create_transport_client
 from traceml_tpu_torch.transport.tcp_transport import TCPClient
 from traceml_tpu_torch.utils.error_log import get_error_log
@@ -73,6 +77,7 @@ class TraceMLRuntime:
         self._stop_evt = threading.Event()
         self._started = False
         self._finished_sent = False
+        self._mesh_sent = False
         self._lock = threading.Lock()
 
     def start(self) -> None:
@@ -140,6 +145,31 @@ class TraceMLRuntime:
             self._finished_sent = True
         return [build_rank_finished(self.identity.to_meta())]
 
+    def _take_mesh_topology(self) -> Optional[list]:
+        """The send-once ``mesh_topology`` message, or None while no mesh
+        is discoverable: the script may build its mesh any number of
+        steps into the run, so every tick retries until the capture
+        succeeds, then latches.  A capture that raises stops the retries."""
+        with self._lock:
+            if self._mesh_sent:
+                return None
+        try:
+            from traceml_tpu_torch.utils.topology import capture_local_topology
+
+            topo = capture_local_topology(self.identity.global_rank, self.identity.world_size)
+        except Exception as exc:
+            get_error_log().warning("mesh topology capture failed", exc)
+            with self._lock:
+                self._mesh_sent = True
+            return None
+        if topo is None:
+            return None
+        with self._lock:
+            if self._mesh_sent:
+                return None
+            self._mesh_sent = True
+        return [build_mesh_topology(self.identity.to_meta(), topo)]
+
     def _tick(self) -> None:
         if chaos.active():
             chaos.fire("rank.tick")  # a kill9 rule ends the process inside fire()
@@ -152,9 +182,9 @@ class TraceMLRuntime:
                 if getattr(getattr(s, "_spec", None), "drain_on_recording_stop", False):
                     s.drain()
             self.recording.mark_drained()
-        extra = None
+        extra = self._take_mesh_topology()
         if self.recording.phase == COMPLETE:
-            extra = self._take_rank_finished()
+            extra = (extra or []) + (self._take_rank_finished() or []) or None
         if self.publisher is not None and (self.recording.phase != COMPLETE or extra):
             self.publisher.publish(extra)
 
@@ -179,7 +209,8 @@ class TraceMLRuntime:
             s.drain()
         if self.publisher is not None:
             # final=True forces every backup writer out, throttled or not
-            self.publisher.publish(self._take_rank_finished(), final=True)
+            extra = (self._take_mesh_topology() or []) + (self._take_rank_finished() or [])
+            self.publisher.publish(extra or None, final=True)
 
 
 class NoOpRuntime:

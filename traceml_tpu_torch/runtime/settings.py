@@ -14,7 +14,11 @@ carries the bounded-run fields with the JAX defaults and variable names:
 ``disk_backup`` (``TRACEML_DISK_BACKUP``), ``capture_stderr``
 (``TRACEML_CAPTURE_STDERR``, on when unset) and
 ``summary_window_rows`` (``TRACEML_SUMMARY_WINDOW_ROWS``, 10000: the
-SQLite writer keeps 1.5x that many rows per table and rank).  The mode
+SQLite writer keeps 1.5x that many rows per table and rank).  Two
+variables are read in the rank's process on every call, as the JAX
+flags are: ``TRACEML_COLLECTIVES`` (:func:`collectives_enabled`, on unless
+0) and ``TRACEML_MESH`` (:func:`mesh_spec`, the mesh override of
+``utils/topology.py``).  The mode
 defaults to ``summary`` here, where the JAX settings default to ``cli``:
 the launcher always names the mode (``cli`` by default, as the JAX
 launcher does), so the default only reaches a runtime started in process,
@@ -53,10 +57,13 @@ ENV_TRANSPORT_COMPRESS = "TRACEML_TRANSPORT_COMPRESS"
 ENV_SHM_RING_BYTES = "TRACEML_SHM_RING_BYTES"
 ENV_SHM_DIR = "TRACEML_SHM_DIR"
 ENV_UDS_PATH = "TRACEML_UDS_PATH"
+ENV_COLLECTIVES = "TRACEML_COLLECTIVES"  # 0 turns every collectives capture into a no-op
+ENV_MESH = "TRACEML_MESH"  # mesh override, name:size[@kind],... (utils/topology.py)
 ENV_SCRIPT = "TRACEML_SCRIPT"
 ENV_SCRIPT_ARGS = "TRACEML_SCRIPT_ARGS"
 
 _TRUTHY = ("1", "true", "yes", "on")
+_FALSY = ("0", "false", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +121,18 @@ def _int(raw: Optional[str], fallback: Optional[int]) -> Optional[int]:
 
 def _truthy(raw: Optional[str]) -> bool:
     return raw is not None and str(raw).strip().lower() in _TRUTHY
+
+
+def collectives_enabled() -> bool:
+    """``TRACEML_COLLECTIVES``, read on every call as in JAX: on unless
+    it reads 0, false or off."""
+    v = os.environ.get(ENV_COLLECTIVES)
+    return v is None or v.strip().lower() not in _FALSY
+
+
+def mesh_spec() -> Optional[str]:
+    """The ``TRACEML_MESH`` override, or None when unset or empty."""
+    return os.environ.get(ENV_MESH) or None
 
 
 def settings_from_env(env: Optional[Dict[str, str]] = None) -> TraceMLSettings:

@@ -34,6 +34,7 @@ class _TLS(threading.local):
         self.backward_depth = 0
         self.compute_depth = 0
         self.h2d_depth = 0
+        self.collective_depth = 0
         self.dataloader_depth = 0
 
 

@@ -4,7 +4,9 @@ Counterpart of the parts of ``traceml_tpu/sdk/wrappers.py`` that the port
 has: ``publish_region_marker`` (the shared marker chokepoint),
 ``wrap_forward``, ``wrap_backward`` and ``wrap_optimizer`` (each a timed
 phase, duplicate-guarded against the auto-patches by the TLS depth
-gates), and ``wrap_h2d`` (a timed, marked host→device copy).  Each region
+gates), ``wrap_h2d`` (a timed, marked host→device copy) and
+``wrap_collective`` (an explicit collective timed as the ``collective``
+phase).  Each region
 closes with a CUDA marker after its work: on its output's device, or on
 the trace's device when it returns no tensor (``backward()``,
 ``step()``).
@@ -20,6 +22,7 @@ from traceml_tpu_torch.utils.device import resolve_device
 from traceml_tpu_torch.utils.marker_resolver import get_marker_resolver
 from traceml_tpu_torch.utils.timing import (
     BACKWARD_TIME,
+    COLLECTIVE_TIME,
     FORWARD_TIME,
     H2D_TIME,
     OPTIMIZER_STEP,
@@ -164,3 +167,21 @@ def wrap_optimizer(optimizer: Any, state: Optional[TraceState] = None) -> Any:
     optimizer.step = step
     optimizer._traceml_wrapped = True
     return optimizer
+
+
+def wrap_collective(fn: Callable, state: Optional[TraceState] = None) -> Callable:
+    """Time an explicit collective (a gradient sync, an all-gather)
+    dispatched from the host as the first-class ``collective`` phase,
+    closed by a CUDA marker after its output, so the phase is
+    device-timed like the others.  DDP's bucketed all-reduce runs in its
+    C++ reducer, inside ``backward``; this wrapper is for the loops that
+    dispatch their collectives themselves.  Feeds COLLECTIVE_STRAGGLER
+    (``diagnostics/step_time/rules.py``)."""
+    st = state or get_state()
+
+    @functools.wraps(fn)
+    def wrapped(*args: Any, **kwargs: Any):
+        return timed_call(COLLECTIVE_TIME, "collective_depth", fn, st, *args, **kwargs)
+
+    wrapped._traceml_wrapped = True  # type: ignore[attr-defined]
+    return wrapped

@@ -1,6 +1,6 @@
 """Control messages sharing the telemetry channel.
 
-Counterpart of ``traceml_tpu/telemetry/control.py``, with the four
+Counterpart of ``traceml_tpu/telemetry/control.py``, with the five
 messages of the port's run path:
 
 * ``rank_finished`` — the end-of-run marker the aggregator counts
@@ -10,6 +10,11 @@ messages of the port's run path:
   into ``ingest_stats.json`` under ``producers``;
 * ``rank_heartbeat`` — a beacon on idle ticks, so a silent rank that is
   alive stays distinguishable from a dead one;
+* ``mesh_topology`` — sent once per rank: its mesh placement (axis names
+  and sizes, each axis's interconnect kind, the rank's coordinates),
+  captured by ``utils/topology.py``; the aggregator stores it in the
+  ``mesh_topology`` table so diagnoses can be attributed to a host, a
+  mesh axis or one side of a node boundary;
 * ``transport_hello`` — sent once per connection of a rank: the transport it chose
   (``shm``, ``uds``, ``tcp``), its codec and, when the ring failed to set
   up, ``fallback_from``; kept latest-per-rank under ``transports.ranks``
@@ -25,6 +30,7 @@ CONTROL_KEY = "_traceml_control"
 RANK_FINISHED = "rank_finished"
 PRODUCER_STATS = "producer_stats"
 RANK_HEARTBEAT = "rank_heartbeat"
+MESH_TOPOLOGY = "mesh_topology"
 TRANSPORT_HELLO = "transport_hello"
 
 
@@ -43,6 +49,17 @@ def build_producer_stats(
         CONTROL_KEY: PRODUCER_STATS,
         "meta": dict(identity_meta),
         "stats": dict(stats),
+        "timestamp": time.time(),
+    }
+
+
+def build_mesh_topology(
+    identity_meta: Mapping[str, Any], topology: Mapping[str, Any]
+) -> Dict[str, Any]:
+    return {
+        CONTROL_KEY: MESH_TOPOLOGY,
+        "meta": dict(identity_meta),
+        "topology": dict(topology),
         "timestamp": time.time(),
     }
 

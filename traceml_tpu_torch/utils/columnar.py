@@ -1,9 +1,9 @@
 """Columnar window engine: struct-of-arrays ring buffers and vectorized
 window builds for the live analytics path.
 
-Counterpart of ``traceml_tpu/utils/columnar.py`` for the step-time and
-step-memory domains (the collectives and serving engines come with their
-domains, ROADMAP queue 1 items 5 and 6).  The scalar pipeline in
+Counterpart of ``traceml_tpu/utils/columnar.py`` for the step-time,
+step-memory and collectives domains (the serving engine comes with its
+domain, ROADMAP queue 1 item 6).  The scalar pipeline in
 :mod:`traceml_tpu_torch.utils.step_time_window` is the golden reference;
 this module is a drop-in fast path that must give **byte-identical**
 payloads.  Its pieces:
@@ -32,6 +32,14 @@ payloads.  Its pieces:
   window, a clock flip, a flagged buffer, a new window length) falls back
   to the full build above, so the incremental output is bit-identical to
   a from-scratch build on every tick.
+* :class:`CollectivesColumns`, :func:`build_columnar_collectives_window`
+  and :class:`CollectivesWindowCache`: the collectives domain's ring, its
+  full build and its incremental cache over the UNION of the ranks'
+  steps, held bit for bit to the scalar fold
+  :func:`build_collectives_window_rows` (whose float sums are all ``+=``
+  left folds, so ``np.add.at`` and ``np.cumsum`` reproduce them);
+  :func:`window_series_cube` and :func:`reduce_window_by_grouping` reshape
+  a step-time series along a topology grouping;
 * :class:`WindowBuildStats` and :class:`TickProfile`: the counters and
   per-stage nanoseconds that reach the user as ``meta.window_build`` in
   the dashboard payload and the final report.
@@ -87,6 +95,7 @@ from traceml_tpu_torch.utils.step_time_window import (
     ACCOUNTED_PHASES,
     ALL_KEYS,
     PHASES,
+    STEP_KEY,
     RankWindow,
     StepCombinedTimeMetric,
     StepTimeWindow,
@@ -783,6 +792,84 @@ def window_to_plain(w: Optional[StepTimeWindow]) -> Optional[Dict[str, Any]]:
 # ---------------------------------------------------------------------------
 
 
+def window_series_cube(
+    window: StepTimeWindow, key: str = STEP_KEY
+) -> "tuple[List[int], np.ndarray]":
+    """``(ranks, (rank × step) cube)`` for one series key of a window,
+    rows in ``window.ranks`` order.  Columnar windows hand out a view of
+    the value cube; scalar windows materialize the same array from their
+    per-rank series lists, so the topology reduction below works on
+    either path.  The cube is dense by construction — suffix alignment
+    keeps only steps present in EVERY rank."""
+    if key not in KEY_INDEX:
+        raise KeyError(key)
+    col = getattr(window, "col", None)
+    if col is not None:
+        return list(col.ranks), col.series_cube[:, KEY_INDEX[key], :]
+    ranks = list(window.ranks)
+    cube = np.array(
+        [window.rank_windows[r].series[key] for r in ranks],
+        dtype=np.float64,
+    ).reshape(len(ranks), window.n_steps)
+    return ranks, cube
+
+
+def reduce_window_by_grouping(
+    window: StepTimeWindow, grouping: Any, key: str = STEP_KEY
+) -> Dict[str, Any]:
+    """(rank × step) → (axis-group × step): reshape one series of a
+    window along a topology grouping (``utils.topology.Grouping`` —
+    host / axis-coordinate / DCN-side) and return per-group aggregates
+    plus a per-step dispersion series.
+
+    Ranks outside the grouping are masked out rather than folded into a
+    catch-all group.  Output::
+
+        {"kind", "axis", "steps": [...],
+         "groups": [{"key", "ranks", "mean": [...S], "min": [...S],
+                     "max": [...S]}, ...],       # grouping-key order
+         "dispersion": [...S]}                   # max-min of group means
+
+    ``dispersion`` is the step-wise spread of the group means — the
+    signal the attribution scorer explains: near-zero means the grouping
+    does not separate the ranks on this series.
+    """
+    from traceml_tpu_torch.utils.topology import reduce_cube
+
+    ranks, cube = window_series_cube(window, key)
+    row_of = {int(r): i for i, r in enumerate(ranks)}
+    keys = sorted(grouping.groups, key=lambda k: str(k))
+    group_index = np.zeros(len(ranks), dtype=np.int64)
+    member = np.zeros(len(ranks), dtype=bool)
+    for g, k in enumerate(keys):
+        for r in grouping.groups[k]:
+            i = row_of.get(int(r))
+            if i is not None:
+                group_index[i] = g
+                member[i] = True
+    mask = np.broadcast_to(member[:, None], cube.shape)
+    red = reduce_cube(cube, group_index, len(keys), mask=mask)
+    means = red["mean"]
+    with np.errstate(invalid="ignore"):
+        spread = np.nanmax(means, axis=0) - np.nanmin(means, axis=0)
+    return {
+        "kind": grouping.kind,
+        "axis": grouping.axis,
+        "steps": list(window.steps),
+        "groups": [
+            {
+                "key": str(k),
+                "ranks": sorted(int(r) for r in grouping.groups[k]),
+                "mean": means[g].tolist(),
+                "min": red["min"][g].tolist(),
+                "max": red["max"][g].tolist(),
+            }
+            for g, k in enumerate(keys)
+        ],
+        "dispersion": np.where(np.isfinite(spread), spread, 0.0).tolist(),
+    }
+
+
 class MemorySeries:
     """One (rank, device) step-memory series, sorted by step: the single
     representation every step-memory rule consumes, built from row dicts
@@ -999,7 +1086,10 @@ class TickProfile:
 def window_build_snapshot(caches: Mapping[str, Any], profile: TickProfile) -> Dict[str, Dict[str, Any]]:
     """The ``window_build`` block: each domain cache's stats and, once
     the profiler saw a tick, a ``tick_profile`` entry with the vector
-    arm's fallback counters among its counters."""
+    arm's fallback counters and the topology grouping memo's hits and
+    misses among its counters."""
+    from traceml_tpu_torch.utils.topology import grouping_cache_counts
+
     out: Dict[str, Dict[str, Any]] = {
         domain: cache.stats.snapshot() for domain, cache in sorted(caches.items())
     }
@@ -1007,6 +1097,8 @@ def window_build_snapshot(caches: Mapping[str, Any], profile: TickProfile) -> Di
         prof = profile.snapshot()
         for domain, n in sorted(vector_fallback_counts().items()):
             prof["counters"][f"vector_fallbacks_{domain}"] = n
+        for k, n in sorted(grouping_cache_counts().items()):
+            prof["counters"][f"grouping_cache_{k}"] = n
         out["tick_profile"] = prof
     return out
 
@@ -1022,6 +1114,18 @@ def engine_step_time_window(rank_cols, caches: Dict[str, Any], max_steps: int):
             cache = caches["step_time"] = StepTimeWindowCache()
         return cache.build(rank_cols, max_steps)
     return build_columnar_step_time_window(rank_cols, max_steps)
+
+
+def engine_collectives_window(rank_cols, caches: Dict[str, Any], max_steps: int):
+    """The collectives window's columnar arm: the incremental cache kept
+    in ``caches["collectives"]`` or, under ``TRACEML_INCR_WINDOW=0``, the
+    full build.  Raises :class:`ColumnarFallback` for a flagged ring."""
+    if incr_window_enabled():
+        cache = caches.get("collectives")
+        if cache is None:
+            cache = caches["collectives"] = CollectivesWindowCache()
+        return cache.build(rank_cols, max_steps)
+    return build_columnar_collectives_window(rank_cols, max_steps)
 
 
 class _WindowCacheBase:
@@ -1330,3 +1434,701 @@ class StepTimeWindowCache(_WindowCacheBase):
             int(c.steps_view()[-1]) == self._last_aligned for _, c in items
         ]
         self._valid = True
+
+
+# ---------------------------------------------------------------------------
+# the collectives domain: per-rank (step, op, dtype) rows → per-step
+# overlap-efficiency window
+# ---------------------------------------------------------------------------
+
+# canonical op vocabulary: instrumentation/collectives.OP_KINDS (the
+# tests pin the two equal)
+COLLECTIVE_OPS = (
+    "all_reduce",
+    "all_gather",
+    "reduce_scatter",
+    "all_to_all",
+    "p2p",
+    "other",
+)
+_COLL_OP_INDEX = {op: i for i, op in enumerate(COLLECTIVE_OPS)}
+_COLL_DTYPE_VOCAB_MAX = 64  # per-buffer dtype vocabulary bound
+
+# int column layout
+CC_STEP, CC_COUNT, CC_BYTES, CC_GROUP = range(4)
+
+
+class CollectivesColumns(_CompactRing):
+    """Per-rank collectives columns mirroring the store's row deque.
+
+    One appended row per (step, op, dtype) aggregate from the sampler;
+    steps are non-decreasing (several op/dtype rows share a step) —
+    anything else flags the buffer for the scalar reference path."""
+
+    __slots__ = (
+        "_ints",
+        "_floats",
+        "_ops",
+        "_dtypes",
+        "_dtype_vocab",
+        "_dtype_index",
+        "_last_step",
+        "columnar_ok",
+    )
+
+    def __init__(self, cap: int) -> None:
+        super().__init__(cap)
+        n = 2 * self.cap
+        self._ints = np.empty((n, 4), dtype=np.int64)
+        self._floats = np.empty((n, 2), dtype=np.float64)  # duration, exposed
+        self._ops = np.empty(n, dtype=np.int8)
+        self._dtypes = np.empty(n, dtype=np.int16)
+        self._dtype_vocab: List[str] = []
+        self._dtype_index: Dict[str, int] = {}
+        self._last_step: Optional[int] = None
+        self.columnar_ok = True
+
+    def _arrays(self):
+        return (self._ints, self._floats, self._ops, self._dtypes)
+
+    def clear(self) -> None:
+        self._reset()
+        self._last_step = None
+        self.columnar_ok = True
+        # the dtype vocab survives a clear on purpose: codes in the ring
+        # are gone, and re-coding the same strings is stable either way
+
+    def append(self, row: Mapping[str, Any]) -> None:
+        # always consume a slot (ring stays 1:1 with the row deque)
+        i = self._next_slot()
+        if not self.columnar_ok:
+            return
+        try:
+            step = int(row["step"])
+            if isinstance(row["step"], bool):
+                raise ColumnarFallback("bool step")
+            if self._last_step is not None and step < self._last_step:
+                raise ColumnarFallback("out-of-order step")
+            op = row.get("op")
+            oi = _COLL_OP_INDEX.get(op)
+            if oi is None:
+                oi = _COLL_OP_INDEX["other"]
+            dtype = str(row.get("dtype", "") or "")
+            di = self._dtype_index.get(dtype)
+            if di is None:
+                if len(self._dtype_vocab) >= _COLL_DTYPE_VOCAB_MAX:
+                    raise ColumnarFallback("dtype vocabulary overflow")
+                di = len(self._dtype_vocab)
+                self._dtype_vocab.append(dtype)
+                self._dtype_index[dtype] = di
+            ints = self._ints[i]
+            for c, key in ((CC_COUNT, "count"), (CC_BYTES, "bytes"), (CC_GROUP, "group_size")):
+                v = row.get(key, 0)
+                if v is None:
+                    v = 0
+                if not isinstance(v, int) or isinstance(v, bool):
+                    raise ColumnarFallback(key)
+                if v < 0 or v >= _MAX_EXACT_INT:
+                    raise ColumnarFallback(key)
+                ints[c] = v
+            ints[CC_STEP] = step
+            dur = float(row.get("duration_ms", 0.0) or 0.0)
+            exp = float(row.get("exposed_ms", 0.0) or 0.0)
+            if dur < 0.0 or exp < 0.0 or exp > dur:
+                raise ColumnarFallback("exposure outside duration")
+            self._floats[i, 0] = dur
+            self._floats[i, 1] = exp
+            self._ops[i] = oi
+            self._dtypes[i] = di
+            self._last_step = step
+        except Exception:
+            self.columnar_ok = False
+
+    # live views — valid until the next append/evict/clear
+    def steps_view(self) -> np.ndarray:
+        return self._ints[self._start : self._end, CC_STEP]
+
+    def ints_view(self) -> np.ndarray:
+        return self._ints[self._start : self._end]
+
+    def floats_view(self) -> np.ndarray:
+        return self._floats[self._start : self._end]
+
+    def ops_view(self) -> np.ndarray:
+        return self._ops[self._start : self._end]
+
+    def dtypes_view(self) -> np.ndarray:
+        return self._dtypes[self._start : self._end]
+
+    def dtype_name(self, code: int) -> str:
+        return self._dtype_vocab[code]
+
+
+def _overlap_efficiency(total_ms: float, exposed_ms: float) -> float:
+    """Share of comm time hidden behind compute: ``1 − exposed/total``.
+    A zero-comm step is perfectly hidden by definition → 1.0, not NaN."""
+    if total_ms > 0.0:
+        return 1.0 - exposed_ms / total_ms
+    return 1.0
+
+
+@dataclasses.dataclass
+class CollectivesWindow:
+    """Cross-rank collectives aggregate over the last ``n_steps`` steps.
+
+    Steps are the UNION of the ranks' steps (ragged participation — a
+    rank that skips a collective still leaves the step in the window).
+    ``per_step`` series are aligned to ``steps``; ``overlap_efficiency``
+    is ``1 − exposed/total`` with zero-comm steps defined as 1.0."""
+
+    steps: List[int]
+    n_steps: int
+    ranks: List[int]
+    group_size: int
+    per_step: Dict[str, List[float]]
+    per_op: Dict[str, Dict[str, float]]
+    per_rank: Dict[int, Dict[str, float]]
+    totals: Dict[str, float]
+
+
+def build_collectives_window_rows(
+    rank_rows: Mapping[int, Any],
+    max_steps: int,
+) -> Optional[CollectivesWindow]:
+    """Scalar reference fold over row dicts — the golden path the
+    columnar build below must reproduce bit-identically.  Ranks are
+    folded in sorted order, rows in arrival order."""
+    items = [(r, list(rows)) for r, rows in sorted(rank_rows.items()) if rows]
+    if not items:
+        return None
+    all_steps = sorted({int(row["step"]) for _, rows in items for row in rows})
+    steps = all_steps[-max_steps:]
+    lo = steps[0]
+    idx = {s: i for i, s in enumerate(steps)}
+    S = len(steps)
+
+    count = [0] * S
+    nbytes = [0] * S
+    dur = [0.0] * S
+    exp = [0.0] * S
+    ar_fp32 = [0] * S
+    per_op: Dict[str, Dict[str, float]] = {}
+    per_rank: Dict[int, Dict[str, float]] = {}
+    group = 1
+    for rank, rows in items:
+        r_dur = 0.0
+        r_exp = 0.0
+        r_bytes = 0
+        for row in rows:
+            s = int(row["step"])
+            if s < lo:
+                continue
+            i = idx[s]
+            c = int(row.get("count", 0) or 0)
+            b = int(row.get("bytes", 0) or 0)
+            d = float(row.get("duration_ms", 0.0) or 0.0)
+            e = float(row.get("exposed_ms", 0.0) or 0.0)
+            op = row.get("op") if row.get("op") in _COLL_OP_INDEX else "other"
+            count[i] += c
+            nbytes[i] += b
+            dur[i] += d
+            exp[i] += e
+            if op == "all_reduce" and str(row.get("dtype", "")) == "float32":
+                ar_fp32[i] += b
+            slot = per_op.get(op)
+            if slot is None:
+                slot = per_op[op] = {
+                    "count": 0, "bytes": 0, "duration_ms": 0.0, "exposed_ms": 0.0,
+                }
+            slot["count"] += c
+            slot["bytes"] += b
+            slot["duration_ms"] += d
+            slot["exposed_ms"] += e
+            group = max(group, int(row.get("group_size", 1) or 1))
+            r_dur += d
+            r_exp += e
+            r_bytes += b
+        per_rank[rank] = {
+            "duration_ms": r_dur,
+            "exposed_ms": r_exp,
+            "bytes": r_bytes,
+            "overlap_efficiency": _overlap_efficiency(r_dur, r_exp),
+        }
+
+    total_dur = 0.0
+    total_exp = 0.0
+    for v in dur:
+        total_dur += v
+    for v in exp:
+        total_exp += v
+    return CollectivesWindow(
+        steps=steps,
+        n_steps=S,
+        ranks=[r for r, _ in items],
+        group_size=group,
+        per_step={
+            "count": count,
+            "bytes": nbytes,
+            "duration_ms": dur,
+            "exposed_ms": exp,
+            "overlap_efficiency": [
+                _overlap_efficiency(dur[i], exp[i]) for i in range(S)
+            ],
+            "allreduce_fp32_bytes": ar_fp32,
+        },
+        per_op=per_op,
+        per_rank=per_rank,
+        totals={
+            "count": sum(count),
+            "bytes": sum(nbytes),
+            "duration_ms": total_dur,
+            "exposed_ms": total_exp,
+            "overlap_efficiency": _overlap_efficiency(total_dur, total_exp),
+        },
+    )
+
+
+def build_columnar_collectives_window(
+    rank_cols: Mapping[int, CollectivesColumns],
+    max_steps: int,
+) -> Optional[CollectivesWindow]:
+    """Vectorized ``build_collectives_window_rows`` over per-rank columns.
+
+    Exactness: per-slot accumulation uses ``np.add.at``, unbuffered and
+    applied in element order, so repeated step slots accumulate in row
+    order exactly like the scalar ``acc[i] += v`` fold; ranks are
+    processed in sorted order, matching the scalar traversal; the
+    per-rank and total sums are ``np.cumsum(...)[-1]``, the scalar arm's
+    ``+=`` left fold (the scalar arm folds no float with ``sum()``, so
+    the 3.12 compensated sum never enters).  Raises
+    :class:`ColumnarFallback` if any non-empty rank is flagged."""
+    items = [
+        (r, c) for r, c in sorted(rank_cols.items(), key=lambda kv: kv[0]) if len(c)
+    ]
+    if not items:
+        return None
+    for _, c in items:
+        if not c.columnar_ok:
+            raise ColumnarFallback("flagged rank buffer")
+
+    uniq = np.unique(np.concatenate([c.steps_view() for _, c in items]))
+    common = uniq[-max_steps:]
+    S = int(common.size)
+    lo = int(common[0])
+
+    count = np.zeros(S, dtype=np.int64)
+    nbytes = np.zeros(S, dtype=np.int64)
+    dur = np.zeros(S, dtype=np.float64)
+    exp = np.zeros(S, dtype=np.float64)
+    ar_fp32 = np.zeros(S, dtype=np.int64)
+    n_ops = len(COLLECTIVE_OPS)
+    op_count = np.zeros(n_ops, dtype=np.int64)
+    op_bytes = np.zeros(n_ops, dtype=np.int64)
+    op_dur = np.zeros(n_ops, dtype=np.float64)
+    op_exp = np.zeros(n_ops, dtype=np.float64)
+    op_seen = np.zeros(n_ops, dtype=np.bool_)
+    per_rank: Dict[int, Dict[str, float]] = {}
+    group = 1
+    ar_code = _COLL_OP_INDEX["all_reduce"]
+
+    for rank, c in items:
+        steps = c.steps_view()
+        mask = steps >= lo
+        slots = np.searchsorted(common, steps[mask])
+        ints = c.ints_view()[mask]
+        floats = c.floats_view()[mask]
+        ops = c.ops_view()[mask].astype(np.int64)
+        np.add.at(count, slots, ints[:, CC_COUNT])
+        np.add.at(nbytes, slots, ints[:, CC_BYTES])
+        np.add.at(dur, slots, floats[:, 0])
+        np.add.at(exp, slots, floats[:, 1])
+        np.add.at(op_count, ops, ints[:, CC_COUNT])
+        np.add.at(op_bytes, ops, ints[:, CC_BYTES])
+        np.add.at(op_dur, ops, floats[:, 0])
+        np.add.at(op_exp, ops, floats[:, 1])
+        op_seen[ops] = True
+        try:
+            fp32_code = c._dtype_index["float32"]
+        except KeyError:
+            fp32_code = -1
+        fp32_mask = (ops == ar_code) & (c.dtypes_view()[mask] == fp32_code)
+        if fp32_mask.any():
+            np.add.at(ar_fp32, slots[fp32_mask], ints[fp32_mask, CC_BYTES])
+        if ints.shape[0]:
+            group = max(group, int(ints[:, CC_GROUP].max()))
+            r_dur = float(np.cumsum(floats[:, 0])[-1])
+            r_exp = float(np.cumsum(floats[:, 1])[-1])
+            r_bytes = int(np.cumsum(ints[:, CC_BYTES])[-1])
+        else:
+            r_dur = r_exp = 0.0
+            r_bytes = 0
+        per_rank[rank] = {
+            "duration_ms": r_dur,
+            "exposed_ms": r_exp,
+            "bytes": r_bytes,
+            "overlap_efficiency": _overlap_efficiency(r_dur, r_exp),
+        }
+
+    dur_l = dur.tolist()
+    exp_l = exp.tolist()
+    # totals fold over the per-step series, matching the scalar loop
+    total_dur = float(np.cumsum(dur)[-1]) if S else 0.0
+    total_exp = float(np.cumsum(exp)[-1]) if S else 0.0
+    per_op: Dict[str, Dict[str, float]] = {}
+    for oi, op in enumerate(COLLECTIVE_OPS):
+        if not op_seen[oi]:
+            continue
+        per_op[op] = {
+            "count": int(op_count[oi]),
+            "bytes": int(op_bytes[oi]),
+            "duration_ms": float(op_dur[oi]),
+            "exposed_ms": float(op_exp[oi]),
+        }
+    return CollectivesWindow(
+        steps=common.tolist(),
+        n_steps=S,
+        ranks=[r for r, _ in items],
+        group_size=group,
+        per_step={
+            "count": count.tolist(),
+            "bytes": nbytes.tolist(),
+            "duration_ms": dur_l,
+            "exposed_ms": exp_l,
+            "overlap_efficiency": [
+                _overlap_efficiency(dur_l[i], exp_l[i]) for i in range(S)
+            ],
+            "allreduce_fp32_bytes": ar_fp32.tolist(),
+        },
+        per_op=per_op,
+        per_rank=per_rank,
+        totals={
+            "count": int(np.cumsum(count)[-1]) if S else 0,
+            "bytes": int(np.cumsum(nbytes)[-1]) if S else 0,
+            "duration_ms": total_dur,
+            "exposed_ms": total_exp,
+            "overlap_efficiency": _overlap_efficiency(total_dur, total_exp),
+        },
+    )
+
+
+def collectives_window_to_plain(
+    w: Optional[CollectivesWindow],
+) -> Optional[Dict[str, Any]]:
+    """Canonical plain-dict form for golden comparisons."""
+    if w is None:
+        return None
+    return {
+        "steps": list(w.steps),
+        "n_steps": w.n_steps,
+        "ranks": list(w.ranks),
+        "group_size": w.group_size,
+        "per_step": {k: list(v) for k, v in w.per_step.items()},
+        "per_op": {k: dict(v) for k, v in sorted(w.per_op.items())},
+        "per_rank": {r: dict(v) for r, v in sorted(w.per_rank.items())},
+        "totals": dict(w.totals),
+    }
+
+
+class _SlotWindowCacheBase(_WindowCacheBase):
+    """Shared machinery for the union-aligned (collectives/serving)
+    caches: per-step slot arrays with 2x slack, a delta scan that
+    classifies newly appended rows against the cached window, and a
+    conservative eviction guard keyed on the rings' monotone
+    ``appended_total``/``evicted_total`` counters.
+
+    Slot exactness: a cached slot value equals the fold (in sorted-rank,
+    row-order — ``np.add.at`` element order) over ALL live rows carrying
+    that step.  A new row landing on a cached step makes the slot
+    "touched"; touched and new slots are recomputed from scratch from
+    the raw rows, so partial-sum merging (which would change IEEE fold
+    grouping) never happens.
+
+    Invalidation: a mid-window union insert (new step ≤ cached max not
+    already cached) or a below-window insert while the union is still
+    shorter than the window ("realigned"), and any eviction whose
+    surviving head sits at/above the cached window start
+    ("window_evicted" — the evicted rows might have contributed to
+    cached slots).  Evictions strictly below the window are provably
+    harmless: head-only eviction + non-decreasing steps mean every
+    evicted step ≤ the surviving oldest step < window start."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._max_steps = 0
+        self._cap = 0
+        self._lo = 0
+        self._hi = 0
+        self._steps: Optional[np.ndarray] = None
+        self._ranks: List[int] = []
+        self._seen_appended: List[int] = []
+        self._seen_evicted: List[int] = []
+
+    def _slot_arrays(self):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _scan_delta(self, items, max_steps: int):
+        """Classify each rank's newly appended rows.  Returns
+        ``(touched_steps, new_union_steps)`` or raises
+        :class:`_CacheInvalid`.  Seen counters advance only when every
+        check passed (a raise re-primes them anyway)."""
+        if [r for r, _ in items] != self._ranks:
+            raise _CacheInvalid(INVALIDATE_RANKS)
+        lo_step = int(self._steps[self._lo])
+        cached_max = int(self._steps[self._hi - 1])
+        cached_S = self._hi - self._lo
+        cs = self._steps[self._lo : self._hi]
+        touched: set = set()
+        tail_parts: List[np.ndarray] = []
+        new_app: List[int] = []
+        new_ev: List[int] = []
+        for i, (_, c) in enumerate(items):
+            new_app.append(c.appended_total)
+            new_ev.append(c.evicted_total)
+            sv = c.steps_view()
+            if c.evicted_total != self._seen_evicted[i] and int(sv[0]) >= lo_step:
+                raise _CacheInvalid(INVALIDATE_EVICTED)
+            n_new = c.appended_total - self._seen_appended[i]
+            if n_new <= 0:
+                continue
+            ns = sv[max(0, sv.size - n_new):]
+            pos = int(np.searchsorted(ns, cached_max, side="right"))
+            old_part = ns[:pos]
+            if old_part.size:
+                below = old_part[old_part < lo_step]
+                if below.size and cached_S < max_steps:
+                    # the union (== cached window) would grow downward
+                    raise _CacheInvalid(INVALIDATE_REALIGNED)
+                within = old_part[old_part >= lo_step]
+                if within.size:
+                    at = np.searchsorted(cs, within)
+                    if bool((cs[at] != within).any()):
+                        # mid-window union insert
+                        raise _CacheInvalid(INVALIDATE_REALIGNED)
+                    touched.update(int(x) for x in within)
+            if pos < ns.size:
+                tail_parts.append(ns[pos:])
+        if tail_parts:
+            if len(tail_parts) > 1:
+                new_steps = np.unique(np.concatenate(tail_parts))
+            else:
+                new_steps = np.unique(tail_parts[0])
+        else:
+            new_steps = _EMPTY_I64
+        self._seen_appended = new_app
+        self._seen_evicted = new_ev
+        return touched, new_steps
+
+    def _ensure_slot_capacity(self, n_new: int) -> None:
+        if self._hi + n_new <= self._cap:
+            return
+        live = self._hi - self._lo
+        lo, hi = self._lo, self._hi
+        self._steps[:live] = self._steps[lo:hi]
+        for a in self._slot_arrays():
+            a[:live] = a[lo:hi]
+        self._lo, self._hi = 0, live
+
+    def _append_and_touch(self, touched, new_steps):
+        """Append zeroed slots for the new union steps (pre-clamped to
+        the window), slide the window, and mark them for recompute."""
+        if new_steps.size:
+            new_steps = new_steps[-self._max_steps:]
+            n_new = int(new_steps.size)
+            self._ensure_slot_capacity(n_new)
+            hi = self._hi
+            self._steps[hi : hi + n_new] = new_steps
+            for a in self._slot_arrays():
+                a[hi : hi + n_new] = 0
+            self._hi = hi + n_new
+            self._lo = max(self._lo, self._hi - self._max_steps)
+            touched.update(int(x) for x in new_steps)
+        return touched
+
+    def _prime_common(self, window, rank_cols) -> None:
+        self._lo, self._hi = 0, window.n_steps
+        items = self._sorted_items(rank_cols)
+        self._ranks = [r for r, _ in items]
+        self._seen_appended = [c.appended_total for _, c in items]
+        self._seen_evicted = [c.evicted_total for _, c in items]
+        self._valid = True
+
+
+class CollectivesWindowCache(_SlotWindowCacheBase):
+    """Incremental collectives window: per-step count/bytes/duration/
+    exposed/allreduce-fp32 slots are cached and delta-maintained; the
+    per-op / per-rank / group aggregates are re-folded each tick over
+    the live row suffixes with the exact full-build fold (their fold
+    start moves with the window head, so a cached partial sum cannot be
+    reused bit-exactly — the refold over ring views is still far
+    cheaper than the full gather + per-slot scatter)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._count: Optional[np.ndarray] = None
+        self._bytes: Optional[np.ndarray] = None
+        self._ar: Optional[np.ndarray] = None
+        self._dur: Optional[np.ndarray] = None
+        self._exp: Optional[np.ndarray] = None
+
+    def _slot_arrays(self):
+        return (self._count, self._bytes, self._ar, self._dur, self._exp)
+
+    def _full_build(self, rank_cols, max_steps):
+        return build_columnar_collectives_window(rank_cols, max_steps)
+
+    def _tick(self, rank_cols, max_steps):
+        if not self._valid:
+            raise _CacheInvalid(INVALIDATE_COLD)
+        if int(max_steps) != self._max_steps:
+            raise _CacheInvalid(INVALIDATE_SIZE)
+        items = self._sorted_items(rank_cols)
+        if not items:
+            raise _CacheInvalid(INVALIDATE_RANKS)
+        touched, new_steps = self._scan_delta(items, self._max_steps)
+        touched = self._append_and_touch(touched, new_steps)
+        lo_step = int(self._steps[self._lo])
+        buf = self._steps[: self._hi]
+        for s in sorted(touched):
+            if s < lo_step:
+                continue
+            self._recompute_slot(int(np.searchsorted(buf, s)), s, items)
+        return self._emit(items)
+
+    def _recompute_slot(self, j: int, s: int, items) -> None:
+        # from-scratch fold over ALL live rows carrying step s, in
+        # sorted-rank row order — np.add.at element order, so the slot
+        # is bit-identical to the full build's scatter
+        ar_code = _COLL_OP_INDEX["all_reduce"]
+        cnt = 0
+        byt = 0
+        ar = 0
+        d_acc = 0.0
+        e_acc = 0.0
+        for _, c in items:
+            sv = c.steps_view()
+            a = int(np.searchsorted(sv, s, side="left"))
+            b = int(np.searchsorted(sv, s, side="right"))
+            if a == b:
+                continue
+            ints = c.ints_view()
+            flts = c.floats_view()
+            ops = c.ops_view()
+            dts = c.dtypes_view()
+            fp32 = c._dtype_index.get("float32", -1)
+            for t in range(a, b):
+                cnt += int(ints[t, CC_COUNT])
+                byt += int(ints[t, CC_BYTES])
+                d_acc += float(flts[t, 0])
+                e_acc += float(flts[t, 1])
+                if int(ops[t]) == ar_code and int(dts[t]) == fp32:
+                    ar += int(ints[t, CC_BYTES])
+        self._count[j] = cnt
+        self._bytes[j] = byt
+        self._ar[j] = ar
+        self._dur[j] = d_acc
+        self._exp[j] = e_acc
+
+    def _emit(self, items) -> CollectivesWindow:
+        lo, hi = self._lo, self._hi
+        S = hi - lo
+        common = self._steps[lo:hi]
+        lo_step = int(common[0])
+        n_ops = len(COLLECTIVE_OPS)
+        op_count = np.zeros(n_ops, dtype=np.int64)
+        op_bytes = np.zeros(n_ops, dtype=np.int64)
+        op_dur = np.zeros(n_ops, dtype=np.float64)
+        op_exp = np.zeros(n_ops, dtype=np.float64)
+        op_seen = np.zeros(n_ops, dtype=np.bool_)
+        per_rank: Dict[int, Dict[str, float]] = {}
+        group = 1
+        for rank, c in items:
+            sv = c.steps_view()
+            k = int(np.searchsorted(sv, lo_step, side="left"))
+            ints = c.ints_view()[k:]
+            floats = c.floats_view()[k:]
+            ops = c.ops_view()[k:].astype(np.int64)
+            np.add.at(op_count, ops, ints[:, CC_COUNT])
+            np.add.at(op_bytes, ops, ints[:, CC_BYTES])
+            np.add.at(op_dur, ops, floats[:, 0])
+            np.add.at(op_exp, ops, floats[:, 1])
+            op_seen[ops] = True
+            if ints.shape[0]:
+                group = max(group, int(ints[:, CC_GROUP].max()))
+                r_dur = float(np.cumsum(floats[:, 0])[-1])
+                r_exp = float(np.cumsum(floats[:, 1])[-1])
+                r_bytes = int(np.cumsum(ints[:, CC_BYTES])[-1])
+            else:
+                r_dur = r_exp = 0.0
+                r_bytes = 0
+            per_rank[rank] = {
+                "duration_ms": r_dur,
+                "exposed_ms": r_exp,
+                "bytes": r_bytes,
+                "overlap_efficiency": _overlap_efficiency(r_dur, r_exp),
+            }
+
+        count = self._count[lo:hi]
+        nbytes = self._bytes[lo:hi]
+        dur = self._dur[lo:hi]
+        exp = self._exp[lo:hi]
+        dur_l = dur.tolist()
+        exp_l = exp.tolist()
+        total_dur = float(np.cumsum(dur)[-1]) if S else 0.0
+        total_exp = float(np.cumsum(exp)[-1]) if S else 0.0
+        per_op: Dict[str, Dict[str, float]] = {}
+        for oi, op in enumerate(COLLECTIVE_OPS):
+            if not op_seen[oi]:
+                continue
+            per_op[op] = {
+                "count": int(op_count[oi]),
+                "bytes": int(op_bytes[oi]),
+                "duration_ms": float(op_dur[oi]),
+                "exposed_ms": float(op_exp[oi]),
+            }
+        return CollectivesWindow(
+            steps=common.tolist(),
+            n_steps=S,
+            ranks=list(self._ranks),
+            group_size=group,
+            per_step={
+                "count": count.tolist(),
+                "bytes": nbytes.tolist(),
+                "duration_ms": dur_l,
+                "exposed_ms": exp_l,
+                "overlap_efficiency": [
+                    _overlap_efficiency(dur_l[i], exp_l[i]) for i in range(S)
+                ],
+                "allreduce_fp32_bytes": self._ar[lo:hi].tolist(),
+            },
+            per_op=per_op,
+            per_rank=per_rank,
+            totals={
+                "count": int(np.cumsum(count)[-1]) if S else 0,
+                "bytes": int(np.cumsum(nbytes)[-1]) if S else 0,
+                "duration_ms": total_dur,
+                "exposed_ms": total_exp,
+                "overlap_efficiency": _overlap_efficiency(total_dur, total_exp),
+            },
+        )
+
+    def _prime(self, window, rank_cols, max_steps) -> None:
+        if window is None:
+            self._valid = False
+            return
+        self._max_steps = int(max_steps)
+        self._cap = 2 * self._max_steps
+        S = window.n_steps
+        self._steps = np.empty(self._cap, dtype=np.int64)
+        self._count = np.empty(self._cap, dtype=np.int64)
+        self._bytes = np.empty(self._cap, dtype=np.int64)
+        self._ar = np.empty(self._cap, dtype=np.int64)
+        self._dur = np.empty(self._cap, dtype=np.float64)
+        self._exp = np.empty(self._cap, dtype=np.float64)
+        self._steps[:S] = np.asarray(window.steps, dtype=np.int64)
+        ps = window.per_step
+        self._count[:S] = np.asarray(ps["count"], dtype=np.int64)
+        self._bytes[:S] = np.asarray(ps["bytes"], dtype=np.int64)
+        self._ar[:S] = np.asarray(ps["allreduce_fp32_bytes"], dtype=np.int64)
+        self._dur[:S] = np.asarray(ps["duration_ms"], dtype=np.float64)
+        self._exp[:S] = np.asarray(ps["exposed_ms"], dtype=np.float64)
+        self._prime_common(window, rank_cols)
