@@ -238,12 +238,36 @@
    host before its all-reduce; COMM_BOUND in the collectives section.
    Both runs' flash launches have their own paths on the kernels line.
 
+15. The parallel layer (``seq_parallel_train_phase`` after the train
+   phases, ``seq_parallel_run_phase`` after the run phase, beside the
+   ``train_healthy`` run it is held to), over a one-rank NCCL group
+   with ``make_mesh({fsdp: 1, context: 1})``.  In process, each route's
+   AdamW step against its reference by ``train_compare_phase`` (the
+   train gates, ``COMPARE_STEPS`` steps): ``attention_impl="ulysses"``
+   against ``"dense"`` (both through the flash kernel: 12 launches a
+   step), ``"ring"`` against the plain route (0 launches: its blocks are
+   einsums), the FSDP2-sharded step against the unsharded one; each
+   route's step ms, and what the Ulysses exchanges that a one-rank group
+   skips would cost through NCCL (``ulysses_exchange_cost``).  The group
+   is destroyed before the later phases.  Then ``train_seq_parallel``:
+   ``run`` of ``train_script.py --mesh-shape fsdp=1,context=1
+   --attention-impl ulysses --fsdp --ici-stats 10 --tokens``, held to
+   the healthy train gates (FLOPs and tokens/s within 2%, 720 launches,
+   NVML), the mesh in the database, 6 gathered (1, 12) stat matrices
+   whose ``step_ms`` equal the stored rows' within f32 rounding, and the
+   steady step at most ``SEQ_PARALLEL_STEP_REL`` x ``train_healthy``'s;
+   reported: each gather's wait for the step's device work (the sync
+   point) and the collective's ms.  Its launches have their own path on
+   the kernels line.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gzip
 import html.parser
 import http.client
@@ -661,40 +685,67 @@ def check_train_rows(name: str, rows) -> None:
               f"{name}: step {step} forward/backward/optimizer device_ms {ms}")
 
 
-def train_compare_phase(batches, routes, tag: str = "train") -> None:
-    """The full-width train step through one route against another from
-    the same weights on the same batches: the first step's gradients, the
-    loss of each of ``COMPARE_STEPS`` steps and each parameter's update
-    after them, by checks that scale with the output.  ``routes`` is
-    ``((name, cfg, plain), (name, cfg, plain))``, the route under test
-    first; ``plain`` runs attention through ``flash_attention_plain`` on
-    the card, differentiated by autograd."""
+def _full(t):
+    """A DTensor's whole tensor (FSDP2's sharded parameters and
+    gradients); any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+_SEED_WEIGHTS = {}
+
+
+def seed_state_dict(cfg) -> dict:
+    """``params_from_jax(random_flax_params(cfg, SEED))`` (the weights
+    ``build_train_state`` loads), made once per model shape: every route
+    of the in-process comparisons starts from them."""
+    from traceml_tpu_torch.dev.workload import random_flax_params
+    from traceml_tpu_torch.models.convert import params_from_jax
+
+    key = (cfg.vocab_size, cfg.hidden, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden)
+    if key not in _SEED_WEIGHTS:
+        _SEED_WEIGHTS[key] = params_from_jax(random_flax_params(cfg, SEED))
+    return _SEED_WEIGHTS[key]
+
+
+def train_route(tokens, cfg, use_plain: bool, mesh=None, timed: bool = False) -> dict:
+    """The full-width train step of one route from the seed's weights on
+    ``tokens`` (``COMPARE_STEPS`` batches on the card): the first batch's
+    gradients, the loss of each step, each parameter's update after them
+    and the flash launches in the steps.  ``use_plain`` runs attention
+    through ``flash_attention_plain`` on the card, differentiated by
+    autograd; a ``mesh`` shards the parameters with FSDP2
+    (``init_train_state(mesh=)``).  With ``timed``, the step is then timed
+    (``cuda_ms``, 5 steps after 3 warm-ups)."""
     from contextlib import nullcontext
 
-    from traceml_tpu_torch.dev.attention_check import scaled_errors
-    from traceml_tpu_torch.dev.workload import build_train_state
-    from traceml_tpu_torch.models.transformer import loss_fn, make_train_step
+    from traceml_tpu_torch.dev.workload import cuda_ms
+    from traceml_tpu_torch.models.transformer import init_train_state, loss_fn, make_train_step
     from traceml_tpu_torch.ops import attention as attention_mod
-    from traceml_tpu_torch.ops.flash_attention import flash_attention_plain
+    from traceml_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
-    tokens = [b.cuda() for b in batches[:COMPARE_STEPS]]
-    got, start = {}, None
-    for route, cfg, use_plain in routes:
-        model, optimizer = build_train_state(cfg, SEED)
-        if start is None:
-            start = {n: p.detach().clone() for n, p in model.named_parameters()}
-        plain = mock.patch.object(attention_mod, "flash_attention", flash_attention_plain)
-        with plain if use_plain else nullcontext():
-            loss_fn(model, tokens[0]).backward()
-            grads = {n: p.grad for n, p in model.named_parameters()}
-            model.zero_grad(set_to_none=True)
-            step = make_train_step(model, optimizer)
-            losses = [step(t)["loss"].item() for t in tokens]
-        got[route] = {"losses": losses, "grads": grads,
-                      "updates": {n: p.detach() - start[n] for n, p in model.named_parameters()}}
-        del model, optimizer, step
-    (name_k, _, _), (name_p, _, _) = routes
-    k, p = got[name_k], got[name_p]
+    model, optimizer = init_train_state(cfg, seed=SEED, mesh=mesh, state_dict=seed_state_dict(cfg))
+    start = {n: _full(p.detach()).clone() for n, p in model.named_parameters()}
+    plain = mock.patch.object(attention_mod, "flash_attention", flash_attention_plain)
+    with plain if use_plain else nullcontext():
+        loss_fn(model, tokens[0]).backward()
+        grads = {n: _full(p.grad) for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        step = make_train_step(model, optimizer)
+        flash_attention.launches = 0
+        out = {"losses": [step(t)["loss"].item() for t in tokens], "grads": grads,
+               "launches": flash_attention.launches}
+        out["updates"] = {n: _full(p.detach()) - start[n] for n, p in model.named_parameters()}
+        if timed:  # after the updates are taken: these steps move the weights further
+            out["step_ms"] = cuda_ms(lambda: step(tokens[0]), 5)
+    return out
+
+
+def compare_train_routes(tag: str, name_k: str, k: dict, name_p: str, p: dict) -> None:
+    """Route ``name_k`` (``train_route``'s result ``k``) against
+    ``name_p``: the first step's gradients, each step's loss and each
+    parameter's update, by checks that scale with the output."""
+    from traceml_tpu_torch.dev.attention_check import scaled_errors
+
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
     grad_rel = {n: scaled_errors(k["grads"][n], p["grads"][n])["rel_fro"] for n in p["grads"]}
     update_rel = {n: (k["updates"][n] - p["updates"][n]).norm().item() / p["updates"][n].norm().item()
@@ -716,6 +767,17 @@ def train_compare_phase(batches, routes, tag: str = "train") -> None:
           f"gradient of {worst_grad} {name_k} vs {name_p}: rel_fro {grad_rel[worst_grad]}")
     check(update_rel[worst_update] <= TRAIN_UPDATE_REL_FRO,
           f"update of {worst_update} {name_k} vs {name_p}: rel_fro {update_rel[worst_update]}")
+
+
+def train_compare_phase(batches, routes, tag: str = "train") -> None:
+    """The full-width train step through one route against another from
+    the same weights on the same batches (``train_route``,
+    ``compare_train_routes``).  ``routes`` is ``((name, cfg, plain),
+    (name, cfg, plain))``, the route under test first."""
+    tokens = [b.cuda() for b in batches[:COMPARE_STEPS]]
+    (name_k, cfg_k, plain_k), (name_p, cfg_p, plain_p) = routes
+    compare_train_routes(tag, name_k, train_route(tokens, cfg_k, plain_k), name_p,
+                         train_route(tokens, cfg_p, plain_p))
 
 
 def lm_head_phase(cfg) -> dict:
@@ -837,7 +899,6 @@ def remat_train_phase(cfg, train: dict) -> dict:
     step (the recompute runs the kernel again), a step peak below the
     non-remat loop's, and ``flops_per_step`` within ``FLOPS_REL_TOL`` of
     ``analytic_remat_flops``."""
-    import dataclasses
 
     import traceml_tpu_torch as tm
     from traceml_tpu_torch.dev.workload import TRAIN_TOKENS, build_train_state, host_batches
@@ -1294,6 +1355,7 @@ def check_train_run(name: str, run: dict, cfg, verdict, telemetry_status: str = 
     words = loss_lines[-1].split()
     first, last = float(words[words.index("first") + 1]), float(words[words.index("last") + 1])
     check(last < first, f"run {name}: loss first {first} last {last}")
+    got["full_gc_in_loop"] = int(words[-1]) if "collections in the loop" in loss_lines[-1] else None
     eff = got["efficiency"] or {}
     flops = eff.get("flops_per_step")
     check(flops is not None and abs(flops - analytic) / analytic <= FLOPS_REL_TOL,
@@ -1449,8 +1511,11 @@ def baseline_compare_phase(runs: dict) -> dict:
           f"compare healthy vs input_delay: {q['verdict']}, findings {[f['kind'] for f in q['findings']]}")
     check((q.get("candidate_baseline") or {}).get("status") == "regression",
           f"compare healthy vs input_delay: candidate_baseline {q.get('candidate_baseline')}")
+    metrics = ((p.get("sections") or {}).get("step_time") or {}).get("metrics") or {}
     out["compare"] = {
         "healthy_vs_healthy_2": {"verdict": p["verdict"], "step_delta_rel": p["step_delta_rel"],
+                                 "phase_shares": {k[len("share."):]: [m.get("baseline"), m.get("candidate")]
+                                                  for k, m in metrics.items() if k.startswith("share.")},
                                  "findings": [f["kind"] for f in p["findings"]], "wall_s": same["wall_s"]},
         "healthy_vs_input_delay": {"verdict": q["verdict"], "step_delta_rel": q["step_delta_rel"],
                                    "findings": [f["kind"] for f in q["findings"]],
@@ -2904,6 +2969,126 @@ def comm_bound_run_phase(cfg) -> dict:
             "step_median_ms": step_ms, "flash_launches": launches, "wall_s": run["wall_s"]}
 
 
+SEQ_PARALLEL_MESH = {"fsdp": 1, "context": 1}  # one H100: both axes of size 1, every sharded code path taken
+SEQ_PARALLEL_STEP_REL = 1.10  # the sharded run's steady step against train_healthy's
+STAT_GATHER_EVERY = 10  # --ici-stats N: 6 gathers in the 60-step run
+
+
+@contextlib.contextmanager
+def one_rank_nccl_group():
+    """A one-rank NCCL process group in this process (``_dist_env``'s
+    rendezvous), destroyed on exit with the mesh ``make_mesh`` recorded,
+    so the phases after it run as before."""
+    import torch.distributed as dist
+
+    from traceml_tpu_torch.utils.topology import reset_recorded_mesh_for_tests
+
+    env = _dist_env()
+    with mock.patch.dict(os.environ, env):
+        dist.init_process_group("nccl", init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+            reset_recorded_mesh_for_tests()
+
+
+def seq_parallel_train_phase(cfg) -> dict:
+    """The sharded train step in process, in a one-rank NCCL group with
+    ``make_mesh(SEQ_PARALLEL_MESH)``, each route against its reference
+    (``train_route``, ``compare_train_routes``: ``COMPARE_STEPS`` AdamW
+    steps, the train gates): ``attention_impl="ulysses"`` (the flash
+    kernel after the head scatter) against ``"dense"`` (the kernel
+    route); ``"ring"`` (einsum blocks, no kernel) against the plain route;
+    the FSDP2-sharded step (``init_train_state(mesh=)``) against the
+    unsharded dense one.  Flash launches in each route's steps: 12 a step
+    under Ulysses, dense and FSDP2, 0 under ring and plain.  Reported: each route's step ms, and what the
+    Ulysses exchanges it skips at one rank would cost
+    (``ulysses_exchange_cost``)."""
+    from traceml_tpu_torch.dev.measure_seq_parallel import ulysses_exchange_cost
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS, host_batches
+    from traceml_tpu_torch.parallel.mesh import make_mesh
+
+    tokens = [b.cuda() for b in host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)[:COMPARE_STEPS]]
+    with one_rank_nccl_group():
+        mesh = make_mesh(SEQ_PARALLEL_MESH, device_type="cuda")
+
+        def sp(impl):
+            return dataclasses.replace(cfg, attention_impl=impl, context_axis="context", mesh=mesh)
+
+        routes = {"dense": train_route(tokens, cfg, False, timed=True)}
+        routes["ulysses"] = train_route(tokens, sp("ulysses"), False, timed=True)
+        compare_train_routes("ulysses", "ulysses", routes["ulysses"], "dense", routes["dense"])
+        routes["ring"] = train_route(tokens, sp("ring"), False, timed=True)
+        routes["plain"] = train_route(tokens, cfg, True)
+        compare_train_routes("ring", "ring", routes["ring"], "plain", routes["plain"])
+        routes["fsdp"] = train_route(tokens, cfg, False, mesh=mesh, timed=True)
+        compare_train_routes("fsdp", "fsdp", routes["fsdp"], "unsharded", routes["dense"])
+        exchange = ulysses_exchange_cost(mesh)
+    per_step = {route: r["launches"] / COMPARE_STEPS for route, r in routes.items()}
+    log("seq_parallel", "flash launches a step " + json.dumps(per_step) + "; step ms "
+        + json.dumps({route: r["step_ms"] for route, r in routes.items() if "step_ms" in r})
+        + "; the Ulysses exchange through NCCL at one rank (skipped on the path) " + json.dumps(exchange))
+    want = {"dense": cfg.n_layers, "ulysses": cfg.n_layers, "ring": 0, "plain": 0, "fsdp": cfg.n_layers}
+    check(per_step == want, f"flash launches a step {per_step}, not {want}")
+    return {"step_ms": {route: r.get("step_ms") for route, r in routes.items()}, "exchange": exchange}
+
+
+def seq_parallel_run_phase(cfg, train_healthy: dict) -> dict:
+    """``train_seq_parallel``: ``run`` of ``train_script.py`` at full width
+    in a one-rank NCCL group with ``--mesh-shape fsdp=1,context=1
+    --attention-impl ulysses --fsdp --ici-stats 10``: Ulysses attention
+    over the context axis (the flash kernel after the head scatter), the
+    parameters and AdamW's state sharded by FSDP2, the stat all-gather
+    every 10 steps.  Gates: the healthy train run's (device clock, the
+    MFU's band, FLOPs and tokens, 12 x 60 launches, NVML); the mesh in the
+    database; 6 gathered matrices of shape (1, 12) whose rows' ``step_ms``
+    equal the stored rows' of the same steps within f32 rounding; the
+    steady step at most ``SEQ_PARALLEL_STEP_REL`` x ``train_healthy``'s.
+    Reported: the host ms each gather waited for the step's device work
+    and the ms of the collective with its copy (the sync point)."""
+    from traceml_tpu_torch.utils import timing as T
+
+    name = "train_seq_parallel"
+    cpu0, wall0 = time.process_time(), time.perf_counter()
+    time.sleep(1.0)
+    log("run", f"{name}: host load average {os.getloadavg()}; this process's CPU over 1 s idle "
+               f"{(time.process_time() - cpu0) / (time.perf_counter() - wall0):.3f} of a core, threads "
+               f"{sorted(t.name for t in threading.enumerate())}")
+    run = launch_run(name, 0.0, 0.1, script="train_script.py", env_extra=_dist_env(), script_args=(
+        "--mesh-shape", ",".join(f"{k}={v}" for k, v in SEQ_PARALLEL_MESH.items()), "--attention-impl", "ulysses",
+        "--fsdp", "--ici-stats", str(STAT_GATHER_EVERY), "--tokens"))
+    got = check_train_run(name, run, cfg, mfu_verdict)
+    check_healthy_utilization(name, got)
+    eff = got["efficiency"] or {}
+    tokens = eff.get("tokens_per_sec_median")
+    want_tokens = BATCH * SEQ / (got["steady_state_ms"] / 1e3)
+    check(eff.get("tokens_per_step") == BATCH * SEQ and tokens is not None
+          and abs(tokens - want_tokens) / want_tokens <= FLOPS_REL_TOL,
+          f"run {name}: tokens_per_step {eff.get('tokens_per_step')}, tokens/s {tokens} vs {want_tokens}")
+    mesh = check_mesh(name, run)
+    lines = [l for l in run["stdout"].splitlines() if l.startswith("stat_gather ")]
+    check(len(lines) == 1, f"run {name}: {len(lines)} stat_gather lines")
+    stat = json.loads(lines[0].split(" ", 1)[1])
+    stored = {step: json.loads(ev)[T.STEP_TIME]["device_ms"] for step, _, ev in run["rows"]}
+    gathered = {step: ms for r, step, ms in stat["rows"] if r == 0}
+    steps = list(range(STAT_GATHER_EVERY, run["steps"] + 1, STAT_GATHER_EVERY))
+    check(stat["gathers"] == len(steps) and stat["shape"] == [1, 12] and sorted(gathered) == steps
+          and len(stat["rows"]) == len(steps), f"run {name}: stat gathers {stat}")
+    off = {step: (gathered[step], stored[step]) for step in steps
+           if not math.isclose(gathered[step], stored[step], rel_tol=2.0 ** -23)}
+    check(not off, f"run {name}: gathered step_ms vs the stored rows' (gathered, stored): {off}")
+    ratio = got["steady_state_ms"] / train_healthy["steady_state_ms"]
+    numbers = {"wait_ms": spread(stat["wait_ms"]), "gather_ms": spread(stat["gather_ms"]),
+               "gathered_step_ms": [gathered[s] for s in steps], "diagnosis": stat["diagnosis"]}
+    log("run", f"{name}: steady step {got['steady_state_ms']:.4f} ms vs train_healthy "
+               f"{train_healthy['steady_state_ms']:.4f} ms: {ratio:.4f}x (gate {SEQ_PARALLEL_STEP_REL}x); "
+               f"stat gathers {json.dumps(numbers)}; tokens/s {tokens}; mesh {json.dumps(mesh)}")
+    check(ratio <= SEQ_PARALLEL_STEP_REL, f"run {name}: steady step {ratio:.4f}x train_healthy's")
+    return {**got, "step_ratio": ratio, "stat_gather": numbers}
+
+
 def build_native() -> dict:
     """Build both C extensions of the transport tier (``traceml_tpu_torch/
     native/``) from the checkout, strictly: a failed build, a failed load
@@ -2938,6 +3123,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a CUDA card", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     from traceml_tpu_torch.ops import _build
 
     smi = nvidia_smi()
@@ -2981,6 +3167,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("time", f"train phases {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    seq_parallel_train_phase(cfg)
+    torch.cuda.empty_cache()
+    log("time", f"seq parallel train phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     forward_healthy = run_phase(main_path)
     train_runs = train_run_phase(cfg, train)
     train_healthy = train_runs["train_healthy"]
@@ -2992,6 +3182,11 @@ def main() -> int:
     remat_run_phase(cfg, remat)
     killed_run_phase()
     log("time", f"run phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sp_run = seq_parallel_run_phase(cfg, train_healthy)
+    kernel["launches"] += sp_run["flash_launches"]
+    kernel["launches_by_path"]["train_seq_parallel_run"] = sp_run["flash_launches"]
+    log("time", f"seq parallel run phase {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     cli = cli_run_phase(cfg, train_healthy, forward_healthy)
     kernel["launches"] += cli["train"]["flash_launches"]
@@ -3032,6 +3227,7 @@ def main() -> int:
     kernel["launches"] += comm_bound["flash_launches"]
     kernel["launches_by_path"]["train_comm_bound_run"] = comm_bound["flash_launches"]
     log("time", f"collectives run phase {time.perf_counter() - t0:.2f} s")
+    log("time", f"total {time.perf_counter() - started:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """The port imports neither JAX nor the JAX package.
 
 A fresh interpreter imports every module of ``traceml_tpu_torch`` (those
-of each slice named, the transport tier's and the collectives domain's
-too) and ``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
+of each slice named, the transport tier's, the collectives domain's and
+the parallel layer's too) and ``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
 ``traceml_tpu.*`` module may be loaded (names matched exactly, since
 ``traceml_tpu_torch`` starts with ``traceml_tpu``).  An AST scan of the
 same files finds no such import statement either, and the two C sources
@@ -96,6 +96,12 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "traceml_tpu_torch.diagnostics.collectives.rules", "traceml_tpu_torch.diagnostics.collectives.vector",
     }
     assert collectives_domain <= set(out["imported"])
+    parallel_layer = {  # sequence-parallel attention and the stat all-gather
+        "traceml_tpu_torch.ops.ring_attention", "traceml_tpu_torch.ops.ulysses_attention",
+        "traceml_tpu_torch.parallel.ici_stats", "traceml_tpu_torch.parallel.ici_telemetry",
+        "traceml_tpu_torch.dev.measure_seq_parallel",
+    }
+    assert parallel_layer <= set(out["imported"])
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 

@@ -22,6 +22,13 @@ package's.
   the 1 m tier still covers the run, as in JAX.
 * The ``rank_seq`` dedup of the crash-resume path still drops replays
   after a prune, in the same transaction, as the JAX writer does.
+* The mesh-axis grains: the same stream after each rank's
+  ``mesh_topology`` row, for a 2-rank layout on one host (the ``fsdp``
+  axis of size 2 over ICI, the others of size 1) and a 2-node one (rank r
+  on node r, host ``h<r>``, the ``data`` axis over DCN): both writers'
+  tier tables are equal row for row, and they hold the ``axis:fsdp`` or
+  ``dcn_side:data`` series of each coordinate (no grain for an axis of
+  size 1), each equal to the matching ``rank`` series.
 """
 
 import json
@@ -44,9 +51,13 @@ TABLES = ("step_time_samples", "step_memory_samples", "process_samples", "proces
           "model_stats_samples")
 
 
-def _envelope(rank, sampler, tables, seq):
-    meta = SenderIdentity(session_id="s", global_rank=rank, local_rank=rank, world_size=2,
-                          local_world_size=2, hostname="h", pid=100 + rank).to_meta()
+def _envelope(rank, sampler, tables, seq, nodes=1):
+    """One rank's envelope; with ``nodes=2`` rank r runs alone on node r
+    (host ``h<r>``)."""
+    two = nodes == 2
+    meta = SenderIdentity(session_id="s", global_rank=rank, local_rank=0 if two else rank, world_size=2,
+                          local_world_size=1 if two else 2, node_rank=rank if two else 0,
+                          hostname=f"h{rank}" if two else "h", pid=100 + rank).to_meta()
     meta.update({"schema": 2, "sampler": sampler, "timestamp": 1.7e9})
     if seq is not None:
         meta["seq"] = seq
@@ -59,7 +70,7 @@ def _retimed(rows):
     return rows
 
 
-def _stream(seq_base=None):
+def _stream(seq_base=None, nodes=1):
     """Ticks of envelopes, in the order the JAX writer's lanes commit them
     (the step lanes first, then process)."""
     data = {}
@@ -81,7 +92,8 @@ def _stream(seq_base=None):
                           "step_memory": {"step_memory": mem[lo:lo + PER_TICK]},
                           "process": {t: proc[t][lo:lo + PER_TICK] for t in ("process", "process_device")}}[sampler]
                 seq[rank] += 1
-                tick.append(_envelope(rank, sampler, tables, None if seq_base is None else seq_base + seq[rank]))
+                tick.append(_envelope(rank, sampler, tables, None if seq_base is None else seq_base + seq[rank],
+                                      nodes))
         ticks.append(tick)
     return ticks
 
@@ -264,3 +276,51 @@ def test_replays_after_a_prune_are_dropped(tmp_path):
     finally:
         conn.close()
     assert folded + raw == N_STEPS  # no replayed row stored or folded twice
+
+
+# -- the mesh-axis grains --------------------------------------------------------
+
+MESH_LAYOUTS = {
+    # one host, 2 ranks on the fsdp axis (the others of size 1)
+    "2-rank": (1, [{"name": "data", "size": 1, "kind": "ici"}, {"name": "fsdp", "size": 2, "kind": "ici"},
+                   {"name": "tensor", "size": 1, "kind": "ici"}, {"name": "context", "size": 1, "kind": "ici"}],
+               lambda r: [0, r, 0, 0], "axis:fsdp"),
+    # two nodes, one rank each, the data axis across the node boundary
+    "2-node": (2, [{"name": "data", "size": 2, "kind": "dcn"}, {"name": "fsdp", "size": 1, "kind": "ici"}],
+               lambda r: [r, 0], "dcn_side:data"),
+}
+
+
+def _mesh_envelope(rank, nodes, axes, coords):
+    row = {"timestamp": 1.7e9, "source": "mesh", "axes_json": json.dumps(axes), "coords_json": json.dumps(coords)}
+    return _envelope(rank, "mesh_topology", {"mesh_topology": [row]}, None, nodes)
+
+
+@pytest.mark.parametrize("layout", sorted(MESH_LAYOUTS))
+def test_mesh_axis_grains_as_jax(tmp_path, layout):
+    nodes, axes, coords, grain = MESH_LAYOUTS[layout]
+    ticks = _stream(nodes=nodes)
+    ticks[0] = [_mesh_envelope(r, nodes, axes, coords(r)) for r in (0, 1)] + ticks[0]
+    jax = _write(JaxWriter(tmp_path / "jax.sqlite", summary_window_rows=WINDOW), jax_normalize, ticks)
+    port = _write(SQLiteWriter(tmp_path / "port.sqlite", summary_window_rows=WINDOW), normalize_telemetry_envelope,
+                  ticks)
+    assert jax.finalize(timeout=30) and port.finalize(timeout=30)
+    jdb, pdb = tmp_path / "jax.sqlite", tmp_path / "port.sqlite"
+    for table in ("rollup_samples_10s", "rollup_samples_1m", "mesh_topology"):
+        assert _dump(pdb, table) == _dump(jdb, table), table
+    assert port.stats()["rollup"]["rows_upserted"] == jax.stats()["rollup"]["rows_upserted"]
+    conn = sqlite3.connect(pdb)
+    try:
+        grains = {r for r in conn.execute("SELECT DISTINCT grain, grain_key FROM rollup_samples_10s")}
+        series = {}
+        for g, key, bucket, count, total in conn.execute(
+                "SELECT grain, grain_key, bucket_ts, count, sum FROM rollup_samples_10s WHERE "
+                "source_table='step_time_samples' AND metric='step_ms' ORDER BY bucket_ts"):
+            series.setdefault((g, key), []).append((bucket, count, total))
+    finally:
+        conn.close()
+    hosts = {("host", "h")} if nodes == 1 else {("host", "h0"), ("host", "h1")}
+    assert grains == {("rank", "0"), ("rank", "1"), (grain, "0"), (grain, "1")} | hosts
+    for r in (0, 1):  # each coordinate of the axis holds one rank here
+        assert series[(grain, str(r))] == series[("rank", str(r))]
+

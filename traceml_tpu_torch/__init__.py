@@ -23,7 +23,9 @@ of a node boundary); ``instrument_collective`` times a gradient sync as
 the ``collective`` phase and records it in the collectives domain
 (COMM_BOUND, POOR_OVERLAP, ALLREDUCE_QUANTIZABLE), and
 ``patch_dist_collectives`` does the same for the eager
-``torch.distributed`` collectives.
+``torch.distributed`` collectives; ``enable_ici_stats`` all-gathers each
+rank's step stats over the mesh every N steps for a cross-rank verdict
+without the aggregator.
 
 The JAX package ``traceml_tpu`` is the reference; this package imports
 neither it nor JAX.  The public API is a lazy facade, so importing the
@@ -46,6 +48,7 @@ _API_SYMBOLS = (
     "instrument_collective",
     "patch_dist_collectives",
     "make_mesh",
+    "enable_ici_stats",
     "set_step_flops",
     "set_step_tokens",
     "estimate_step_flops",

@@ -10,12 +10,12 @@ aggregator, ever sees rows that are neither raw nor rolled up.
 A tier row is one aggregate per (session, source table, grain, grain
 key, metric, time bucket): ``count / sum / min / max / sumsq`` and the
 covered step range.  Grains: ``rank`` (one series per global rank, the
-read path's stitch grain) and ``host`` (per hostname, merged across
-ranks by the UPSERT).  The JAX engine also folds ``axis:<name>`` and
-``dcn_side:<name>`` grains from a session's ``mesh_topology`` capture;
-the port does not fold them yet (ROADMAP queue 1 item 5(b)), so its tier
-rows equal the JAX ones for a session without a mesh, and lack those
-grains for one with a mesh.
+read path's stitch grain), ``host`` (per hostname, merged across ranks by
+the UPSERT) and, once the session has ``mesh_topology`` rows,
+``axis:<name>`` / ``dcn_side:<name>`` (one series per coordinate along
+each mesh axis of size > 1, the axis's kind naming the grain; the
+vocabulary ``utils/topology.py`` attributes with).  A session's mesh is
+looked up lazily and re-checked at most every 30 s until it appears.
 
 Every prune folds into both tiers, so the 10 s tier decays by plain
 deletion past its horizon (6 h by default) and the 1 m tier's horizon
@@ -301,6 +301,10 @@ class RollupEngine:
     def __init__(self) -> None:
         self.tiers = parse_tiers(os.environ.get(ENV_ROLLUP_TIERS))
         self.sources = frozenset(ROLLUP_SOURCES)
+        # session_id → rank → [(grain, key)] mesh-group memberships;
+        # absent: no mesh seen yet, re-checked at most every 30 s
+        self._mesh_groups: Dict[str, Dict[int, List[Tuple[str, str]]]] = {}
+        self._mesh_checked_at: Dict[str, float] = {}
         # (tier_table, session, source, grain, key) → last decay cutoff
         self._decay_cutoffs: Dict[Tuple[str, str, str, str, str], float] = {}
         # stats (read via SQLiteWriter.stats())
@@ -352,6 +356,57 @@ class RollupEngine:
             "fold_ms_max": round(self.fold_ms_max, 3),
         }
 
+    # -- mesh axis-groups -------------------------------------------------
+
+    def _groups_for(
+        self, conn: sqlite3.Connection, session_id: str, rank: int
+    ) -> List[Tuple[str, str]]:
+        """Mesh-axis group memberships for ``rank``, built lazily from the
+        session's ``mesh_topology`` rows and re-checked at most every 30 s
+        until a mesh appears (control rows land early or never)."""
+        cached = self._mesh_groups.get(session_id)
+        if cached is None:
+            now = time.monotonic()
+            if now - self._mesh_checked_at.get(session_id, -1e9) < 30.0:
+                return []
+            self._mesh_checked_at[session_id] = now
+            cached = self._load_mesh_groups(conn, session_id)
+            if cached is None:
+                return []
+            self._mesh_groups[session_id] = cached
+        return cached.get(int(rank), [])
+
+    @staticmethod
+    def _load_mesh_groups(
+        conn: sqlite3.Connection, session_id: str
+    ) -> Optional[Dict[int, List[Tuple[str, str]]]]:
+        from traceml_tpu_torch.utils.topology import KIND_DCN, topology_from_rank_rows
+
+        try:
+            cur = conn.execute(
+                "SELECT global_rank, node_rank, hostname, axes_json,"
+                " coords_json, source FROM mesh_topology WHERE session_id=?"
+                " ORDER BY id",
+                (session_id,),
+            )
+            cols = [d[0] for d in cur.description]
+            rows = [dict(zip(cols, r)) for r in cur.fetchall()]
+        except sqlite3.Error:
+            return None
+        topo = topology_from_rank_rows(rows) if rows else None
+        if topo is None:
+            return None
+        out: Dict[int, List[Tuple[str, str]]] = {}
+        for rank, coords in topo.rank_coords.items():
+            groups: List[Tuple[str, str]] = []
+            for i, axis in enumerate(topo.axes):
+                if axis.size <= 1 or i >= len(coords):
+                    continue
+                kind = "dcn_side" if axis.kind == KIND_DCN else "axis"
+                groups.append((f"{kind}:{axis.name}", str(int(coords[i]))))
+            out[int(rank)] = groups
+        return out
+
     # -- the in-transaction fold ------------------------------------------
 
     def fold_doomed(
@@ -385,6 +440,8 @@ class RollupEngine:
         grains: List[Tuple[str, str, int]] = [("rank", str(int(rank)), int(rank))]
         if hostname:
             grains.append(("host", str(hostname), -1))
+        for grain, key in self._groups_for(conn, session_id, int(rank)):
+            grains.append((grain, key, -1))
         upserts_by_tier: Dict[str, List[tuple]] = {}
         newest_bucket: Dict[str, float] = {}
         for width, _horizon in self.tiers:

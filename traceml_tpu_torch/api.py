@@ -31,3 +31,22 @@ def set_step_tokens(tokens: float) -> None:
     from traceml_tpu_torch.sdk.state import get_state
 
     get_state().tokens_per_step = float(tokens)
+
+
+def enable_ici_stats(mesh=None, *, every_n_steps: int = 10, window_steps: int = 120):
+    """Opt-in: all-gather each rank's stat vector over the mesh every N
+    steps (one NCCL ``all_gather_into_tensor``) and keep a local
+    cross-rank window for diagnosis: a rank source that bypasses the
+    aggregator.  The name is the JAX package's.
+
+    Returns the installed :class:`~traceml_tpu_torch.parallel.ici_telemetry.
+    IciTelemetryHook`; call ``hook.diagnose()`` for a straggler verdict
+    from the gathered matrices, ``hook.uninstall()`` to detach.  Every
+    rank must enable it with the same ``every_n_steps``: the gather is a
+    collective.
+    """
+    from traceml_tpu_torch.parallel.ici_telemetry import IciTelemetryHook
+
+    return IciTelemetryHook(
+        mesh, every_n_steps=every_n_steps, window_steps=window_steps
+    ).install()

@@ -21,9 +21,13 @@ S=1024 and every layer's attention goes through the CUDA flash kernel.
 that cannot keep up); ``--delay-x K`` sleeps K times the median host time
 of the last 8 steps (the warm-up step's before the first), so the delay
 follows the step's own speed on a loaded host; ``--delay-rank R`` puts
-either delay on rank R alone (a straggling input pipeline).  At the end it prints the
-loss of the first and the last traced step and the flash kernel's
-launches in the traced loop, ``flash_attention.launches N``.  Test scaffolding, not features:
+either delay on rank R alone (a straggling input pipeline).  Before the
+traced loop it collects the set-up's garbage and freezes what survives
+(``gc.freeze``), so no full collection stalls the host inside a traced
+step.  At the end it prints the loss of the first and the last traced
+step, the full (generation 2) collections the loop still ran, and the
+flash kernel's launches in the traced loop, ``flash_attention.launches
+N``.  Test scaffolding, not features:
 
 * ``--remat`` checkpoints each block (``ModelConfig.remat``);
 * ``--h2d to`` copies each batch inside the step with
@@ -47,13 +51,25 @@ launches in the traced loop, ``flash_attention.launches N``.  Test scaffolding, 
   flat f32 gradients, recorded by ``instrument_collective``), ``local``
   times the same sync without the all-reduce; ``--sync-sleep-ms MS``
   slows the sync by MS on the host (every rank, or ``--sync-sleep-rank``
-  alone): a fully exposed, slow link.
+  alone): a fully exposed, slow link;
+* ``--mesh-shape fsdp=1,context=1`` builds ``make_mesh`` of that shape
+  (implies ``--mesh``); ``--attention-impl ring|ulysses`` shards
+  attention by sequence over its ``context`` axis (each rank trains on its
+  shard of the global batch); ``--fsdp`` shards the parameters and AdamW's
+  state with FSDP2 (``init_train_state(mesh=...)``); ``--ici-stats N``
+  all-gathers each rank's step stats over the mesh every N steps
+  (``enable_ici_stats``) and prints, after the loop, ``stat_gather`` and a
+  JSON object: the gathers, the matrix's shape, each gathered row's
+  ``[rank, step, step_ms]``, the host ms each gather waited for the
+  step's device work and the ms of the collective with its copy to the
+  host.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import sys
@@ -76,6 +92,7 @@ from traceml_tpu_torch.dev.workload import (
 )
 from traceml_tpu_torch.models.transformer import ModelConfig, make_train_step
 from traceml_tpu_torch.ops.flash_attention import flash_attention
+from traceml_tpu_torch.utils.timing import STEP_TIME
 
 TINY_BATCH, TINY_TOKENS = 2, 65
 SEED = 0
@@ -104,7 +121,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--sync-sleep-ms", type=float, default=0.0, help="host sleep inside the gradient sync")
     p.add_argument("--sync-sleep-rank", type=int, default=-1,
                    help="the rank --sync-sleep-ms slows (-1: every rank)")
+    p.add_argument("--mesh-shape", default="", help="make_mesh's shape, e.g. fsdp=1,context=1 (implies --mesh)")
+    p.add_argument("--attention-impl", choices=("dense", "ring", "ulysses"), default="dense",
+                   help="ring or ulysses shard attention by sequence over the mesh's context axis")
+    p.add_argument("--fsdp", action="store_true", help="shard parameters and optimizer state with FSDP2")
+    p.add_argument("--ici-stats", type=int, default=0, metavar="N",
+                   help="all-gather each rank's step stats over the mesh every N steps")
     args = p.parse_args(argv)
+    shape = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh_shape.split(",") if kv)}
+    args.mesh = args.mesh or bool(shape) or args.fsdp or args.ici_stats > 0 or args.attention_impl != "dense"
 
     on_cuda = torch.device(args.device).type == "cuda"
     if args.tiny:
@@ -113,10 +138,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg, batch, n_tokens = full_width_config(), BATCH, TRAIN_TOKENS
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=True)
-    model, optimizer = build_train_state(cfg, SEED, device=args.device)
-    # AdamW named through its module: the code manifest's optimizer hints match lowercase names
-    assert isinstance(optimizer, adamw.AdamW)
-    tm.init(mode="auto", device=args.device, traced_model=model)
     rank = int(os.environ.get("RANK", 0))
     distributed = args.mesh or args.grad_sync == "all_reduce"
     if distributed:
@@ -128,10 +149,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 rank=rank, world_size=int(os.environ.get("WORLD_SIZE", 1)))
         # the first collective sets the communicator up: outside the trace
         dist.all_reduce(torch.zeros(1, device=args.device))
+    mesh = None
     if args.mesh:
-        mesh = tm.make_mesh(device_type=torch.device(args.device).type)
+        mesh = tm.make_mesh(shape or None, device_type=torch.device(args.device).type)
         print(f"train_script: mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
               f"coords {mesh.get_coordinate()}", flush=True)
+    if args.attention_impl != "dense" or args.fsdp:  # each rank trains on its shard of the global batch
+        cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl, mesh=mesh,
+                                  context_axis="context" if args.attention_impl != "dense" else None)
+    model, optimizer = build_train_state(cfg, SEED, device=args.device, mesh=mesh if args.fsdp else None)
+    # AdamW named through its module: the code manifest's optimizer hints match lowercase names
+    assert isinstance(optimizer, adamw.AdamW)
+    tm.init(mode="auto", device=args.device, traced_model=model)
     grad_sync = None
     if args.grad_sync != "none":
         slow = args.sync_sleep_rank in (-1, rank)
@@ -150,6 +179,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.tokens:
         tm.set_step_tokens(batch * (n_tokens - 1))
 
+    hook = tm.enable_ici_stats(mesh, every_n_steps=args.ici_stats) if args.ici_stats > 0 else None
     flash_attention.launches = 0
     losses = []
     copy_in_step = args.h2d == "to"
@@ -158,6 +188,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     delayed = args.delay_rank in (-1, rank)
     batches = paced_batches(host, args.steps, args.delay_ms if delayed else 0.0,
                             args.delay_x if delayed else 0.0, [warmup_s])
+    # collect what the set-up left and freeze the survivors: a full
+    # collection over them, falling into the traced loop, would stall the
+    # host inside a step, most visibly the first, whose forward the host
+    # paces from an idle card
+    gc.collect()
+    gc.freeze()
+    full_collections = gc.get_stats()[2]["collections"]
     t0 = time.perf_counter()
     for i, tokens in enumerate(tm.wrap_dataloader(batches, to_device=not copy_in_step)):
         with tm.trace_step():
@@ -168,13 +205,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     if on_cuda:
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    full_collections = gc.get_stats()[2]["collections"] - full_collections
     if args.stderr_marker:
         print(f"train_script: stderr marker, loop ended at {time.time():.6f}", file=sys.stderr, flush=True)
     first, last = float(losses[0]), float(losses[-1])
     finite = all(bool(torch.isfinite(loss)) for loss in losses)
     print(f"train_script: {args.steps} steps in {wall_s:.4f} s wall; loss first {first:.6f} "
-          f"last {last:.6f} finite={finite}", flush=True)
+          f"last {last:.6f} finite={finite}; gen-2 collections in the loop {full_collections}", flush=True)
     print(f"flash_attention.launches {flash_attention.launches}", flush=True)
+    if hook is not None:
+        hook.uninstall()
+        rows = [[r, row["step"], row["events"][STEP_TIME]["device_ms"]]
+                for r, rank_rows in sorted(hook.rank_rows().items()) for row in rank_rows]
+        print("stat_gather " + json.dumps({
+            "gathers": hook.gather_count, "shape": list(hook.last_matrix.shape), "rows": rows,
+            "wait_ms": hook.wait_ms, "gather_ms": hook.gather_ms,
+            "diagnosis": [i.kind for i in hook.diagnose(mode="summary").issues],
+        }), flush=True)
     if distributed:
         dist.destroy_process_group()
     if args.final_summary:

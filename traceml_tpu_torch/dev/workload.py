@@ -80,12 +80,12 @@ def build_model(cfg: ModelConfig, seed: int, device: Any = "cuda") -> DecoderLM:
 
 
 def build_train_state(cfg: ModelConfig, seed: int, device: Any = "cuda",
-                      learning_rate: float = 3e-4) -> Tuple[DecoderLM, torch.optim.AdamW]:
+                      learning_rate: float = 3e-4, mesh: Any = None) -> Tuple[DecoderLM, torch.optim.AdamW]:
     """``init_train_state``'s model and AdamW, with the weights of
-    :func:`build_model` for the same seed."""
-    model, optimizer = init_train_state(cfg, device=device, learning_rate=learning_rate, seed=seed)
-    model.load_state_dict(params_from_jax(random_flax_params(cfg, seed)))
-    return model, optimizer
+    :func:`build_model` for the same seed (loaded before a ``mesh``'s
+    FSDP2 sharding)."""
+    return init_train_state(cfg, device=device, learning_rate=learning_rate, seed=seed, mesh=mesh,
+                            state_dict=params_from_jax(random_flax_params(cfg, seed)))
 
 
 def host_batches(cfg: ModelConfig, seed: int, n: int = 4, batch: int = BATCH,

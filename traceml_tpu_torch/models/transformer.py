@@ -11,7 +11,11 @@ RMSNorm and an f32 ``lm_head``.  Numerics follow the flax module:
   ``lr·m̂/√v̂`` (~3e-4) is below half a bf16 ulp of most weights, so a
   bf16 parameter would lose most of it;
 * RMSNorm scales are f32 and the norm computes in f32, then casts;
-* RoPE is the half-split rotation, computed in f32, cast back;
+* RoPE is the half-split rotation, computed in f32, cast back; its cos
+  and sin tables are computed once a forward from the positions and
+  shared by every layer, and the rotation runs as x·cos + [−x2, x1]·sin:
+  the same IEEE operations on the same values in fewer kernels (the
+  train step's host time sets its pace once FSDP2 adds its own);
 * GQA repeats each kv head in place (``repeat_interleave``), as
   ``jnp.repeat(k, group, axis=2)`` does;
 * ``lm_head`` promotes the activations to f32: the logits are f32.  The
@@ -25,6 +29,33 @@ RMSNorm and an f32 ``lm_head``.  Numerics follow the flax module:
   block's forward (``torch.utils.checkpoint``, non-reentrant) before
   differentiating it.  The flash kernel then runs twice a layer and a
   step, once in the forward and once in the recompute.
+
+Parallelism.  JAX partitions the global arrays with GSPMD; each rank of
+the port runs its own piece (SPMD) and does by hand what the compiler
+did:
+
+* ``ModelConfig(attention_impl="ring" | "ulysses", context_axis=...,
+  mesh=...)`` shards attention BY SEQUENCE over the mesh's context axis
+  (``ops/ring_attention.py``, ``ops/ulysses_attention.py``).
+  :func:`loss_fn` takes the GLOBAL token batch, shifts it into inputs
+  and targets, then keeps this rank's piece of both by
+  :func:`seq_parallel_spec` (batch over the data-parallel axes, sequence
+  over the context axis); ``DecoderLM.forward`` then takes the local
+  sequence shard and builds GLOBAL RoPE positions (offset by the rank's
+  context coordinate × S_local).  Every shard holds as many tokens, so
+  JAX's global-mean cross-entropy is the mean of the local means: the
+  train step averages the loss, and the gradients, over the mesh.
+* ``init_train_state(mesh=...)`` applies :func:`param_shardings`'s
+  ``fsdp`` part through FSDP2 (``fully_shard`` on each block and the
+  root, each parameter sharded on the dim JAX's spec shards over
+  ``fsdp``).  Parameters are replicated across ``context``, so FSDP2
+  shards over the flattened ``fsdp × context`` mesh (torchtitan's
+  recipe; HSDP with ``data`` as the replicate dim when it is > 1) and its
+  reduce-scatter averages over both; JAX shards over ``fsdp`` only.
+  Without FSDP the train step averages the gradients over the mesh's
+  ranks after the backward (``make_train_step``'s ``grad_sync`` path).
+* A ``tensor`` axis > 1 raises ``NotImplementedError``: tensor
+  parallelism needs its own slice (ROADMAP queue 1 item 5(c)).
 """
 
 from __future__ import annotations
@@ -32,7 +63,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +87,12 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = False
+    # sequence/context parallelism: "dense" runs attention on this rank's
+    # tensors whole; "ring" / "ulysses" shard it BY SEQUENCE over
+    # ``context_axis`` of ``mesh`` (a DeviceMesh; set both)
+    attention_impl: str = "dense"
+    context_axis: Any = None     # mesh axis name, e.g. "context"
+    mesh: Any = None             # torch.distributed DeviceMesh
 
     @property
     def head_dim(self) -> int:
@@ -87,20 +124,91 @@ class RMSNorm(nn.Module):
         return (normed * self.scale).to(self.dtype)
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embeddings over the last dim of x: (..., seq, heads, head_dim)."""
-    head_dim = x.shape[-1]
+def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE's cos and sin of ``positions`` (..., seq), f32, each repeated
+    over both halves and shaped to broadcast over heads: (..., seq, 1,
+    head_dim)."""
     half = head_dim // 2
     freqs = torch.exp(
         -math.log(theta)
-        * (2.0 * torch.arange(half, dtype=torch.float32, device=x.device) / head_dim)
+        * (2.0 * torch.arange(half, dtype=torch.float32, device=positions.device) / head_dim)
     )
     angles = positions[..., None].float() * freqs  # (..., seq, half)
-    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return rotated.to(x.dtype)
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    return torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The half-split rotation of x (..., seq, heads, head_dim) by the
+    tables of :func:`_rope_tables`, in f32, cast back: [x1·cos − x2·sin,
+    x2·cos + x1·sin] computed as x·cos + [−x2, x1]·sin, the same IEEE
+    operations on the same values (a − b is a + (−b) exactly) in fewer
+    kernels."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rotated * sin).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embeddings over the last dim of x: (..., seq, heads, head_dim)."""
+    return _apply_rope(x, *_rope_tables(positions, x.shape[-1], theta))
+
+
+def _mesh_axes(mesh) -> Dict[str, int]:
+    from traceml_tpu_torch.parallel.mesh import axis_sizes
+
+    return axis_sizes(mesh)
+
+
+def seq_parallel_spec(cfg: "ModelConfig", batch_size: Optional[int] = None) -> Tuple[Any, ...]:
+    """Placements (one per mesh dim) of the (B, S, heads, hd) q/k/v under
+    sequence parallelism: JAX's ``PartitionSpec`` as DTensor placements.
+
+    Batch shards over whichever of ``BATCH_AXES`` the mesh has (dim 0,
+    data-major), the sequence over ``cfg.context_axis`` (dim 1) and heads
+    over ``tensor`` (dim 2) when the mesh has one and the head count
+    divides.  With ``batch_size`` it keeps the LARGEST dividing subset
+    of the batch axes, by JAX's exhaustive search (mesh {data:2, fsdp:4}
+    with B=4 picks fsdp, not data); none divides → batch replicated.
+    Heads stay whole when the Ulysses all-to-all could not spread the
+    per-shard head count over the context axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from traceml_tpu_torch.parallel.mesh import BATCH_AXES
+
+    sizes = _mesh_axes(cfg.mesh)
+    batch_axes = tuple(ax for ax in BATCH_AXES if ax in sizes and ax != cfg.context_axis)
+    if batch_axes and batch_size is not None:
+        best, best_dp = (), 1
+        for mask in range(1, 1 << len(batch_axes)):
+            subset = tuple(ax for i, ax in enumerate(batch_axes) if mask >> i & 1)
+            dp = 1
+            for ax in subset:
+                dp *= sizes[ax]
+            if batch_size % dp == 0 and (dp > best_dp or (dp == best_dp and len(subset) > len(best))):
+                best, best_dp = subset, dp
+        batch_axes = best
+    heads_axis = None
+    if "tensor" in sizes and cfg.context_axis != "tensor" and cfg.n_heads % sizes["tensor"] == 0:
+        local_heads = cfg.n_heads // sizes["tensor"]
+        if cfg.attention_impl != "ulysses" or local_heads % sizes[cfg.context_axis] == 0:
+            heads_axis = "tensor"
+
+    def placement(ax: str) -> Any:
+        if ax in batch_axes:
+            return Shard(0)
+        if ax == cfg.context_axis:
+            return Shard(1)
+        if ax == heads_axis:
+            return Shard(2)
+        return Replicate()
+
+    return tuple(placement(ax) for ax in sizes)
+
+
+def _sequence_parallel(cfg: "ModelConfig") -> bool:
+    return cfg.attention_impl in ("ring", "ulysses") and cfg.mesh is not None
 
 
 class Dense(nn.Module):
@@ -213,21 +321,49 @@ class Attention(nn.Module):
         self.wv = Dense(cfg.hidden, cfg.n_kv_heads * hd, dtype, pd, device)
         self.wo = Dense(cfg.n_heads * hd, cfg.hidden, dtype, pd, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """``rope``: the (cos, sin) tables of this shard's positions."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.head_dim
         q = self.wq(x).view(B, S, cfg.n_heads, hd)
         k = self.wk(x).view(B, S, cfg.n_kv_heads, hd)
         v = self.wv(x).view(B, S, cfg.n_kv_heads, hd)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
+        q = _apply_rope(q, *rope)
+        k = _apply_rope(k, *rope)
         # GQA: each kv head repeats in place up to n_heads
         group = cfg.n_heads // cfg.n_kv_heads
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
-        out = causal_attention(q, k, v)  # (B, S, heads, hd)
+        out = self._attend(q, k, v)  # (B, S, heads, hd)
         return self.wo(out.reshape(B, S, cfg.n_heads * hd))
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Attention dispatch per ``cfg.attention_impl``.  "dense": this
+        rank's tensors whole (``causal_attention``: the flash kernel on
+        CUDA at S ≥ 1024).  "ring" / "ulysses": q, k, v are this rank's
+        sequence shard; the op runs over the context axis's group, and
+        RoPE was applied on global positions.  The errors are JAX's."""
+        cfg = self.cfg
+        if cfg.attention_impl == "dense":
+            return causal_attention(q, k, v)
+        if cfg.attention_impl == "ring":
+            from traceml_tpu_torch.ops.ring_attention import ring_attention as op
+        elif cfg.attention_impl == "ulysses":
+            from traceml_tpu_torch.ops.ulysses_attention import ulysses_attention as op
+        else:
+            raise ValueError(
+                f"unknown attention_impl {cfg.attention_impl!r} "
+                "(dense | ring | ulysses)"
+            )
+        if cfg.mesh is None or cfg.context_axis is None:
+            raise ValueError(
+                f"attention_impl={cfg.attention_impl!r} requires cfg.mesh "
+                "and cfg.context_axis (sequence-parallel attention runs "
+                "inside shard_map); use attention_impl='dense' for "
+                "single-mesh GSPMD partitioning"
+            )
+        return op(q, k, v, cfg.mesh.get_group(cfg.context_axis))
 
 
 class MLP(nn.Module):
@@ -250,8 +386,8 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.hidden, dtype=dtype, device=device)
         self.mlp = MLP(cfg, dtype, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x), positions)
+    def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), rope)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -272,24 +408,162 @@ class DecoderLM(nn.Module):
         self.lm_head = TF32Dense(cfg.hidden, cfg.vocab_size, torch.float32, cfg.param_dtype, dev)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits of ``tokens`` (B, S); under ring or Ulysses attention
+        ``tokens`` is this rank's sequence shard, whose RoPE positions
+        start at its context coordinate × S."""
         B, S = tokens.shape
         x = self.embed(tokens)
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        offset = 0
+        if _sequence_parallel(self.cfg):
+            offset = self.cfg.mesh.get_local_rank(self.cfg.context_axis) * S
+        positions = torch.arange(offset, offset + S, device=tokens.device).expand(B, S)
+        # the tables depend on the positions alone: made once, not in each layer
+        rope = _rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for layer in self.layers:
             if self.cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, positions, use_reentrant=False)
+                x = checkpoint(layer, x, rope, use_reentrant=False)
             else:
-                x = layer(x, positions)
+                x = layer(x, rope)
         return self.lm_head(self.final_norm(x))
 
 
+def shard_inputs(cfg: ModelConfig, inputs: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's piece of the global (B, S) inputs and targets: the
+    batch and sequence placements of :func:`seq_parallel_spec` (the
+    sequence only under ring or Ulysses attention; heads do not apply)."""
+    from torch.distributed.tensor import Replicate
+
+    from traceml_tpu_torch.parallel.mesh import local_shard
+
+    keep = (0, 1) if _sequence_parallel(cfg) else (0,)
+    placements = tuple(pl if getattr(pl, "dim", None) in keep else Replicate()
+                       for pl in seq_parallel_spec(cfg, batch_size=inputs.shape[0]))
+    return local_shard(inputs, cfg.mesh, placements), local_shard(targets, cfg.mesh, placements)
+
+
 def loss_fn(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy (inputs=tokens[:, :-1], targets=[:, 1:])."""
-    logits = model(tokens[:, :-1])
-    targets = tokens[:, 1:]
+    """Next-token cross entropy (inputs=tokens[:, :-1], targets=[:, 1:]).
+    With ``cfg.mesh`` set, ``tokens`` is the GLOBAL batch: it is shifted
+    first, then this rank keeps its shard of inputs and targets
+    (:func:`shard_inputs`), and the loss is this shard's mean."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if model.cfg.mesh is not None:
+        inputs, targets = shard_inputs(model.cfg, inputs, targets)
+    logits = model(inputs)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return nll.mean()
+
+
+# -- sharding ------------------------------------------------------------
+
+_COL_PARALLEL = ("wq", "wk", "wv", "w_gate", "w_up", "lm_head")
+_ROW_PARALLEL = ("wo", "w_down")
+
+
+def _jax_spec(name: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """The JAX ``param_shardings`` spec of a parameter, in the flax
+    leaf's dim order: 2-D kernels shard dim 0 over ``fsdp`` and dim 1
+    over ``tensor`` (column-parallel ``wq wk wv w_gate w_up lm_head``),
+    or dim 0 over ``tensor`` and dim 1 over ``fsdp`` (row-parallel ``wo
+    w_down``); the embedding vocab over ``fsdp``, hidden over ``tensor``;
+    1-D scales replicated."""
+    parts = name.split(".")
+    if ndim <= 1:
+        return ()
+    owner = next((n for n in parts if n in _COL_PARALLEL + _ROW_PARALLEL), None)
+    if "embed" in parts and ndim == 2:
+        return ("fsdp", "tensor")
+    if owner in _COL_PARALLEL:
+        return ("fsdp", "tensor")
+    if owner in _ROW_PARALLEL:
+        return ("tensor", "fsdp")
+    return ("fsdp",)
+
+
+def param_shardings(params: Union[nn.Module, Mapping[str, torch.Tensor]], mesh) -> Dict[str, Tuple[Any, ...]]:
+    """Every parameter's JAX ``param_shardings`` spec as DTensor
+    placements over ``mesh``'s dims, keyed by the port's parameter names.
+
+    The specs are JAX's (see :func:`_jax_spec`).  A flax kernel is (in,
+    out) and the port's ``Dense`` weight (out, in) (``models/convert.py``),
+    so a kernel's two dims swap; the embedding has the same layout in
+    both."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    named = params.named_parameters() if isinstance(params, nn.Module) else params.items()
+    out: Dict[str, Tuple[Any, ...]] = {}
+    for name, p in named:
+        spec = _jax_spec(name, p.ndim)
+        transposed = p.ndim == 2 and name.split(".")[0] != "embed"
+        by_axis = {ax: (1 - j if transposed else j) for j, ax in enumerate(spec)}
+        out[name] = tuple(Shard(by_axis[ax]) if ax in by_axis else Replicate()
+                          for ax in _mesh_axes(mesh))
+    return out
+
+
+def _fsdp_mesh(mesh):
+    """FSDP2's mesh: the flattened ``fsdp × context`` dims (parameters are
+    replicated across ``context``, so they shard over both), with ``data``
+    as HSDP's replicate dim when it is > 1."""
+    sizes = _mesh_axes(mesh)
+    shard_dims = tuple(ax for ax in ("fsdp", "context") if ax in sizes)
+    name = "_".join(shard_dims)
+    # _flatten also registers ``name`` on the root mesh, for HSDP's 2-D slice
+    shard = mesh[shard_dims]._flatten(name) if len(shard_dims) > 1 else mesh[name]
+    return mesh["data", name] if sizes.get("data", 1) > 1 else shard
+
+
+def _check_mesh(mesh) -> None:
+    from traceml_tpu_torch.parallel.mesh import AXES
+
+    sizes = _mesh_axes(mesh)
+    if sizes.get("tensor", 1) > 1:
+        raise NotImplementedError(
+            "a mesh with a tensor axis > 1 is not supported: the port's Dense is not nn.Linear, so "
+            "tensor parallelism needs its own slice (ROADMAP queue 1 item 5(c))"
+        )
+    extra = [ax for ax in sizes if ax not in AXES]
+    if extra:
+        raise NotImplementedError(f"mesh axes {extra} (MoE, pipeline) are ROADMAP queue 1 item 5(c)")
+
+
+def shard_model(model: "DecoderLM", mesh) -> "DecoderLM":
+    """Apply :func:`param_shardings`'s ``fsdp`` part through FSDP2:
+    ``fully_shard`` on each block, then the root, each parameter sharded
+    on the dim that JAX's spec shards over ``fsdp`` (dim 0 where it is
+    replicated, and on a shard group of one rank, where the dim is moot).
+    ``model`` must hold its final weights already."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    _check_mesh(mesh)
+    fsdp_mesh = _fsdp_mesh(mesh)
+    # a shard group of one rank holds every parameter whole whatever the
+    # dim, so it takes FSDP2's dim-0 path (no chunk-and-concatenate copies
+    # per parameter) and keeps the gathered parameters from the forward to
+    # the backward (resharding would only free a copy to gather it again)
+    whole = fsdp_mesh.size(fsdp_mesh.ndim - 1) == 1
+    dims = {}
+    if not whole and "fsdp" in _mesh_axes(mesh):
+        fsdp_at = list(_mesh_axes(mesh)).index("fsdp")
+        for name, spec in param_shardings(model, mesh).items():
+            if isinstance(spec[fsdp_at], Shard):
+                dims[name] = spec[fsdp_at].dim
+    by_param = {p: dims.get(name, 0) for name, p in model.named_parameters()}
+
+    def placement(p: torch.Tensor) -> Any:
+        return Shard(by_param.get(p, 0))
+
+    for module in (*model.layers, model):
+        fully_shard(module, mesh=fsdp_mesh, shard_placement_fn=placement, reshard_after_forward=not whole)
+    return model
+
+
+def is_sharded(model: nn.Module) -> bool:
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
 
 
 # -- training ------------------------------------------------------------
@@ -301,11 +575,17 @@ def init_train_state(
     device: Any = "cuda",
     learning_rate: float = 3e-4,
     seed: int = 0,
+    mesh: Any = None,
+    state_dict: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Tuple[DecoderLM, torch.optim.AdamW]:
-    """``(model, optimizer)``: a DecoderLM initialised from ``seed`` and
-    AdamW with weight decay 0.01 on every parameter, as the JAX
-    ``init_train_state`` builds with ``optax.adamw(lr, weight_decay=0.01)``.
-    ``cfg.remat`` checkpoints each block, as in the JAX model.
+    """``(model, optimizer)``: a DecoderLM initialised from ``seed`` (then
+    loaded from ``state_dict`` when given) and AdamW with weight decay
+    0.01 on every parameter, as the JAX ``init_train_state`` builds with
+    ``optax.adamw(lr, weight_decay=0.01)``.  ``cfg.remat`` checkpoints
+    each block, as in the JAX model.  With a ``mesh`` (a DeviceMesh) the
+    parameters and AdamW's state are sharded by FSDP2
+    (:func:`shard_model`) after the weights are loaded; a ``tensor`` axis
+    > 1 raises ``NotImplementedError``.
 
     Torch's AdamW and optax's compute the same update,
     ``p ← p − lr·(m̂/(√v̂+ε) + wd·p)`` with the decay read from the
@@ -315,9 +595,15 @@ def init_train_state(
     them, so the first step does not allocate 2 × the parameters' bytes.
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        _check_mesh(mesh)
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
         model = DecoderLM(cfg, device=dev)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer = torch.optim.AdamW(
         model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01
     )
@@ -341,7 +627,22 @@ def make_train_step(
     ``tokens`` (B, S+1), its gradients, ``grad_sync()`` when given (a
     data-parallel gradient all-reduce between backward and the update),
     one optimizer update, and the gradients freed.  The loss is returned
-    on the device, unsynchronized."""
+    on the device, unsynchronized.
+
+    With ``cfg.mesh`` set, ``tokens`` is the global batch and each rank
+    trains on its shard (:func:`loss_fn`); the returned loss is the mean
+    of the ranks' losses (JAX's global mean), and without FSDP2 and
+    without a ``grad_sync`` of the caller's the gradients are averaged
+    over the mesh's ranks after the backward (FSDP2's reduce-scatter
+    averages them itself)."""
+    from traceml_tpu_torch.parallel.mesh import mesh_group
+
+    mesh = model.cfg.mesh
+    group = n_ranks = None
+    if mesh is not None:
+        group, n_ranks = mesh_group(mesh), mesh.size()
+        if grad_sync is None and n_ranks > 1 and not is_sharded(model):
+            grad_sync = average_gradients(model, group, n_ranks)
 
     def train_step(tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
         loss = loss_fn(model, tokens)
@@ -350,6 +651,37 @@ def make_train_step(
             grad_sync()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return {"loss": loss.detach()}
+        loss = loss.detach()
+        if n_ranks is not None and n_ranks > 1:
+            import torch.distributed as dist
+
+            loss = loss.clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / n_ranks
+        return {"loss": loss}
 
     return train_step
+
+
+def average_gradients(model: nn.Module, group: Any, n_ranks: int) -> Callable[[], torch.Tensor]:
+    """A ``grad_sync`` that averages the gradients over ``group``: one
+    all-reduce (sum) of the flat gradients, divided by ``n_ranks``, copied
+    back.  Gloo has no average reduction, so it is a sum and a divide on
+    every backend."""
+    import torch.distributed as dist
+
+    params = list(model.parameters())
+
+    def sync() -> torch.Tensor:
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat.div_(n_ranks)
+        offset = 0
+        for g in grads:
+            n = g.numel()
+            g.copy_(flat[offset:offset + n].view_as(g))
+            offset += n
+        return flat
+
+    return sync

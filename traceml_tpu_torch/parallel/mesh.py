@@ -17,14 +17,16 @@ pipeline parallelism) are accepted too: pass them in ``shape`` and the
 mesh uses exactly the axes given, in order.  The shape rules (missing axes
 get 1, one axis may be ``-1``, everything on ``fsdp`` when no shape is
 given and the canonical one does not fit) and their ``ValueError`` texts
-are the JAX ones.  ``batch_sharding`` and ``replicated`` are not here:
-their PyTorch counterparts are DTensor placements, which come with the
-sharded workloads.
+are the JAX ones.  ``batch_sharding`` and ``replicated`` give DTensor
+placements, one per mesh dim, where JAX gives a ``NamedSharding``:
+``batch_sharding`` shards dim 0 over ``data`` and ``fsdp`` (data-major,
+as ``P(("data", "fsdp"))`` does); :func:`local_shard` takes a rank's
+piece of a tensor every rank holds whole, with no communication.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -108,6 +110,61 @@ def make_mesh(shape: Optional[Dict[str, int]] = None, device_type: Optional[str]
     except Exception:
         pass
     return mesh
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` (or any object with
+    ``mesh_dim_names`` and ``shape``), in mesh order."""
+    return dict(zip(mesh.mesh_dim_names or (), (int(n) for n in mesh.shape)))
+
+
+def mesh_group(mesh):
+    """The process group of all of ``mesh``'s ranks, group rank i being
+    participant i in mesh-linear (first-axis-major) order."""
+    import torch.distributed as dist
+
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    if mesh.mesh.flatten().tolist() == list(range(dist.get_world_size())):
+        return dist.group.WORLD
+    return mesh._flatten().get_group()
+
+
+def batch_sharding(mesh) -> Tuple[Any, ...]:
+    """Batch tensors are sharded over the data-parallel axes: ``Shard(0)``
+    on each of ``BATCH_AXES`` the mesh has (data-major), ``Replicate()``
+    on every other dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(0) if ax in BATCH_AXES else Replicate() for ax in axis_sizes(mesh))
+
+
+def replicated(mesh) -> Tuple[Any, ...]:
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() for _ in axis_sizes(mesh))
+
+
+def local_shard(tensor, mesh, placements: Sequence[Any], coordinate: Optional[Sequence[int]] = None):
+    """This rank's piece of ``tensor`` (held whole by every rank) under
+    ``placements``: each ``Shard(d)`` splits dim ``d`` evenly over its
+    mesh dim, mesh dims left to right (the first is the major one), as
+    ``distribute_tensor`` and JAX's tuple-of-axes specs nest them.
+    ``coordinate`` defaults to this rank's place in the mesh.  A dim that
+    does not divide raises ``ValueError``."""
+    coords = list(mesh.get_coordinate() if coordinate is None else coordinate)
+    sizes = list(axis_sizes(mesh).values())
+    out = tensor
+    for i, pl in enumerate(placements):
+        dim = getattr(pl, "dim", None)
+        if dim is None or sizes[i] == 1:
+            continue
+        n = out.shape[dim]
+        if n % sizes[i]:
+            raise ValueError(f"dim {dim} of size {n} does not divide over mesh dim {i} of size {sizes[i]}")
+        step = n // sizes[i]
+        out = out.narrow(dim, coords[i] * step, step)
+    return out
 
 
 def local_batch_size(global_batch: int, mesh) -> Tuple[int, int]:

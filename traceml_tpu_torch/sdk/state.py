@@ -8,8 +8,10 @@ of its own, ``compute_depth``: open while ``wrap_step_fn``'s compute
 region runs, so that an auto-patched forward, backward or optimizer
 region inside it is not recorded a second time.  As in JAX,
 ``on_step_flushed`` holds callbacks called with the step number after
-every flush (the runtime's ``--trace-max-steps`` lifecycle); a raising
-callback is skipped.
+every flush (the runtime's ``--trace-max-steps`` lifecycle, the stat
+all-gather of ``parallel/ici_telemetry.py``) and ``on_batch_flushed``
+callbacks called with the step's event batch after every non-empty
+flush; a raising callback is skipped.
 """
 
 from __future__ import annotations
@@ -72,6 +74,9 @@ class TraceState:
         self.tokens_per_step: Optional[float] = None
         # called with the step number after each flush (max-steps lifecycle)
         self.on_step_flushed: List[Callable[[int], None]] = []
+        # called with the StepTimeBatch after each non-empty flush (the
+        # stat all-gather hook and other batch observers)
+        self.on_batch_flushed: List[Callable[[StepTimeBatch], None]] = []
 
     # -- device ----------------------------------------------------------
     @property
@@ -133,6 +138,11 @@ class TraceState:
         batch = self.buffer.flush(step)
         if batch is not None:
             GLOBAL_STEP_QUEUE.put(batch)
+            for cb in list(self.on_batch_flushed):
+                try:
+                    cb(batch)
+                except Exception:
+                    pass
         for cb in list(self.on_step_flushed):
             try:
                 cb(step)

@@ -109,6 +109,9 @@ class CudaEventHandle:
     def ready_time(self) -> float:
         return self.clock.host_time(self.event)
 
+    def wait(self) -> None:
+        self.event.synchronize()
+
 
 class DeviceMarker:
     """A readiness probe over enqueued device work.
@@ -145,6 +148,16 @@ class DeviceMarker:
     @property
     def resolved(self) -> bool:
         return self.ready_at is not None
+
+    def wait(self) -> None:
+        """Block until the device work is done (handles with a ``wait``),
+        then stamp as ``poll`` does; a handle without one is polled."""
+        handles = self._handles
+        for h in handles or ():
+            wait = getattr(h, "wait", None)
+            if wait is not None:
+                wait()
+        self.poll()
 
     def poll(self, now: Optional[float] = None, late: bool = False) -> bool:
         """Stamping readiness check.  A stamp from device timestamps is
