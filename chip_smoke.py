@@ -260,6 +260,35 @@
    point) and the collective's ms.  Its launches have their own path on
    the kernels line.
 
+16. Tensor, expert and pipeline parallelism (``parallel_workloads_phase``
+   in a one-rank NCCL group of its own, then ``moe_pipeline_run_phase``,
+   both last, after every gated ``run`` of the phases above).  In
+   process: the full-width DecoderLM's AdamW step tensor-parallel on
+   ``make_mesh({tensor: 1})`` (the column- and row-parallel layers, the
+   hidden-sharded embedding and the vocabulary-gathered ``lm_head`` built,
+   their collectives skipped at one rank) and with FSDP2 on ``{fsdp: 1,
+   tensor: 1}``, each against the unsharded dense route by the train
+   gates (``COMPARE_STEPS`` steps, 12 flash launches a step); the MoE
+   block at the DecoderLM's widths (8 experts, hidden 1024, ffn 2816, x
+   (8, 1024, 1024) f32) on ``{expert: 1}`` against the unsharded block,
+   ``MOE_STEPS`` Adam steps (losses, aux losses and updates within
+   ``PARALLEL_REL``; the loss falling); the pipeline on ``{stage: 1}``
+   (``linear_stage_apply`` at width 1024, 4 microbatches of (8, 1024))
+   against the sequential stack (the output within rtol 2e-4 / atol
+   2e-5, the gradients and ``PIPELINE_STEPS`` SGD losses within
+   ``PARALLEL_REL``).  Each route's step ms is logged, and the process's
+   threads, their idle CPU, its affinity and its children before and
+   after the phase (``process_state``; no process group, child or
+   narrowed affinity may remain).  Then
+   ``moe_pipeline``: ``run`` of ``dev/moe_pipeline_script.py``,
+   ``MOE_PIPELINE_RUN_STEPS`` traced steps of each workload in one
+   session: the manifest completed/ok, an OK step-time section, one
+   stored row a step, each workload's loss falling, 0 flash launches, the
+   HTML and transport gates; the MoE's rows on the device clock (the
+   pipeline's few-ms host step gets a device marker every few steps, by
+   the overhead governor's budget: reported).  The tensor routes'
+   launches and the run's 0 have their own paths on the kernels line.
+
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 """
@@ -2994,6 +3023,53 @@ def one_rank_nccl_group():
             reset_recorded_mesh_for_tests()
 
 
+def process_state(idle_s: float = 1.0) -> dict:
+    """This process as ``/proc`` shows it: its OS threads by name (Python's
+    and the libraries' own), the cores they use over ``idle_s`` seconds
+    idle by name, its CPU affinity and a fresh child's (which inherits
+    it), its live child processes, and whether a process group is live.
+    What an in-process phase leaves behind shows here: a thread that
+    spins, a narrowed affinity the ``run`` children inherit, a process
+    that outlives its phase."""
+    import collections
+
+    import torch.distributed as dist
+
+    def ticks() -> dict:
+        out = {}
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                raw = Path(f"/proc/self/task/{tid}/stat").read_text()
+            except OSError:  # the thread ended
+                continue
+            fields = raw[raw.rindex(")") + 2:].split()
+            out[tid] = (raw[raw.index("(") + 1:raw.rindex(")")], int(fields[11]) + int(fields[12]))
+        return out
+
+    before, t0 = ticks(), time.perf_counter()
+    time.sleep(idle_s)
+    after, wall = ticks(), time.perf_counter() - t0
+    hz = os.sysconf("SC_CLK_TCK")
+    busy: dict = collections.Counter()
+    for tid, (name, t) in after.items():
+        if tid in before and t > before[tid][1]:
+            busy[name] += (t - before[tid][1]) / hz / wall
+    children = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            raw = Path(f"/proc/{pid}/stat").read_text()
+        except OSError:
+            continue
+        if int(raw[raw.rindex(")") + 2:].split()[1]) == os.getpid():
+            children.append(f"{pid} {raw[raw.index('(') + 1:raw.rindex(')')]}")
+    child = subprocess.run([sys.executable, "-c", "import os; print(len(os.sched_getaffinity(0)))"],
+                           capture_output=True, text=True, timeout=60)
+    return {"threads": len(after), "by_name": dict(collections.Counter(n for n, _ in after.values())),
+            "busy_cores": {n: round(v, 4) for n, v in busy.items()}, "affinity": len(os.sched_getaffinity(0)),
+            "child_affinity": int(child.stdout.strip()), "children": children,
+            "process_group": dist.is_available() and dist.is_initialized()}
+
+
 def seq_parallel_train_phase(cfg) -> dict:
     """The sharded train step in process, in a one-rank NCCL group with
     ``make_mesh(SEQ_PARALLEL_MESH)``, each route against its reference
@@ -3035,6 +3111,181 @@ def seq_parallel_train_phase(cfg) -> dict:
     return {"step_ms": {route: r.get("step_ms") for route, r in routes.items()}, "exchange": exchange}
 
 
+#: the MoE block at the full-width DecoderLM's widths, as dev/moe_pipeline_script.py's default
+MOE_EXPERTS, MOE_HIDDEN, MOE_FFN, MOE_X = 8, 1024, 2816, (8, 1024, 1024)
+MOE_STEPS = 3  # Adam steps held expert-sharded route against unsharded block
+PIPELINE_WIDTH, PIPELINE_MICRO = 1024, (4, 8, 1024)  # linear stages; 4 microbatches of (8, 1024)
+PIPELINE_STEPS = 3  # SGD steps held pipelined route against the sequential stack
+PIPELINE_HOST_STEPS = 50  # steps timed on the host clock, one sync after them
+# one rank of each axis: the routes run the same f32 ops as their
+# references (the collectives are skipped), so only the launch order of
+# equal work could move a bit; the sequential-stack bounds are the JAX test's
+PARALLEL_REL = 1e-5
+PIPELINE_RTOL, PIPELINE_ATOL = 2e-4, 2e-5
+MOE_PIPELINE_RUN_STEPS = 30  # each workload's steps under run
+
+
+def _moe_route(mesh, x, y) -> dict:
+    """``MOE_STEPS`` Adam steps of the MoE block from ``moe_state_dict(SEED)``:
+    placed by ``init_expert_parallel`` over ``mesh``, or built unsharded
+    when ``mesh`` is None.  The losses and aux losses, each parameter's
+    update and the step's device ms (``cuda_ms``, after the updates)."""
+    from traceml_tpu_torch.dev.workload import cuda_ms
+    from traceml_tpu_torch.models.moe import MoEBlock, init_expert_parallel, make_moe_train_step, moe_state_dict
+
+    whole = {n: t.cuda() for n, t in moe_state_dict(MOE_EXPERTS, MOE_HIDDEN, MOE_FFN, SEED).items()}
+    if mesh is None:
+        block = MoEBlock(MOE_EXPERTS, MOE_HIDDEN, MOE_FFN)
+        block.load_state_dict(whole)
+    else:
+        block = init_expert_parallel(MOE_EXPERTS, MOE_HIDDEN, MOE_FFN, mesh, state_dict=whole)["model"]
+    _, step = make_moe_train_step(block)
+    metrics = [step(x, y) for _ in range(MOE_STEPS)]
+    out = {"losses": [m["loss"].item() for m in metrics], "aux": [m["aux"].item() for m in metrics],
+           "updates": {n: _full(p.detach()) - whole[n] for n, p in block.named_parameters()}}
+    out["step_ms"] = cuda_ms(lambda: step(x, y), 5)
+    return out
+
+
+def _pipeline_route(mesh, x, y) -> dict:
+    """The pipelined forward of one ``linear_stage_apply`` stage
+    (``init_linear_stages(1, PIPELINE_WIDTH, SEED)``) over ``mesh`` on the
+    microbatches ``x``, its gradients, ``PIPELINE_STEPS`` SGD steps' losses
+    and the step's ms: ``cuda_ms`` of 5 steps (the host queues them behind
+    the card's spin; a step whose host work outlasts it reads more than
+    the card's) and on the host clock over ``PIPELINE_HOST_STEPS`` steps;
+    with ``mesh`` None the same through the sequential stack (the stage
+    applied to each microbatch)."""
+    from traceml_tpu_torch.dev.workload import cuda_ms
+    from traceml_tpu_torch.parallel.pipeline import (init_linear_stages, linear_stage_apply, make_pipeline_fn,
+                                                     make_pipeline_train_step, shard_stage_params,
+                                                     stack_stage_params)
+
+    stacked = stack_stage_params(init_linear_stages(1, PIPELINE_WIDTH, SEED))
+    if mesh is None:
+        params = {n: torch.nn.Parameter(t.clone()) for n, t in stacked.items()}
+
+        def forward(p, micro):
+            return linear_stage_apply({n: t[0] for n, t in p.items()}, micro)
+
+        optimizer = torch.optim.SGD(list(params.values()), lr=0.05)
+
+        def step(p, opt, micro, target):
+            loss = ((forward(p, micro) - target) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            return {"loss": loss.detach()}
+    else:
+        params = shard_stage_params(stacked, mesh)
+        forward = make_pipeline_fn(linear_stage_apply, mesh, x.shape[0])
+        init, step = make_pipeline_train_step(linear_stage_apply, mesh, x.shape[0], learning_rate=0.05)
+        optimizer = init(params)
+    out = forward(params, x)
+    ((out - y) ** 2).mean().backward()
+    grads = {n: _full(p.grad).clone() for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    losses = [step(params, optimizer, x, y)["loss"].item() for _ in range(PIPELINE_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PIPELINE_HOST_STEPS):
+        step(params, optimizer, x, y)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / PIPELINE_HOST_STEPS * 1e3
+    return {"out": out.detach(), "grads": grads, "losses": losses, "host_ms": host_ms,
+            "step_ms": cuda_ms(lambda: step(params, optimizer, x, y), 5)}
+
+
+def parallel_workloads_phase(cfg) -> dict:
+    """Tensor, expert and pipeline parallelism in process, in a one-rank
+    NCCL group (``one_rank_nccl_group``): the full-width DecoderLM's AdamW
+    step (``COMPARE_STEPS`` steps) tensor-parallel on
+    ``make_mesh({"tensor": 1})`` and with FSDP2 on ``{"fsdp": 1, "tensor":
+    1}`` against the unsharded dense route (``compare_train_routes``, the
+    train gates; 12 flash launches a step);
+    the MoE block at the DecoderLM's widths (``MOE_EXPERTS`` experts,
+    hidden 1024, ffn 2816, x (8, 1024, 1024) f32) on ``{"expert": 1}``
+    against the unsharded block, ``MOE_STEPS`` Adam steps (the losses and
+    aux losses within ``PARALLEL_REL`` relative, each parameter's update
+    within ``PARALLEL_REL`` relative Frobenius); the pipeline on
+    ``{"stage": 1}`` with ``linear_stage_apply`` at width 1024 and 4
+    microbatches of (8, 1024) against the sequential stack (the output
+    within the JAX test's rtol 2e-4 / atol 2e-5, the gradients and
+    ``PIPELINE_STEPS`` SGD losses within ``PARALLEL_REL``).  Logs each
+    route's step ms (the pipeline's on the host clock too) and this
+    process before and after the phase (``process_state``), which must
+    leave no process group, no child process and the CPU affinity as it
+    was; returns the tensor routes' flash launches."""
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS, host_batches
+
+    before = process_state()
+    tokens = [b.cuda() for b in host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)[:COMPARE_STEPS]]
+    with one_rank_nccl_group():
+        out = _parallel_workloads(cfg, tokens, train_route(tokens, cfg, False, timed=True))
+    torch.cuda.empty_cache()
+    after = process_state()
+    log("parallel", "this process before the phase " + json.dumps(before) + "; after " + json.dumps(after))
+    check(not after["process_group"] and after["children"] == before["children"]
+          and after["affinity"] == after["child_affinity"] == before["affinity"],
+          f"the phase left a process group, a child process or a narrowed affinity: {before} -> {after}")
+    return out
+
+
+def _parallel_workloads(cfg, tokens, dense: dict) -> dict:
+    from traceml_tpu_torch.parallel.mesh import make_mesh
+
+    tensor_mesh = make_mesh({"tensor": 1}, device_type="cuda")
+    routes = {"tensor": train_route(tokens, dataclasses.replace(cfg, mesh=tensor_mesh), False, timed=True)}
+    compare_train_routes("tensor", "tensor", routes["tensor"], "dense", dense)
+    fsdp_mesh = make_mesh({"fsdp": 1, "tensor": 1}, device_type="cuda")
+    routes["tensor_fsdp"] = train_route(tokens, dataclasses.replace(cfg, mesh=fsdp_mesh), False, mesh=fsdp_mesh,
+                                        timed=True)
+    compare_train_routes("tensor_fsdp", "tensor_fsdp", routes["tensor_fsdp"], "dense", dense)
+    per_step = {name: r["launches"] / COMPARE_STEPS for name, r in routes.items()}
+    log("parallel", "tensor: flash launches a step " + json.dumps(per_step) + "; step ms "
+        + json.dumps({**{name: r["step_ms"] for name, r in routes.items()}, "dense": dense["step_ms"]}))
+    check(per_step == {"tensor": cfg.n_layers, "tensor_fsdp": cfg.n_layers},
+          f"flash launches a step {per_step}, not {cfg.n_layers}")
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    x = torch.randn(MOE_X, generator=gen).cuda()
+    y = torch.roll(x, 1, dims=-1)
+    moe = {"expert": _moe_route(make_mesh({"expert": 1}, device_type="cuda"), x, y), "unsharded": _moe_route(None, x, y)}
+    e, u = moe["expert"], moe["unsharded"]
+    moe_rel = {"loss": max(abs(a - b) / abs(b) for a, b in zip(e["losses"], u["losses"])),
+               "aux": max(abs(a - b) / abs(b) for a, b in zip(e["aux"], u["aux"])),
+               "update": max((e["updates"][n] - u["updates"][n]).norm().item() / u["updates"][n].norm().item()
+                             for n in u["updates"])}
+    moe_flops = 3 * 2 * 2 * math.prod(MOE_X[:2]) * MOE_HIDDEN * MOE_FFN * MOE_EXPERTS  # fwd + bwd einsums
+    log("parallel", "moe " + json.dumps({"losses": e["losses"], "aux": e["aux"], "rel": moe_rel, "tol": PARALLEL_REL,
+                                         "step_ms": {k: r["step_ms"] for k, r in moe.items()},
+                                         "expert_tflops": moe_flops / (e["step_ms"] / 1e3) / 1e12}))
+    check(all(math.isfinite(v) for v in e["losses"]) and e["losses"][-1] < e["losses"][0],
+          f"MoE losses {e['losses']} not finite and falling")
+    check(all(v <= PARALLEL_REL for v in moe_rel.values()), f"MoE expert route vs unsharded: {moe_rel}")
+    del moe, e, u, x, y
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    micro = torch.randn(PIPELINE_MICRO, generator=gen).cuda()
+    target = 0.5 * micro
+    pp = {"stage": _pipeline_route(make_mesh({"stage": 1}, device_type="cuda"), micro, target),
+          "sequential": _pipeline_route(None, micro, target)}
+    s_, q = pp["stage"], pp["sequential"]
+    out_ok = torch.allclose(s_["out"], q["out"], rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)
+    pp_rel = {"grad": max((s_["grads"][n] - q["grads"][n]).norm().item() / q["grads"][n].norm().item()
+                          for n in q["grads"] if q["grads"][n].norm().item() > 0),
+              "loss": max(abs(a - b) / abs(b) for a, b in zip(s_["losses"], q["losses"]))}
+    log("parallel", "pipeline " + json.dumps({"out_allclose": out_ok, "rel": pp_rel, "losses": s_["losses"],
+                                              "step_ms": {k: r["step_ms"] for k, r in pp.items()},
+                                              "host_ms": {k: r["host_ms"] for k, r in pp.items()}}))
+    check(out_ok, "pipeline output vs the sequential stack: not allclose")
+    check(all(v <= PARALLEL_REL for v in pp_rel.values()), f"pipeline vs the sequential stack: {pp_rel}")
+    return {"launches": {name: r["launches"] for name, r in routes.items()}}
+
+
 def seq_parallel_run_phase(cfg, train_healthy: dict) -> dict:
     """``train_seq_parallel``: ``run`` of ``train_script.py`` at full width
     in a one-rank NCCL group with ``--mesh-shape fsdp=1,context=1
@@ -3051,11 +3302,7 @@ def seq_parallel_run_phase(cfg, train_healthy: dict) -> dict:
     from traceml_tpu_torch.utils import timing as T
 
     name = "train_seq_parallel"
-    cpu0, wall0 = time.process_time(), time.perf_counter()
-    time.sleep(1.0)
-    log("run", f"{name}: host load average {os.getloadavg()}; this process's CPU over 1 s idle "
-               f"{(time.process_time() - cpu0) / (time.perf_counter() - wall0):.3f} of a core, threads "
-               f"{sorted(t.name for t in threading.enumerate())}")
+    log("run", f"{name}: this process before the run " + json.dumps(process_state()))
     run = launch_run(name, 0.0, 0.1, script="train_script.py", env_extra=_dist_env(), script_args=(
         "--mesh-shape", ",".join(f"{k}={v}" for k, v in SEQ_PARALLEL_MESH.items()), "--attention-impl", "ulysses",
         "--fsdp", "--ici-stats", str(STAT_GATHER_EVERY), "--tokens"))
@@ -3087,6 +3334,53 @@ def seq_parallel_run_phase(cfg, train_healthy: dict) -> dict:
                f"stat gathers {json.dumps(numbers)}; tokens/s {tokens}; mesh {json.dumps(mesh)}")
     check(ratio <= SEQ_PARALLEL_STEP_REL, f"run {name}: steady step {ratio:.4f}x train_healthy's")
     return {**got, "step_ratio": ratio, "stat_gather": numbers}
+
+
+def moe_pipeline_run_phase() -> dict:
+    """``moe_pipeline``: ``run`` of ``dev/moe_pipeline_script.py`` in a
+    one-rank NCCL group: ``MOE_PIPELINE_RUN_STEPS`` traced steps of the
+    MoE block on ``{"expert": 1}`` at the DecoderLM's widths (steps 1 to
+    N), then as many of the pipeline on ``{"stage": 1}`` (N + 1 to 2N).
+    Gates: exit 0, the manifest completed/ok, ``final_summary.json`` with
+    an OK step-time section, one stored row a step for both workloads,
+    each workload's losses finite and falling, 0 flash launches (no kernel
+    of the port's is on these paths), the HTML and transport gates of
+    every ``run``; the MoE's rows all on the device clock (its step is
+    paced by the card).  The pipeline's step is a few ms of host work, so
+    the overhead governor records a device marker every few steps only
+    (its budget, ``utils/overhead_governor.py``): its device-clock rows
+    are reported, not gated.  Reported: each workload's device step from
+    the stored rows, its loop and set-up seconds and the call's wall
+    time."""
+    from traceml_tpu_torch.utils import timing as T
+
+    name, n = "moe_pipeline", MOE_PIPELINE_RUN_STEPS
+    run = launch_run(name, 0.0, 0.1, script="moe_pipeline_script.py", steps=n, env_extra=_dist_env())
+    summary, manifest = run["summary"], run["manifest"]
+    check((manifest["status"], manifest["telemetry_status"]) == ("completed", "ok"),
+          f"run {name}: manifest {manifest['status']}/{manifest['telemetry_status']}")
+    st = summary["sections"]["step_time"]
+    check(st["status"] == "OK", f"run {name}: step_time section {st['status']}")
+    steps = [r[0] for r in run["rows"]]
+    check(steps == list(range(1, 2 * n + 1)), f"run {name}: stored steps {steps[:3]}..., {len(steps)} rows")
+    check("flash_attention.launches 0" in run["stdout"].splitlines(), f"run {name}: flash launches not 0")
+    out = {"clock": st["global"]["clock"], "verdict": summary["primary_diagnosis"]["kind"], "wall_s": run["wall_s"]}
+    for i, workload in enumerate(("moe", "pipeline")):
+        rows = run["rows"][i * n:(i + 1) * n]
+        device = [json.loads(r[2])[T.STEP_TIME]["device_ms"] for r in rows]
+        on_device = [v for r, v in zip(rows, device) if r[1] == "device" and v is not None]
+        if workload == "moe":
+            check(len(on_device) == n, f"run {name}: {n - len(on_device)} MoE step rows not on the device clock")
+        lines = re.findall(rf"moe_pipeline_script: {workload} over 1 rank\(s\): {n} steps in ([0-9.]+) s wall "
+                           r"\(set-up ([0-9.]+) s\); loss first ([0-9.eE+-]+) last ([0-9.eE+-]+) finite=True",
+                           run["stdout"])
+        check(len(lines) == 1 and float(lines[0][3]) < float(lines[0][2]),
+              f"run {name}: {workload} losses {lines} not finite and falling")
+        out[workload] = {"loop_s": float(lines[0][0]), "setup_s": float(lines[0][1]),
+                         "loss_first_last": [float(v) for v in lines[0][2:]], "device_rows": len(on_device),
+                         "step_device_ms": spread(on_device) if on_device else None}
+    log("run", f"{name}: {json.dumps(out)}")
+    return {**out, "flash_launches": 0}
 
 
 def build_native() -> dict:
@@ -3227,6 +3521,16 @@ def main() -> int:
     kernel["launches"] += comm_bound["flash_launches"]
     kernel["launches_by_path"]["train_comm_bound_run"] = comm_bound["flash_launches"]
     log("time", f"collectives run phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    parallel = parallel_workloads_phase(cfg)
+    for route, path in (("tensor", "train_tensor_parallel"), ("tensor_fsdp", "train_tensor_fsdp")):
+        kernel["launches"] += parallel["launches"][route]
+        kernel["launches_by_path"][path] = parallel["launches"][route]
+    log("time", f"parallel workloads phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    moe_pipeline = moe_pipeline_run_phase()
+    kernel["launches_by_path"]["moe_pipeline_run"] = moe_pipeline["flash_launches"]
+    log("time", f"moe pipeline run phase {time.perf_counter() - t0:.2f} s")
     log("time", f"total {time.perf_counter() - started:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)

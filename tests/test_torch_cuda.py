@@ -1,6 +1,18 @@
 """Tests of the port that need the card.  They import no JAX, so they run
 where the port runs: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
-Without a CUDA card they skip."""
+Without a CUDA card they skip.
+
+Besides the kernel against its plain version: the parallel workloads in
+a one-rank NCCL group on the card, each against its unsharded reference
+on the same weights and inputs (one rank of each axis runs the same ops
+as the reference, with its collectives skipped): the tiny DecoderLM's
+AdamW step (hidden 256, head_dim 64) tensor-parallel on {tensor: 1} at
+S = 1024 (the flash kernel,
+once a layer and a forward), the MoE block on {expert: 1}, the pipeline
+on {stage: 1} against the sequential stack."""
+
+import dataclasses
+import socket
 
 import numpy as np
 import pytest
@@ -65,3 +77,76 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, B, S, H, D, q_scale):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol["atol"], rtol=tol["atol"])
     got = compare(out, ref)
     assert got["ok"], got
+
+
+@pytest.fixture()
+def nccl_group(cuda_device):
+    """A one-rank NCCL process group on the card, destroyed afterwards."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        yield cuda_device
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel(a, b):
+    return float((a - b).float().norm() / b.float().norm())
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_train_step_on_card(nccl_group):
+    from traceml_tpu_torch.models import transformer as tf
+    from traceml_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(tf.ModelConfig.tiny(), hidden=256)  # head_dim 64, a width the kernel takes
+    whole = {n: p.detach().clone() for n, p in tf.DecoderLM(cfg, device="cuda").state_dict().items()}
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 1025))).cuda()
+    out = {}
+    for name, c in (("dense", cfg), ("tensor", dataclasses.replace(cfg, mesh=make_mesh({"tensor": 1})))):
+        model, optimizer = tf.init_train_state(c, state_dict=whole)
+        assert model.tp == tf.TensorParallel(1, 0, None)
+        step = tf.make_train_step(model, optimizer)
+        before = fa.flash_attention.launches
+        losses = [step(tokens)["loss"].item() for _ in range(2)]
+        out[name] = (losses, fa.flash_attention.launches - before, dict(model.named_parameters()))
+    assert out["tensor"][1] == out["dense"][1] == 2 * cfg.n_layers
+    assert max(abs(a - b) / b for a, b in zip(out["tensor"][0], out["dense"][0])) <= 1e-5
+    assert max(_rel(out["tensor"][2][n], p) for n, p in out["dense"][2].items()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_moe_block_on_card(nccl_group):
+    from traceml_tpu_torch.models.moe import MoEBlock, init_expert_parallel, make_moe_train_step, moe_state_dict
+    from traceml_tpu_torch.parallel.mesh import make_mesh
+
+    whole = {n: t.cuda() for n, t in moe_state_dict(4, 64, 128, 0).items()}
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 64, 64)).astype(np.float32)).cuda()
+    y = torch.roll(x, 1, dims=-1)
+    ref = MoEBlock(4, 64, 128)
+    ref.load_state_dict(whole)
+    placed = init_expert_parallel(4, 64, 128, make_mesh({"expert": 1}), state_dict=whole)["model"]
+    got = {}
+    for name, block in (("unsharded", ref), ("expert", placed)):
+        _, step = make_moe_train_step(block)
+        got[name] = [step(x, y)["loss"].item() for _ in range(3)]
+    assert got["expert"][-1] < got["expert"][0]
+    assert max(abs(a - b) / b for a, b in zip(got["expert"], got["unsharded"])) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_pipeline_on_card(nccl_group):
+    from traceml_tpu_torch.parallel.mesh import make_mesh
+    from traceml_tpu_torch.parallel.pipeline import (init_linear_stages, linear_stage_apply, make_pipeline_fn,
+                                                     shard_stage_params, stack_stage_params)
+
+    stacked = stack_stage_params(init_linear_stages(1, 64, 0))
+    mesh = make_mesh({"stage": 1})
+    micro = torch.from_numpy(np.random.default_rng(3).standard_normal((4, 8, 64)).astype(np.float32)).cuda()
+    out = make_pipeline_fn(linear_stage_apply, mesh, 4)(shard_stage_params(stacked, mesh), micro)
+    ref = linear_stage_apply({n: t[0] for n, t in stacked.items()}, micro)
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)

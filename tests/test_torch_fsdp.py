@@ -17,7 +17,11 @@ passed through ``params_from_jax`` and the batches from a numpy seed
   - {context: 2} ring without FSDP2 (the gradients averaged by
     ``average_gradients``, the train step's ``grad_sync``);
   - {fsdp: 2} dense (the batch split over ``fsdp``) and {data: 2} dense
-    (HSDP: ``data`` replicates, the shard dim has size 1).
+    (HSDP: ``data`` replicates, the shard dim has size 1);
+  - {tensor: 2} dense: the model tensor-parallel, each rank holding its
+    slices (gathered to their whole shapes for the comparison), alone
+    and under FSDP2 on its shard group of one rank
+    (``tests/test_torch_tensor_parallel.py`` has the 4-rank meshes).
   And in bf16, {context: 2} Ulysses with FSDP2: the losses within 5e-4
   relative, every parameter's update within 0.2 relative Frobenius (the
   bf16 bounds of ``tests/test_torch_train_step.py``).
@@ -76,8 +80,10 @@ def world(tmp_path_factory):
 
 @pytest.mark.parametrize("shape,impl,fsdp", [
     ({"context": 2}, "ring", True), ({"context": 2}, "ulysses", True), ({"context": 2}, "ring", False),
-    ({"fsdp": 2}, "dense", True), ({"data": 2}, "dense", True),
-], ids=["context2-ring-fsdp", "context2-ulysses-fsdp", "context2-ring-grad_sync", "fsdp2-dense", "data2-dense-hsdp"])
+    ({"fsdp": 2}, "dense", True), ({"data": 2}, "dense", True), ({"tensor": 2}, "dense", False),
+    ({"tensor": 2}, "dense", True),
+], ids=["context2-ring-fsdp", "context2-ulysses-fsdp", "context2-ring-grad_sync", "fsdp2-dense", "data2-dense-hsdp",
+        "tensor2-dense", "tensor2-dense-fsdp1"])
 def test_train_step_matches_jax(world, shape, impl, fsdp):
     run = jax_train_run(shape, impl)
     results = world.run(tasks.train_step, shape, impl, fsdp, run["start"], run["batches"])

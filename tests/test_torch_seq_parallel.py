@@ -37,8 +37,9 @@ through ``params_from_jax``.
   equal the JAX addressable shard of the device at the same mesh
   coordinate; ``replicated`` is all ``Replicate``.
 * ``_attend``'s errors are JAX's: an unknown impl, ring or Ulysses
-  without ``mesh``/``context_axis``; a ``tensor`` axis > 1 raises
-  ``NotImplementedError``.
+  without ``mesh``/``context_axis``; a ``tensor`` axis > 1 on a model
+  not built tensor-parallel raises ``ValueError``, an ``expert`` or
+  ``stage`` axis ``NotImplementedError``.
 """
 
 import dataclasses
@@ -164,14 +165,14 @@ def test_indivisible_heads_raise_the_jax_error(world):
 _JAX_RUNS = {}
 
 
-def jax_train_run(shape, impl, dtype="float32"):
+def jax_train_run(shape, impl, dtype="float32", overrides=None):
     """The JAX ``init_train_state(mesh=)`` + jit'd ``make_train_step`` on
-    the tiny model: start params, first-step gradients, losses and end
-    params (cached per case)."""
-    key = (tuple(sorted(shape.items())), impl, dtype)
+    the tiny model (its fields replaced by ``overrides``): start params,
+    first-step gradients, losses and end params (cached per case)."""
+    key = (tuple(sorted(shape.items())), impl, dtype, tuple(sorted((overrides or {}).items())))
     if key not in _JAX_RUNS:
         jmesh = _jmesh(shape)
-        dense = dataclasses.replace(jax_tf.ModelConfig.tiny(), dtype=JDT[dtype])
+        dense = dataclasses.replace(jax_tf.ModelConfig.tiny(), dtype=JDT[dtype], **(overrides or {}))
         jcfg = dataclasses.replace(dense, attention_impl=impl, context_axis="context" if impl != "dense" else None,
                                    mesh=jmesh)
         # the params do not depend on attention_impl: initialised through the
@@ -341,8 +342,25 @@ def test_attend_errors_are_the_jax_ones(impl, axis):
 
 
 def test_a_tensor_axis_raises_not_implemented(world):
+    """A ``tensor`` axis > 1 on a model not built over it (``cfg.mesh``
+    unset) raises ``ValueError`` naming the fix, on a real mesh and on a
+    stand-in; the name dates from when every tensor axis > 1 was refused
+    (:func:`test_mesh_axes_the_decoder_takes_and_refuses` has the axes the
+    DecoderLM takes)."""
     texts = world.run(tasks.build_raises, {"tensor": 2, "fsdp": 2})
-    assert all("tensor axis > 1" in t and "5(c)" in t for t in texts), texts
+    assert all(t.startswith("ValueError") and "set ModelConfig.mesh" in t for t in texts), texts
     stand_in = types.SimpleNamespace(mesh_dim_names=("data", "fsdp", "tensor", "context"), shape=(1, 1, 2, 1))
-    with pytest.raises(NotImplementedError, match="5\\(c\\)"):
+    with pytest.raises(ValueError, match="set ModelConfig.mesh"):
         tf.init_train_state(tf.ModelConfig.tiny(), device="cpu", mesh=stand_in)
+
+
+def test_mesh_axes_the_decoder_takes_and_refuses(world):
+    """A ``tensor`` axis > 1 with ``cfg.mesh`` the same mesh builds (the
+    model tensor-parallel); an ``expert`` or ``stage`` axis, which the
+    DecoderLM does not implement, raises ``NotImplementedError`` naming
+    the modules that take them."""
+    assert world.run(tasks.build_raises, {"tensor": 2, "fsdp": 2}, True) == ["no error"] * 4
+    for shape in ({"expert": 4}, {"stage": 2, "fsdp": 2}):
+        texts = world.run(tasks.build_raises, shape)
+        assert all(t.startswith("NotImplementedError") and "models/moe.py" in t and "parallel/pipeline.py" in t
+                   for t in texts), texts

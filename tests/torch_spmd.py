@@ -13,7 +13,8 @@ rank left inside a collective would hang it).
 The workers import torch and the port only: tasks live in modules that
 import no JAX (``tests/torch_spmd_tasks.py``), and tests compare their
 results with the JAX package in the test process.  One world per test
-file, shared by a module-scoped fixture, keeps the CPU time small.
+file, shared by a module-scoped fixture, keeps the CPU time small;
+``Worlds`` spawns one world per size a file needs, on first use.
 """
 
 from __future__ import annotations
@@ -98,3 +99,23 @@ class World:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
+
+
+class Worlds:
+    """``worlds(n)``: the world of ``n`` ranks, spawned on first use and
+    kept; ``close()`` closes every one."""
+
+    def __init__(self, tmp: Path) -> None:
+        self._tmp = Path(tmp)
+        self._worlds = {}
+
+    def __call__(self, n: int) -> World:
+        if n not in self._worlds:
+            path = self._tmp / f"world{n}"
+            path.mkdir(exist_ok=True)
+            self._worlds[n] = World(n, path)
+        return self._worlds[n]
+
+    def close(self) -> None:
+        for world in self._worlds.values():
+            world.close()

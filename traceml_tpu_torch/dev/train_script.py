@@ -53,7 +53,10 @@ N``.  Test scaffolding, not features:
   slows the sync by MS on the host (every rank, or ``--sync-sleep-rank``
   alone): a fully exposed, slow link;
 * ``--mesh-shape fsdp=1,context=1`` builds ``make_mesh`` of that shape
-  (implies ``--mesh``); ``--attention-impl ring|ulysses`` shards
+  (implies ``--mesh``); a ``tensor`` axis in it (``tensor=2``, or
+  ``tensor=1``, which builds the same layers and skips their
+  collectives) makes the model tensor-parallel, each rank holding its
+  slices of the weights; ``--attention-impl ring|ulysses`` shards
   attention by sequence over its ``context`` axis (each rank trains on its
   shard of the global batch); ``--fsdp`` shards the parameters and AdamW's
   state with FSDP2 (``init_train_state(mesh=...)``); ``--ici-stats N``
@@ -121,7 +124,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--sync-sleep-ms", type=float, default=0.0, help="host sleep inside the gradient sync")
     p.add_argument("--sync-sleep-rank", type=int, default=-1,
                    help="the rank --sync-sleep-ms slows (-1: every rank)")
-    p.add_argument("--mesh-shape", default="", help="make_mesh's shape, e.g. fsdp=1,context=1 (implies --mesh)")
+    p.add_argument("--mesh-shape", default="",
+                   help="make_mesh's shape, e.g. fsdp=1,context=1 or tensor=2 (implies --mesh)")
     p.add_argument("--attention-impl", choices=("dense", "ring", "ulysses"), default="dense",
                    help="ring or ulysses shard attention by sequence over the mesh's context axis")
     p.add_argument("--fsdp", action="store_true", help="shard parameters and optimizer state with FSDP2")
@@ -154,7 +158,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         mesh = tm.make_mesh(shape or None, device_type=torch.device(args.device).type)
         print(f"train_script: mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
               f"coords {mesh.get_coordinate()}", flush=True)
-    if args.attention_impl != "dense" or args.fsdp:  # each rank trains on its shard of the global batch
+    # each rank trains on its shard of the global batch; a tensor axis
+    # builds the model tensor-parallel, each rank with its slices
+    if args.attention_impl != "dense" or args.fsdp or "tensor" in shape:
         cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl, mesh=mesh,
                                   context_axis="context" if args.attention_impl != "dense" else None)
     model, optimizer = build_train_state(cfg, SEED, device=args.device, mesh=mesh if args.fsdp else None)

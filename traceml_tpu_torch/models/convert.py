@@ -1,14 +1,26 @@
-"""Flax ``DecoderLM`` params → a ``state_dict`` for the PyTorch ``DecoderLM``.
+"""Flax params → ``state_dict``s for the port's modules, and each rank's
+slice of a whole ``state_dict``.
 
-Flax ``Dense`` kernels are (in, out) and torch ``Linear`` weights are
-(out, in), so every kernel is transposed.  The input is the flax params
-tree with numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``);
-nothing here imports JAX.
+* :func:`params_from_jax`: the flax ``DecoderLM``.  Flax ``Dense``
+  kernels are (in, out) and torch ``Linear`` weights are (out, in), so
+  every kernel is transposed.
+* :func:`moe_params_from_jax`: the flax ``MoEBlock``
+  (``models/moe.py``); its einsum weights keep their layout.
+* :func:`stage_params_from_jax`: the stacked params of the pipeline's
+  linear stages (``parallel/pipeline.py``).
+* :func:`local_state_dict`: this rank's piece of a whole ``state_dict``
+  under DTensor placements, cut on the mesh axes named (``tensor`` for
+  the tensor-parallel DecoderLM, ``expert`` for the MoE block's experts).
+
+The input of a converter is the flax params tree with numpy leaves
+(``jax.tree_util.tree_map(np.asarray, params)``); nothing here imports
+JAX.  Each raises on a leaf left over or missing, so a mismatched tree
+never loads half its weights.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,18 +33,40 @@ def _tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
-def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map every flax leaf to its torch name; raise on a leaf left over or
-    missing, so a mismatched tree never loads half its weights."""
-    consumed = set()
+def _leaves(node: Any, path: Tuple[str, ...] = ()) -> list:
+    if isinstance(node, Mapping):
+        out = []
+        for key, child in node.items():
+            out.extend(_leaves(child, path + (key,)))
+        return out
+    return [path]
 
-    def take(*path: str) -> Any:
-        node: Any = params
+
+class _Reader:
+    """Reads leaves of a params tree by path and, at the end, raises on
+    the leaves no read consumed."""
+
+    def __init__(self, params: Mapping[str, Any]) -> None:
+        self.params = params
+        self.consumed = set()
+
+    def take(self, *path: str) -> Any:
+        node: Any = self.params
         for key in path:
             node = node[key]
-        consumed.add(path)
+        self.consumed.add(path)
         return node
 
+    def check(self) -> None:
+        left = [p for p in _leaves(self.params) if p not in self.consumed]
+        if left:
+            raise ValueError(f"flax params not mapped: {['/'.join(p) for p in left]}")
+
+
+def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map every flax ``DecoderLM`` leaf to its torch name."""
+    tree = _Reader(params)
+    take = tree.take
     sd: Dict[str, torch.Tensor] = {"embed.weight": _tensor(take("embed", "embedding"))}
     n_layers = sum(1 for name in params if name.startswith("layer_"))
     for i in range(n_layers):
@@ -46,16 +80,46 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             sd[f"{prefix}.mlp.{name}.weight"] = _tensor(take(layer, "mlp", name, "kernel")).T.contiguous()
     sd["final_norm.scale"] = _tensor(take("final_norm", "scale"))
     sd["lm_head.weight"] = _tensor(take("lm_head", "kernel")).T.contiguous()
-
-    def leaves(node: Any, path: tuple) -> list:
-        if isinstance(node, Mapping):
-            out = []
-            for key, child in node.items():
-                out.extend(leaves(child, path + (key,)))
-            return out
-        return [path]
-
-    left = [p for p in leaves(params, ()) if p not in consumed]
-    if left:
-        raise ValueError(f"flax params not mapped: {['/'.join(p) for p in left]}")
+    tree.check()
     return sd
+
+
+def moe_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map every flax ``MoEBlock`` leaf (``norm_scale`` and ``MoEFFN_0``'s
+    ``router`` (H, E), ``w_in`` (E, H, F), ``w_out`` (E, F, H)) to the
+    port's names: ``norm_scale`` and ``ffn.{router,w_in,w_out}``."""
+    tree = _Reader(params)
+    sd = {"norm_scale": _tensor(tree.take("norm_scale"))}
+    for name in ("router", "w_in", "w_out"):
+        sd[f"ffn.{name}"] = _tensor(tree.take("MoEFFN_0", name))
+    tree.check()
+    return sd
+
+
+def stage_params_from_jax(stacked: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Stacked ``linear_stage_apply`` params (``w`` (S, W, W) and ``b``
+    (S, W), a leading stage dim on each) → one tensor per leaf."""
+    tree = _Reader(stacked)
+    sd = {name: _tensor(tree.take(name)) for name in ("w", "b")}
+    tree.check()
+    return sd
+
+
+def local_state_dict(state_dict: Mapping[str, torch.Tensor], specs: Mapping[str, Sequence[Any]], mesh,
+                     axes: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """This rank's piece of the whole ``state_dict``: each tensor cut by
+    its placements ``specs[name]`` (one per mesh dim) on the mesh dims
+    named in ``axes``, and left whole on the others (FSDP2 shards those
+    after the load).  No communication: every rank holds the whole
+    ``state_dict``."""
+    from torch.distributed.tensor import Replicate
+
+    from traceml_tpu_torch.parallel.mesh import local_shard
+
+    axes = set(axes)
+    names = list(mesh.mesh_dim_names or ())
+    out = {}
+    for name, t in state_dict.items():
+        placements = tuple(pl if names[i] in axes else Replicate() for i, pl in enumerate(specs[name]))
+        out[name] = local_shard(t, mesh, placements)
+    return out

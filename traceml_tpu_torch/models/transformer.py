@@ -52,10 +52,33 @@ did:
   shards over the flattened ``fsdp × context`` mesh (torchtitan's
   recipe; HSDP with ``data`` as the replicate dim when it is > 1) and its
   reduce-scatter averages over both; JAX shards over ``fsdp`` only.
-  Without FSDP the train step averages the gradients over the mesh's
-  ranks after the backward (``make_train_step``'s ``grad_sync`` path).
-* A ``tensor`` axis > 1 raises ``NotImplementedError``: tensor
-  parallelism needs its own slice (ROADMAP queue 1 item 5(c)).
+  Without FSDP the train step averages the gradients over the batch and
+  context ranks after the backward (``make_train_step``'s ``grad_sync``
+  path).
+* A ``tensor`` axis in ``cfg.mesh`` makes the model tensor-parallel, by
+  JAX's :func:`param_shardings` layout (Megatron's): each rank holds its
+  slice of ``wq wk wv w_gate w_up lm_head`` split on the output features
+  (:class:`ColumnParallelDense`), of ``wo w_down`` split on the input
+  features with a sum over ``tensor`` after the product
+  (:class:`RowParallelDense`), and of the embedding split on hidden
+  (:class:`HiddenParallelEmbed`, its rows gathered after the lookup).
+  Attention runs on the rank's ``n_heads/T`` query and ``n_kv_heads/T``
+  kv heads.  The cross-rank edges are the autograd collectives of
+  ``parallel/comm.py``: a replicated activation enters each attention,
+  MLP and the ``lm_head`` through ``copy_to_group`` (its gradient summed
+  over ``tensor``), the row-parallel products leave through
+  ``reduce_from_group``.  The loss gathers the vocabulary-sharded logits
+  (``gather_from_group``) and takes the log-softmax over the whole
+  vocabulary on every rank, JAX's cross-entropy on the same values.  At
+  ``tensor`` = 1 every collective is skipped and each slice is whole.  ``init_train_state`` cuts each rank's slice from a global
+  ``state_dict`` (``models/convert.py:local_state_dict``); the gradients
+  are never averaged over ``tensor``, whose ranks hold different slices.
+  Head counts or widths that do not divide by the axis raise
+  ``ValueError``.  A model without a ``tensor`` axis (no mesh, or a mesh
+  without one) is the same model at ``tensor`` = 1: one set of modules
+  serves every mesh.  The DecoderLM has no ``expert`` or ``stage`` axis: a
+  mesh with one raises ``NotImplementedError`` naming the modules that
+  take them (``models/moe.py``, ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -71,6 +94,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from traceml_tpu_torch.ops.attention import causal_attention
+from traceml_tpu_torch.parallel.comm import copy_to_group, gather_from_group, reduce_from_group
 from traceml_tpu_torch.utils.device import resolve_device
 
 
@@ -214,17 +238,20 @@ def _sequence_parallel(cfg: "ModelConfig") -> bool:
 class Dense(nn.Module):
     """A bias-free linear layer with its weight, (out, in) as in
     ``nn.Linear``, stored in ``param_dtype``; input and weight are cast
-    to ``dtype`` at each call."""
+    to ``dtype`` at each call.  ``fan_in`` (default ``d_in``) sets the
+    init's std, ``fan_in ** -0.5``."""
+
+    _linear = staticmethod(F.linear)
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
-                 param_dtype: torch.dtype, device: Any) -> None:
+                 param_dtype: torch.dtype, device: Any, fan_in: Optional[int] = None) -> None:
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty((d_out, d_in), dtype=param_dtype, device=device))
-        nn.init.normal_(self.weight, std=d_in ** -0.5)
+        nn.init.normal_(self.weight, std=(fan_in or d_in) ** -0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return self._linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
 @contextlib.contextmanager
@@ -290,8 +317,72 @@ class _TF32Linear(torch.autograd.Function):
 class TF32Dense(Dense):
     """``Dense`` whose GEMMs run at TF32 on a GPU: the ``lm_head``."""
 
+    _linear = staticmethod(_TF32Linear.apply)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The ``tensor`` axis a tensor-parallel model runs over: its size,
+    this rank's coordinate and its process group (``None`` at size 1,
+    where every collective is skipped)."""
+
+    size: int
+    rank: int
+    group: Any
+
+
+def tensor_parallel(cfg: "ModelConfig") -> TensorParallel:
+    """The ``tensor`` axis of ``cfg.mesh``; size 1 when there is no mesh
+    or it has no such axis (every slice is then whole).  A head count or
+    a width that does not divide by the axis raises ``ValueError`` naming
+    the fix."""
+    from traceml_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+
+    if cfg.mesh is None or "tensor" not in (cfg.mesh.mesh_dim_names or ()):
+        return TensorParallel(1, 0, None)
+    T = axis_size(cfg.mesh, "tensor")
+    if cfg.n_heads % T or cfg.n_kv_heads % T:
+        raise ValueError(
+            f"tensor parallelism over {T} ranks splits the heads: n_heads ({cfg.n_heads}) and n_kv_heads "
+            f"({cfg.n_kv_heads}) must both divide by {T}; make the mesh's tensor axis a common divisor of "
+            "the two (1 keeps every head on each rank) or change the head counts"
+        )
+    widths = {"hidden": cfg.hidden, "ffn_hidden": cfg.ffn_hidden, "vocab_size": cfg.vocab_size}
+    bad = {k: v for k, v in widths.items() if v % T}
+    if bad:
+        raise ValueError(f"tensor parallelism over {T} ranks splits {sorted(bad)} ({bad}), which do not divide "
+                         f"by {T}; make the mesh's tensor axis a divisor of each")
+    return TensorParallel(T, axis_index(cfg.mesh, "tensor"), axis_group(cfg.mesh, "tensor") if T > 1 else None)
+
+
+class ColumnParallelDense(Dense):
+    """``Dense`` holding this rank's slice of the output features, a
+    (d_out/T, d_in) weight.  Its input must be replicated over ``tensor``
+    and enter through ``copy_to_group`` (once for the layers that share
+    it), so that its gradient is summed over the ranks' slices."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, param_dtype: torch.dtype, device: Any,
+                 tp: TensorParallel) -> None:
+        super().__init__(d_in, d_out // tp.size, dtype, param_dtype, device)
+
+
+class ColumnParallelTF32Dense(ColumnParallelDense, TF32Dense):
+    """The TF32 ``lm_head``, column-parallel over the vocabulary."""
+
+
+class RowParallelDense(Dense):
+    """``Dense`` holding this rank's slice of the input features, a
+    (d_out, d_in/T) weight: it takes the column-parallel layers' local
+    output, and its products are summed over ``tensor``
+    (``reduce_from_group``), which leaves the output replicated."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, param_dtype: torch.dtype, device: Any,
+                 tp: TensorParallel) -> None:
+        super().__init__(d_in // tp.size, d_out, dtype, param_dtype, device, fan_in=d_in)
+        self.group = tp.group
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _TF32Linear.apply(x.to(self.dtype), self.weight.to(self.dtype))
+        return reduce_from_group(super().forward(x), self.group)
 
 
 class Embed(nn.Module):
@@ -310,40 +401,67 @@ class Embed(nn.Module):
         return F.embedding(tokens, self.weight).to(self.dtype)
 
 
+class HiddenParallelEmbed(Embed):
+    """``Embed`` holding this rank's slice of the hidden dim, a (vocab,
+    hidden/T) table; the looked-up rows are gathered over ``tensor``
+    (``gather_from_group``), so the output is whole and replicated."""
+
+    def __init__(self, vocab: int, dim: int, dtype: torch.dtype, param_dtype: torch.dtype, device: Any,
+                 tp: TensorParallel) -> None:
+        super().__init__(vocab, dim // tp.size, dtype, param_dtype, device)
+        self.group = tp.group
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return gather_from_group(super().forward(tokens), self.group, -1)
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: Any) -> None:
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: Any, tp: TensorParallel) -> None:
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
+        self.n_heads, self.n_kv_heads = cfg.n_heads // tp.size, cfg.n_kv_heads // tp.size  # this rank's
         hd = cfg.head_dim
         pd = cfg.param_dtype
-        self.wq = Dense(cfg.hidden, cfg.n_heads * hd, dtype, pd, device)
-        self.wk = Dense(cfg.hidden, cfg.n_kv_heads * hd, dtype, pd, device)
-        self.wv = Dense(cfg.hidden, cfg.n_kv_heads * hd, dtype, pd, device)
-        self.wo = Dense(cfg.n_heads * hd, cfg.hidden, dtype, pd, device)
+        self.wq = ColumnParallelDense(cfg.hidden, cfg.n_heads * hd, dtype, pd, device, tp)
+        self.wk = ColumnParallelDense(cfg.hidden, cfg.n_kv_heads * hd, dtype, pd, device, tp)
+        self.wv = ColumnParallelDense(cfg.hidden, cfg.n_kv_heads * hd, dtype, pd, device, tp)
+        self.wo = RowParallelDense(cfg.n_heads * hd, cfg.hidden, dtype, pd, device, tp)
 
     def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-        """``rope``: the (cos, sin) tables of this shard's positions."""
-        cfg = self.cfg
+        """``rope``: the (cos, sin) tables of this shard's positions.
+        Tensor-parallel, q, k and v hold this rank's heads: its column
+        slices of ``wq wk wv`` are whole heads, and local query head j
+        maps to local kv head j // (n_heads / n_kv_heads), as global
+        query head r·n_heads/T + j maps to global kv head r·n_kv_heads/T
+        + j // (n_heads / n_kv_heads)."""
         B, S, _ = x.shape
-        hd = cfg.head_dim
-        q = self.wq(x).view(B, S, cfg.n_heads, hd)
-        k = self.wk(x).view(B, S, cfg.n_kv_heads, hd)
-        v = self.wv(x).view(B, S, cfg.n_kv_heads, hd)
+        hd = self.cfg.head_dim
+        x = copy_to_group(x, self.tp.group)
+        q = self.wq(x).view(B, S, self.n_heads, hd)
+        k = self.wk(x).view(B, S, self.n_kv_heads, hd)
+        v = self.wv(x).view(B, S, self.n_kv_heads, hd)
         q = _apply_rope(q, *rope)
         k = _apply_rope(k, *rope)
         # GQA: each kv head repeats in place up to n_heads
-        group = cfg.n_heads // cfg.n_kv_heads
+        group = self.n_heads // self.n_kv_heads
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
         out = self._attend(q, k, v)  # (B, S, heads, hd)
-        return self.wo(out.reshape(B, S, cfg.n_heads * hd))
+        return self.wo(out.reshape(B, S, self.n_heads * hd))
 
     def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """Attention dispatch per ``cfg.attention_impl``.  "dense": this
         rank's tensors whole (``causal_attention``: the flash kernel on
         CUDA at S ≥ 1024).  "ring" / "ulysses": q, k, v are this rank's
         sequence shard; the op runs over the context axis's group, and
-        RoPE was applied on global positions.  The errors are JAX's."""
+        RoPE was applied on global positions.  The errors are JAX's.
+
+        Tensor-parallel, each op runs on this rank's heads, as JAX's
+        ``seq_parallel_spec`` shards heads over ``tensor``, except under
+        Ulysses when the local head count does not divide by the context
+        axis: JAX then leaves heads whole, and so does this, gathering
+        the heads over ``tensor`` and keeping its own of the output."""
         cfg = self.cfg
         if cfg.attention_impl == "dense":
             return causal_attention(q, k, v)
@@ -363,28 +481,38 @@ class Attention(nn.Module):
                 "inside shard_map); use attention_impl='dense' for "
                 "single-mesh GSPMD partitioning"
             )
-        return op(q, k, v, cfg.mesh.get_group(cfg.context_axis))
+        from traceml_tpu_torch.parallel.mesh import axis_size
+
+        context = cfg.mesh.get_group(cfg.context_axis)
+        tp = self.tp
+        if (cfg.attention_impl == "ulysses" and tp.group is not None
+                and self.n_heads % axis_size(cfg.mesh, cfg.context_axis)):
+            q, k, v = (gather_from_group(t, tp.group, 2) for t in (q, k, v))
+            return op(q, k, v, context).narrow(2, tp.rank * self.n_heads, self.n_heads)
+        return op(q, k, v, context)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: Any) -> None:
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: Any, tp: TensorParallel) -> None:
         super().__init__()
         pd = cfg.param_dtype
-        self.w_gate = Dense(cfg.hidden, cfg.ffn_hidden, dtype, pd, device)
-        self.w_up = Dense(cfg.hidden, cfg.ffn_hidden, dtype, pd, device)
-        self.w_down = Dense(cfg.ffn_hidden, cfg.hidden, dtype, pd, device)
+        self.group = tp.group
+        self.w_gate = ColumnParallelDense(cfg.hidden, cfg.ffn_hidden, dtype, pd, device, tp)
+        self.w_up = ColumnParallelDense(cfg.hidden, cfg.ffn_hidden, dtype, pd, device, tp)
+        self.w_down = RowParallelDense(cfg.ffn_hidden, cfg.hidden, dtype, pd, device, tp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_group(x, self.group)
         return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: Any) -> None:
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: Any, tp: TensorParallel) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden, dtype=dtype, device=device)
-        self.attn = Attention(cfg, dtype, device)
+        self.attn = Attention(cfg, dtype, device, tp)
         self.mlp_norm = RMSNorm(cfg.hidden, dtype=dtype, device=device)
-        self.mlp = MLP(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device, tp)
 
     def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
         x = x + self.attn(self.attn_norm(x), rope)
@@ -393,7 +521,10 @@ class Block(nn.Module):
 
 class DecoderLM(nn.Module):
     """``DecoderLM(cfg, device=..., dtype=...)``; ``dtype`` defaults to
-    ``cfg.dtype``, ``device`` to CUDA (``device="cpu"`` to run on the CPU)."""
+    ``cfg.dtype``, ``device`` to CUDA (``device="cpu"`` to run on the CPU).
+    Its layers are the tensor-parallel ones over ``cfg.mesh``'s
+    ``tensor`` axis (:func:`tensor_parallel`): each rank holds its
+    slices, whole at size 1 or without the axis."""
 
     def __init__(self, cfg: ModelConfig, *, device: Any = "cuda",
                  dtype: Optional[torch.dtype] = None) -> None:
@@ -402,15 +533,19 @@ class DecoderLM(nn.Module):
         dtype = dtype or cfg.dtype
         self.cfg = cfg
         self.dtype = dtype
-        self.embed = Embed(cfg.vocab_size, cfg.hidden, dtype, cfg.param_dtype, dev)
-        self.layers = nn.ModuleList(Block(cfg, dtype, dev) for _ in range(cfg.n_layers))
+        tp = self.tp = tensor_parallel(cfg)
+        pd = cfg.param_dtype
+        self.embed = HiddenParallelEmbed(cfg.vocab_size, cfg.hidden, dtype, pd, dev, tp)
+        self.layers = nn.ModuleList(Block(cfg, dtype, dev, tp) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.hidden, dtype=dtype, device=dev)
-        self.lm_head = TF32Dense(cfg.hidden, cfg.vocab_size, torch.float32, cfg.param_dtype, dev)
+        self.lm_head = ColumnParallelTF32Dense(cfg.hidden, cfg.vocab_size, torch.float32, pd, dev, tp)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Logits of ``tokens`` (B, S); under ring or Ulysses attention
         ``tokens`` is this rank's sequence shard, whose RoPE positions
-        start at its context coordinate × S."""
+        start at its context coordinate × S.  Tensor-parallel, the
+        ``lm_head``'s vocabulary slices are gathered: every rank returns
+        the whole logits."""
         B, S = tokens.shape
         x = self.embed(tokens)
         offset = 0
@@ -424,7 +559,8 @@ class DecoderLM(nn.Module):
                 x = checkpoint(layer, x, rope, use_reentrant=False)
             else:
                 x = layer(x, rope)
-        return self.lm_head(self.final_norm(x))
+        x = self.final_norm(x)
+        return gather_from_group(self.lm_head(copy_to_group(x, self.tp.group)), self.tp.group, -1)
 
 
 def shard_inputs(cfg: ModelConfig, inputs: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -514,18 +650,26 @@ def _fsdp_mesh(mesh):
     return mesh["data", name] if sizes.get("data", 1) > 1 else shard
 
 
-def _check_mesh(mesh) -> None:
-    from traceml_tpu_torch.parallel.mesh import AXES
+def _check_mesh(mesh, cfg: ModelConfig) -> None:
+    """The DecoderLM shards over ``data fsdp tensor context``; an
+    ``expert`` or ``stage`` axis belongs to the MoE block and the
+    pipeline.  A ``tensor`` axis > 1 shards a model built tensor-parallel,
+    so ``cfg.mesh`` must hold the same axis."""
+    from traceml_tpu_torch.parallel.mesh import AXES, axis_size
 
     sizes = _mesh_axes(mesh)
-    if sizes.get("tensor", 1) > 1:
-        raise NotImplementedError(
-            "a mesh with a tensor axis > 1 is not supported: the port's Dense is not nn.Linear, so "
-            "tensor parallelism needs its own slice (ROADMAP queue 1 item 5(c))"
-        )
     extra = [ax for ax in sizes if ax not in AXES]
     if extra:
-        raise NotImplementedError(f"mesh axes {extra} (MoE, pipeline) are ROADMAP queue 1 item 5(c)")
+        raise NotImplementedError(
+            f"the DecoderLM has no {extra} axis: expert parallelism is models/moe.py "
+            "(init_expert_parallel), pipeline parallelism parallel/pipeline.py (make_pipeline_fn)"
+        )
+    T = sizes.get("tensor", 1)
+    if T > 1 and (cfg.mesh is None or axis_size(cfg.mesh, "tensor") != T):
+        raise ValueError(
+            f"a mesh with a tensor axis of {T} shards a tensor-parallel model: set ModelConfig.mesh to the "
+            "mesh, so that the model is built with its slices"
+        )
 
 
 def shard_model(model: "DecoderLM", mesh) -> "DecoderLM":
@@ -533,11 +677,14 @@ def shard_model(model: "DecoderLM", mesh) -> "DecoderLM":
     ``fully_shard`` on each block, then the root, each parameter sharded
     on the dim that JAX's spec shards over ``fsdp`` (dim 0 where it is
     replicated, and on a shard group of one rank, where the dim is moot).
-    ``model`` must hold its final weights already."""
+    ``model`` must hold its final weights already.  A tensor-parallel
+    model is sliced first (built so), then FSDP2 shards each rank's slices
+    over the mesh's ``fsdp × context`` dims, which leave ``tensor`` out,
+    as torch's 2-D recipe composes the two."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
-    _check_mesh(mesh)
+    _check_mesh(mesh, model.cfg)
     fsdp_mesh = _fsdp_mesh(mesh)
     # a shard group of one rank holds every parameter whole whatever the
     # dim, so it takes FSDP2's dim-0 path (no chunk-and-concatenate copies
@@ -584,8 +731,12 @@ def init_train_state(
     ``optax.adamw(lr, weight_decay=0.01)``.  ``cfg.remat`` checkpoints
     each block, as in the JAX model.  With a ``mesh`` (a DeviceMesh) the
     parameters and AdamW's state are sharded by FSDP2
-    (:func:`shard_model`) after the weights are loaded; a ``tensor`` axis
-    > 1 raises ``NotImplementedError``.
+    (:func:`shard_model`) after the weights are loaded.
+
+    Over a ``tensor`` axis > 1 in ``cfg.mesh`` the model holds this
+    rank's slices, which are cut from the whole ``state_dict`` (or,
+    without one, from the whole model ``seed`` initialises), so a seed
+    gives the same weights at every axis size.
 
     Torch's AdamW and optax's compute the same update,
     ``p ← p − lr·(m̂/(√v̂+ε) + wd·p)`` with the decay read from the
@@ -594,13 +745,21 @@ def init_train_state(
     moments and step counts are made here, as ``tx.init(params)`` makes
     them, so the first step does not allocate 2 × the parameters' bytes.
     """
+    from traceml_tpu_torch.models.convert import local_state_dict
+
     dev = resolve_device(device)
     if mesh is not None:
-        _check_mesh(mesh)
-    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        _check_mesh(mesh, cfg)
+    rng_devices = [dev] if dev.type == "cuda" else []
+    with torch.random.fork_rng(devices=rng_devices):
         torch.manual_seed(seed)
+        if state_dict is None and tensor_parallel(cfg).size > 1:
+            whole = dataclasses.replace(cfg, mesh=None, attention_impl="dense", context_axis=None)
+            state_dict = DecoderLM(whole, device=dev).state_dict()
         model = DecoderLM(cfg, device=dev)
     if state_dict is not None:
+        if model.tp.size > 1:
+            state_dict = local_state_dict(state_dict, param_shardings(state_dict, cfg.mesh), cfg.mesh, ("tensor",))
         model.load_state_dict(state_dict)
     if mesh is not None:
         shard_model(model, mesh)
@@ -618,6 +777,28 @@ def init_train_state(
     return model, optimizer
 
 
+#: the axes a gradient is averaged over: the batch and the sequence are
+#: split over them; ``tensor`` ranks hold different slices of the weights
+GRADIENT_AXES = ("data", "fsdp", "context")
+
+
+def gradient_group(mesh) -> Tuple[Any, int]:
+    """``(group, size)`` of the ranks that average their gradients and
+    their losses: this rank's slice of ``mesh`` along
+    :data:`GRADIENT_AXES`, never across ``tensor``.  With every other
+    axis of size 1 that is the whole mesh's group; the group is ``None``
+    at size 1."""
+    from traceml_tpu_torch.parallel.mesh import axis_group, mesh_group
+
+    sizes = _mesh_axes(mesh)
+    n = math.prod(sizes.get(ax, 1) for ax in GRADIENT_AXES)
+    if n == 1:
+        return None, 1
+    if all(size == 1 for ax, size in sizes.items() if ax not in GRADIENT_AXES):
+        return mesh_group(mesh), n
+    return axis_group(mesh, GRADIENT_AXES), n
+
+
 def make_train_step(
     model: DecoderLM,
     optimizer: torch.optim.Optimizer,
@@ -633,14 +814,15 @@ def make_train_step(
     trains on its shard (:func:`loss_fn`); the returned loss is the mean
     of the ranks' losses (JAX's global mean), and without FSDP2 and
     without a ``grad_sync`` of the caller's the gradients are averaged
-    over the mesh's ranks after the backward (FSDP2's reduce-scatter
-    averages them itself)."""
-    from traceml_tpu_torch.parallel.mesh import mesh_group
-
+    over the batch and context ranks after the backward
+    (:func:`gradient_group`; FSDP2's reduce-scatter averages over them
+    itself).  Neither is averaged over ``tensor``: its ranks hold
+    different slices of the weights, whose gradients would mix wherever
+    their shapes match, and the same loss."""
     mesh = model.cfg.mesh
     group = n_ranks = None
     if mesh is not None:
-        group, n_ranks = mesh_group(mesh), mesh.size()
+        group, n_ranks = gradient_group(mesh)
         if grad_sync is None and n_ranks > 1 and not is_sharded(model):
             grad_sync = average_gradients(model, group, n_ranks)
 

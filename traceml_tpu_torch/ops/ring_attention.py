@@ -21,7 +21,7 @@ The per-block attention is plain torch einsums with f32 softmax
 accumulation, as the JAX blocks are jnp; ring attention never reaches the
 flash kernel.  The hop is an autograd ``Function`` whose backward sends
 the gradient the other way round the ring, which is what ``jax.grad``
-does through ``ppermute``.
+does through ``ppermute`` (``parallel/comm.py:ring_hop``).
 """
 
 from __future__ import annotations
@@ -31,37 +31,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from traceml_tpu_torch.parallel.comm import ring_hop
+
 _NEG = -1e30
-
-
-def _ring_shift(x: torch.Tensor, group: Any, shift: int) -> torch.Tensor:
-    """Send ``x`` to the group rank ``shift`` places ahead, receive from
-    the one ``shift`` places behind."""
-    import torch.distributed as dist
-
-    n = dist.get_world_size(group)
-    me = dist.get_rank(group)
-    send = x.contiguous()
-    recv = torch.empty_like(send)
-    peer_to = dist.get_global_rank(group, (me + shift) % n)
-    peer_from = dist.get_global_rank(group, (me - shift) % n)
-    ops = [dist.P2POp(dist.isend, send, peer_to, group), dist.P2POp(dist.irecv, recv, peer_from, group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv
-
-
-class _RingHop(torch.autograd.Function):
-    """One hop around the ring: rank p's block moves to rank p + 1."""
-
-    @staticmethod
-    def forward(ctx: Any, x: torch.Tensor, group: Any) -> torch.Tensor:
-        ctx.group = group
-        return _ring_shift(x, group, 1)
-
-    @staticmethod
-    def backward(ctx: Any, grad: torch.Tensor):
-        return _ring_shift(grad, ctx.group, -1), None
 
 
 def _block_attend(q, k_blk, q_offset: int, k_offset: int, scale: float) -> torch.Tensor:
@@ -109,8 +81,8 @@ def ring_attention(
         acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p.to(v_blk.dtype), v_blk).float()
         m = m_new
         if step < axis_size - 1:  # the last hop would be dead: P − 1 suffice
-            k_blk = _RingHop.apply(k_blk, group)
-            v_blk = _RingHop.apply(v_blk, group)
+            k_blk = ring_hop(k_blk, group)
+            v_blk = ring_hop(v_blk, group)
     # causal rows always include self-attention → l > 0
     out = (acc / l).to(q.dtype)  # (B, H, S_loc, D)
     return out.transpose(1, 2)

@@ -22,11 +22,15 @@ placements, one per mesh dim, where JAX gives a ``NamedSharding``:
 ``batch_sharding`` shards dim 0 over ``data`` and ``fsdp`` (data-major,
 as ``P(("data", "fsdp"))`` does); :func:`local_shard` takes a rank's
 piece of a tensor every rank holds whole, with no communication.
+:func:`axis_group` and :func:`axis_index` give the process group of one
+or several named axes and this rank's coordinate on one: what the
+hand-sharded paths (tensor, expert and pipeline parallelism) run their
+collectives over.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -128,6 +132,33 @@ def mesh_group(mesh):
     if mesh.mesh.flatten().tolist() == list(range(dist.get_world_size())):
         return dist.group.WORLD
     return mesh._flatten().get_group()
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``axis`` in ``mesh``; 1 when the mesh has no such axis."""
+    return axis_sizes(mesh).get(axis, 1)
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis`` (JAX's ``lax.axis_index``); 0
+    when the mesh has no such axis."""
+    return mesh.get_local_rank(axis) if axis in (mesh.mesh_dim_names or ()) else 0
+
+
+def axis_group(mesh, axes: Union[str, Sequence[str]]):
+    """The process group of this rank's slice of ``mesh`` along ``axes``
+    (one axis name, or several: the ranks whose coordinates differ only
+    on those axes, group rank i being participant i in mesh-linear order
+    over them).  Axes the mesh lacks are left out; a mesh with none of
+    them raises ``ValueError``.  Several axes are flattened into one mesh
+    dim, cached on the mesh under their joined names."""
+    names = [axes] if isinstance(axes, str) else list(axes)
+    present = tuple(ax for ax in (mesh.mesh_dim_names or ()) if ax in names)
+    if not present:
+        raise ValueError(f"mesh axes {mesh.mesh_dim_names} hold none of {names}")
+    if len(present) == 1:
+        return mesh.get_group(present[0])
+    return mesh[present]._flatten().get_group()
 
 
 def batch_sharding(mesh) -> Tuple[Any, ...]:
