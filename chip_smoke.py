@@ -206,7 +206,10 @@
    healthy pair is neither REGRESSION nor LIKELY_REGRESSION with no
    step-time finding, of healthy and delayed REGRESSION.  Reported with
    the card's line: the steps, the scan's and the re-evaluation's ms, both
-   verdicts.  The second healthy run's launches have their own path,
+   verdicts, and how fast the host ran beside each train run
+   (``HostPace``: a fixed Python loop's ms every 0.5 s), since the host
+   paces part of the train step's forward and a slower host moves the
+   pair apart.  The second healthy run's launches have their own path,
    ``train_baseline_run``, on the kernels line.
 
 13. The window engines at many ranks (``engine_tick_phase``, after 7):
@@ -288,6 +291,33 @@
    pipeline's few-ms host step gets a device marker every few steps, by
    the overhead governor's budget: reported).  The tensor routes'
    launches and the run's 0 have their own paths on the kernels line.
+17. The second model family and the fault-scenario lab, last.
+   ``vit_train_phase``: the ViT at ``ViTConfig()``'s widths (image 64,
+   patch 8, hidden 256, 4 layers, 4 heads, ffn 1024, 10 classes: the
+   widest ViT in the repo), bf16 compute, batch ``VIT_BATCH``,
+   ``VIT_STEPS`` AdamW steps in process under ``init(mode="auto")``,
+   ``wrap_step_fn`` and ``trace_step``: the loss falls, every row on the
+   device clock, no ``compile`` phase (eager), 0 flash launches (its
+   attention is the einsum reference, as in JAX); the step's device ms,
+   peak bytes and parameter count are logged.  A compute straggler's
+   span: a step function that sleeps 0.12 s after its work is enqueued
+   (``dev/demo/scenarios.py``'s ``compute_straggler``) must read at least
+   95% of it as compute on the device clock.  Then ``SCENARIO_RUNS`` in two
+   waves (a run's wall is mostly its rank's set-up; one GPU
+   time-slices the processes of runs at once, so the verdict most moved by
+   them, ``vit_stress``'s INPUT_BOUND, runs in the first wave, beside the
+   inductor ``recompile`` run alone, whose compiles stay in its rank):
+   ``vit_stress`` with no fault (no fault kind) and with ``input_bound``
+   (INPUT_BOUND) (``vit_stress_run_phase``), and the demo scenarios
+   (``scenario_lab_phase``): ``healthy`` (no fault kind),
+   ``input_bound`` (INPUT_BOUND), ``input_straggler`` on 4 ranks
+   (INPUT_STRAGGLER on rank 3, four ranks seen), ``recompile`` under
+   inductor (COMPILE_BOUND, at least 4 steps with ``compile`` events
+   after the warm-up), ``checkpoint_stall`` (a ``checkpoint`` phase with
+   a positive mean) and ``memory_creep`` (growth above 20 MiB), each by
+   the precision harness's own detectors (``dev/precision_harness.py``),
+   each with the HTML, transport and code-manifest gates of every
+   ``run`` and 0 flash launches.
 
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -974,7 +1004,7 @@ def remat_train_phase(cfg, train: dict) -> dict:
 def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "forward_script.py",
                steps: int = STEPS, script_args=(), launcher_args=(), env_extra=None,
                expect_ok: bool = True, mode: str = "summary", probe=None, transport: str = "shm",
-               codec=None, join: str = None) -> dict:
+               codec=None, join: str = None, argv_tail=None) -> dict:
     """One ``python -m traceml_tpu_torch run --mode <mode>`` call of a
     ``dev/`` script; returns its session's artifacts, its system, process,
     step-memory (and in the live modes stdout) rows, the launcher's output
@@ -987,7 +1017,10 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     to its end.  ``join`` names an earlier call whose logs dir and run name
     this call shares, so that the baseline store there holds that call's
     run: the dir is kept and the call's session is the one it adds.  Every
-    call's ``code_manifest.json`` is held to ``check_code_manifest``."""
+    call's ``code_manifest.json`` is held to ``check_code_manifest``.
+    ``argv_tail`` replaces the script's arguments (``--steps`` and
+    ``--delay-ms`` of the ``dev/`` scripts) for a script that takes
+    others (the scenario library)."""
     logs = RUN_DIR / (join or name)
     if join is None:
         shutil.rmtree(logs, ignore_errors=True)
@@ -995,9 +1028,10 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     argv = [sys.executable, "-m", "traceml_tpu_torch", "run", "--mode", mode,
             "--logs-dir", str(logs), "--run-name", join or name, "--sampler-interval", repr(interval_s),
             *launcher_args, str(REPO / "traceml_tpu_torch" / "dev" / script),
-            "--", "--steps", str(steps), "--delay-ms", repr(delay_ms), *script_args]
+            "--", *(argv_tail if argv_tail is not None
+                    else ["--steps", str(steps), "--delay-ms", repr(delay_ms), *script_args])]
     env = dict(os.environ, PYTHONPATH=str(REPO), **(env_extra or {}))
-    t0 = time.perf_counter()
+    started_at, t0 = time.time(), time.perf_counter()
     proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
     probe_thread = None
@@ -1055,7 +1089,15 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
             "ingest": ingest, "transport": check_transport(name, session, ingest, transport, codec),
             "system_manifest": read("system_manifest.json", required=expect_ok),
             "rows": rows, "tables": tables, "stdout": out, "stderr": err, "wall_s": wall_s, "steps": steps,
-            "mode": mode, "session": session, "interval_s": interval_s}
+            "mode": mode, "session": session, "interval_s": interval_s, "started_at": started_at}
+
+
+def flash_launches(name: str, run: dict) -> int:
+    """The flash kernel's launches in a ``run``: the sum of the
+    ``flash_attention.launches N`` lines its ranks printed, one or more."""
+    counts = [int(v) for v in re.findall(r"^flash_attention\.launches (\d+)$", run["stdout"], re.MULTILINE)]
+    check(bool(counts), f"run {name}: no flash_attention.launches line")
+    return sum(counts)
 
 
 def check_code_manifest(name: str, script: Path, code: dict, manifest: dict) -> dict:
@@ -1403,6 +1445,42 @@ def check_healthy_utilization(name: str, got: dict) -> None:
           f"run {name}: NVML utilization {util}% (last 30 samples) below {UTIL_HEALTHY_MIN_PCT}%")
 
 
+HOST_PACE_EVERY_S = 0.5
+HOST_PACE_LOOP = 20000  # additions a sample: about a millisecond of one core
+
+
+class HostPace:
+    """How fast the host ran beside a ``run``: a thread of this process
+    times a fixed pure-Python loop every ``HOST_PACE_EVERY_S`` s.  Read
+    only, gates nothing: it says whether two runs that differ saw the same
+    host.  (The card's machine counts no idle time in ``/proc/stat``, so
+    the cores' busy and stolen shares cannot be read there.)"""
+
+    def __init__(self) -> None:
+        self.samples = []
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._sample, name="host-pace", daemon=True)
+
+    def _sample(self) -> None:
+        while not self.done.wait(HOST_PACE_EVERY_S):
+            t0 = time.perf_counter()
+            total = 0
+            for i in range(HOST_PACE_LOOP):
+                total += i
+            self.samples.append((time.perf_counter() - t0) * 1e3)
+
+    def __enter__(self) -> "HostPace":
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.done.set()
+        self.thread.join()
+
+    def result(self) -> dict:
+        return {"loop_ms": spread(self.samples) if self.samples else None, "samples": len(self.samples)}
+
+
 def train_run_phase(cfg, train: dict) -> dict:
     """``python -m traceml_tpu_torch run`` of ``dev/train_script.py``:
     healthy with a 0.1 s sender tick, healthy again (``train_healthy_2``)
@@ -1412,7 +1490,8 @@ def train_run_phase(cfg, train: dict) -> dict:
     first and the delayed one against both.  Each is held to
     ``check_train_run``, with the verdict of the MFU's band (healthy) or
     INPUT_BOUND; the healthy runs' NVML utilization at least
-    ``UTIL_HEALTHY_MIN_PCT``.  Returns each run's numbers by name."""
+    ``UTIL_HEALTHY_MIN_PCT``.  Each run's ``host`` is what ``HostPace``
+    read beside it.  Returns each run's numbers by name."""
     delay_ms = 3.0 * train["step_ms"]
     runs = {}
     for name, delay, interval_s, verdict, join in (
@@ -1420,8 +1499,11 @@ def train_run_phase(cfg, train: dict) -> dict:
             ("train_healthy_2", 0.0, 0.1, mfu_verdict, "train_healthy"),
             ("train_input_delay", delay_ms, 1.0, "INPUT_BOUND", "train_healthy")):
         log("run", f"{name}: input delay {delay:.3f} ms")
-        got = check_train_run(name, launch_run(name, delay, interval_s, script="train_script.py", join=join),
-                              cfg, verdict)
+        with HostPace() as pace:
+            run = launch_run(name, delay, interval_s, script="train_script.py", join=join)
+        got = check_train_run(name, run, cfg, verdict)
+        got["host"] = pace.result()
+        log("run", f"{name}: the host beside the run {json.dumps(got['host'])}")
         if verdict is mfu_verdict:
             check_healthy_utilization(name, got)
             run_ms, ref_ms = got["step_device_ms"], train["step_spread"]
@@ -1528,8 +1610,10 @@ def baseline_compare_phase(runs: dict) -> dict:
     same = _compare_cli("healthy_vs_healthy_2", sessions["train_healthy"], sessions["train_healthy_2"])
     p = same["payload"]
     step_findings = [f for f in p["findings"] if f["section"] == "step_time"]
+    hosts = {name: runs[name]["host"] for name in ("train_healthy", "train_healthy_2")}
     check(p["verdict"] not in COMPARE_BLOCKING and not step_findings,
-          f"compare healthy vs healthy_2: {p['verdict']}, step-time findings {step_findings}")
+          f"compare healthy vs healthy_2: {p['verdict']}, step-time findings {step_findings}; "
+          f"the host beside each run {json.dumps(hosts)}")
     delayed = _compare_cli("healthy_vs_input_delay", sessions["train_healthy"], sessions["train_input_delay"])
     q = delayed["payload"]
     step_findings = [f for f in q["findings"] if f["section"] == "step_time"]
@@ -1545,7 +1629,8 @@ def baseline_compare_phase(runs: dict) -> dict:
         "healthy_vs_healthy_2": {"verdict": p["verdict"], "step_delta_rel": p["step_delta_rel"],
                                  "phase_shares": {k[len("share."):]: [m.get("baseline"), m.get("candidate")]
                                                   for k, m in metrics.items() if k.startswith("share.")},
-                                 "findings": [f["kind"] for f in p["findings"]], "wall_s": same["wall_s"]},
+                                 "findings": [f["kind"] for f in p["findings"]], "wall_s": same["wall_s"],
+                                 "host": hosts},
         "healthy_vs_input_delay": {"verdict": q["verdict"], "step_delta_rel": q["step_delta_rel"],
                                    "findings": [f["kind"] for f in q["findings"]],
                                    "step_finding_rank": lead, "wall_s": delayed["wall_s"],
@@ -3363,7 +3448,8 @@ def moe_pipeline_run_phase() -> dict:
     check(st["status"] == "OK", f"run {name}: step_time section {st['status']}")
     steps = [r[0] for r in run["rows"]]
     check(steps == list(range(1, 2 * n + 1)), f"run {name}: stored steps {steps[:3]}..., {len(steps)} rows")
-    check("flash_attention.launches 0" in run["stdout"].splitlines(), f"run {name}: flash launches not 0")
+    launches = flash_launches(name, run)
+    check(launches == 0, f"run {name}: {launches} flash launches, not 0")
     out = {"clock": st["global"]["clock"], "verdict": summary["primary_diagnosis"]["kind"], "wall_s": run["wall_s"]}
     for i, workload in enumerate(("moe", "pipeline")):
         rows = run["rows"][i * n:(i + 1) * n]
@@ -3380,7 +3466,248 @@ def moe_pipeline_run_phase() -> dict:
                          "loss_first_last": [float(v) for v in lines[0][2:]], "device_rows": len(on_device),
                          "step_device_ms": spread(on_device) if on_device else None}
     log("run", f"{name}: {json.dumps(out)}")
-    return {**out, "flash_launches": 0}
+    return {**out, "flash_launches": launches}
+
+
+VIT_BATCH = 256
+VIT_STEPS = 30
+VIT_LR = 1e-3
+STRAGGLER_SLEEP_S = 0.12  # dev/demo/scenarios.py's compute_straggler
+# the share of the sleep the device-clock compute must read: the CUDA
+# event's stamp maps onto the host clock within about a millisecond
+# (119.1 ms seen for the 120 ms sleep); a region that ended before the
+# sleep would read its few ms of kernels
+STRAGGLER_SPAN_MIN = 0.95
+STRAGGLER_STEPS = 8
+#: (name, script under dev/, its arguments, ranks): every run at once
+SCENARIO_RUNS = (
+    ("vit_stress_none", "scenarios/vit_stress.py", ["60", "none"], 1),
+    ("vit_stress_input_bound", "scenarios/vit_stress.py", ["60", "input_bound"], 1),
+    ("scenario_healthy", "demo/scenarios.py", ["healthy", "60"], 1),
+    ("scenario_input_bound", "demo/scenarios.py", ["input_bound", "60"], 1),
+    ("scenario_input_straggler", "demo/scenarios.py", ["input_straggler", "60"], 4),
+    ("scenario_recompile", "demo/scenarios.py", ["recompile", "60"], 1),
+    ("scenario_checkpoint_stall", "demo/scenarios.py", ["checkpoint_stall", "40"], 1),
+    ("scenario_memory_creep", "demo/scenarios.py", ["memory_creep", "80"], 1),
+)
+RECOMPILE_MIN_STEPS = 4  # steps with compile events after the warm-up
+#: inductor compiles in the rank itself, not in a pool of one worker
+#: process a core that would load every core beside the other runs
+SCENARIO_ENV = {"scenario_recompile": {"TORCHINDUCTOR_COMPILE_THREADS": "1"}}
+#: the device-clock verdicts most moved by other processes on the card
+#: (one GPU time-slices its processes): they run first, beside the
+#: recompile run's compiles alone
+SCENARIO_FIRST = ("vit_stress_none", "vit_stress_input_bound", "scenario_recompile")
+
+
+def vit_train_phase() -> dict:
+    """``VIT_STEPS`` traced AdamW steps of the ViT at ``ViTConfig()``'s
+    widths in process (``make_vit_train_step`` under ``wrap_step_fn``),
+    on ``VIT_BATCH`` random images over 4 batches, cycled, so the loss can
+    fall.  Gates: the loss falls, every row on the device clock with a
+    positive step time, no ``compile`` phase, 0 flash launches."""
+    import numpy as np
+
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.models.vit import ViT, ViTConfig, make_vit_train_step
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+    from traceml_tpu_torch.utils import timing as T
+
+    cfg = ViTConfig()
+    shutdown_patches()
+    tm.init(mode="auto")
+    model = ViT(cfg)
+    init, train_step = make_vit_train_step(model, learning_rate=VIT_LR)
+    init(SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED + 3)
+    batches = [(torch.from_numpy(rng.normal(size=(VIT_BATCH, cfg.image_size, cfg.image_size, 3)).astype(np.float32)),
+                torch.from_numpy(rng.integers(0, cfg.n_classes, VIT_BATCH))) for _ in range(4)]
+    step = tm.wrap_step_fn(lambda batch: train_step(*batch))
+    run = traced_loop(step, batches, VIT_STEPS, 0.0)
+    rows, mem = run["rows"], run["memory"]
+    first, last = run["first"]["loss"].item(), run["last"]["loss"].item()
+    device_ms = [r["events"][T.STEP_TIME]["device_ms"] for r in rows
+                 if r["events"][T.STEP_TIME].get("device_ms") is not None]
+    out = {"n_params": n_params, "batch": VIT_BATCH, "steps": VIT_STEPS, "loss_first": first, "loss_last": last,
+           "step_device_ms": spread(device_ms) if device_ms else None,
+           "step_peak_bytes": max((m["step_peak_bytes"] for m in mem), default=0),
+           "launches": run["launches"], "wall_s": run["wall_s"]}
+    log("vit", f"ViTConfig() image {cfg.image_size} patch {cfg.patch_size} hidden {cfg.hidden} layers "
+               f"{cfg.n_layers} heads {cfg.n_heads} ffn {cfg.ffn_hidden} classes {cfg.n_classes}, bf16: "
+               + json.dumps(out))
+    check(len(rows) == VIT_STEPS, f"vit: {len(rows)} step rows for {VIT_STEPS} steps")
+    check(all(r["clock"] == "device" and (r["events"][T.STEP_TIME].get("device_ms") or 0) > 0 for r in rows),
+          "vit: a step row is not on the device clock")
+    check(not any(T.COMPILE_TIME in r["events"] for r in rows), "vit: a compile phase in an eager loop")
+    check(run["launches"] == 0, f"vit: {run['launches']} flash launches, not 0")
+    check(math.isfinite(last) and last < first, f"vit: loss did not fall: first {first}, last {last}")
+    check(out["step_peak_bytes"] > n_params * 16, f"vit: step peak {out['step_peak_bytes']} below params + "
+                                                  "grads + AdamW state")
+    del model, step
+    return out
+
+
+def straggler_span_phase() -> dict:
+    """The compute straggler's injection on the card: a step function
+    that sleeps ``STRAGGLER_SLEEP_S`` after its work is enqueued, inside
+    ``wrap_step_fn``'s region.  The region's CUDA event is recorded after
+    the sleep, so its device-clock span must cover it: every row on the
+    device clock with at least ``STRAGGLER_SPAN_MIN`` of
+    ``STRAGGLER_SLEEP_S`` as compute."""
+    import numpy as np
+
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.models.mlp import TinyMLP, make_mlp_train_step
+    from traceml_tpu_torch.utils import timing as T
+
+    model = TinyMLP(hidden=256, depth=3)
+    init, train_step = make_mlp_train_step(model)
+    init(SEED)
+    rng = np.random.default_rng(SEED)
+    batches = [(torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32)),
+                torch.from_numpy(rng.normal(size=(64, 1)).astype(np.float32)))]
+
+    def slow(batch):
+        loss = train_step(*batch)
+        time.sleep(STRAGGLER_SLEEP_S)
+        return loss
+
+    run = traced_loop(tm.wrap_step_fn(slow, estimate_flops=False), batches, STRAGGLER_STEPS, 0.0)
+    compute = [r["events"][T.COMPUTE_TIME].get("device_ms") for r in run["rows"]]
+    log("scenario", f"compute straggler span: compute device ms {compute}, clocks "
+                    f"{sorted({r['clock'] for r in run['rows']})}")
+    check(len(compute) == STRAGGLER_STEPS and all(r["clock"] == "device" for r in run["rows"]),
+          "compute straggler: a row not on the device clock")
+    check(all(v is not None and v >= STRAGGLER_SPAN_MIN * STRAGGLER_SLEEP_S * 1e3 for v in compute),
+          f"compute straggler: device compute {compute} ms does not span the {STRAGGLER_SLEEP_S} s sleep")
+    return {"compute_device_ms": compute}
+
+
+class ScenarioRuns:
+    """``SCENARIO_RUNS`` as ``launch_run`` calls on threads (each a
+    launcher process), started in waves: ``start(names)`` launches those
+    calls, ``wait(names)`` waits for them, ``finish()`` waits for every
+    call started and returns each call's result and the wall time from
+    the first start."""
+
+    def __init__(self) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.pool = ThreadPoolExecutor(len(SCENARIO_RUNS))
+        self.futures = {}
+        self.t0 = None
+
+    def start(self, names) -> None:
+        def one(job):
+            name, script, argv, nprocs = job
+            return launch_run(name, 0.0, 0.25, script=script, argv_tail=argv,
+                              launcher_args=("--nprocs", str(nprocs)), env_extra=SCENARIO_ENV.get(name))
+
+        self.t0 = self.t0 or time.perf_counter()
+        for job in SCENARIO_RUNS:
+            if job[0] in names:
+                self.futures[job[0]] = self.pool.submit(one, job)
+
+    def wait(self, names) -> None:
+        for name in names:
+            self.futures[name].result()
+
+    def finish(self) -> dict:
+        try:
+            runs = {name: future.result() for name, future in self.futures.items()}
+        finally:
+            self.pool.shutdown(wait=True)
+        wall = time.perf_counter() - self.t0
+        for name, run in runs.items():
+            run["flash_launches"] = flash_launches(name, run)
+            check(run["flash_launches"] == 0, f"run {name}: {run['flash_launches']} flash launches, not 0")
+            manifest = run["manifest"]
+            check((manifest["status"], manifest["telemetry_status"]) == ("completed", "ok"),
+                  f"run {name}: manifest {manifest['status']}/{manifest['telemetry_status']}")
+        timelines = {name: run_timeline(run) for name, run in runs.items()}
+        log("scenario", f"{len(runs)} runs in {wall:.2f} s wall from the first start; each: "
+                        + json.dumps(timelines))
+        return {"runs": runs, "wall_s": wall, "timelines": timelines}
+
+
+def run_timeline(run: dict) -> dict:
+    """Where a ``run``'s wall time went, on the host's clock: from the
+    launch to the first stored step's stamp (``setup_s``: the launcher,
+    the aggregator, each rank's imports, device and model, and the first
+    step), the stamps' span (``loop_s``, of which ``compile_s`` in
+    compile events), and from the last stamp to the launcher's exit
+    (``tail_s``: the last steps' shipping and the finalize)."""
+    from traceml_tpu_torch.utils import timing as T
+
+    conn = sqlite3.connect(run["session"] / "telemetry.sqlite")
+    try:
+        first, last = conn.execute("SELECT MIN(timestamp), MAX(timestamp) FROM step_time_samples").fetchone()
+    finally:
+        conn.close()
+    compile_ms = sum((json.loads(events).get(T.COMPILE_TIME) or {}).get("cpu_ms") or 0.0
+                     for _, _, events in run["rows"])
+    return {"wall_s": run["wall_s"], "setup_s": first - run["started_at"], "loop_s": last - first,
+            "compile_s": compile_ms / 1e3, "tail_s": run["started_at"] + run["wall_s"] - last}
+
+
+def _scenario_gate(name: str, run: dict, detector) -> dict:
+    from traceml_tpu_torch.dev.precision_harness import _collect_fault_findings
+
+    summary = run["summary"]
+    hit, observed = detector(summary)
+    st = summary["sections"]["step_time"]
+    out = {"hit": hit, "observed": observed, "primary": summary["primary_diagnosis"]["kind"],
+           "issues": sorted({i["kind"] for i in st.get("issues") or []}),
+           "findings": [f["kind"] for f in _collect_fault_findings(summary)],
+           "clock": (st.get("global") or {}).get("clock"), "wall_s": run["wall_s"]}
+    log("scenario", f"{name}: " + json.dumps(out))
+    check(hit, f"run {name}: the harness's detector missed ({observed})")
+    return out
+
+
+def vit_stress_run_phase(scenarios: dict) -> dict:
+    """``vit_stress`` under ``run``: with no fault no fault-kind finding
+    anywhere, with ``input_bound`` INPUT_BOUND as the primary diagnosis."""
+    from traceml_tpu_torch.dev.precision_harness import _healthy, _primary_is
+
+    runs = scenarios["runs"]
+    none = _scenario_gate("vit_stress_none", runs["vit_stress_none"], _healthy)
+    check(none["findings"] == [], f"run vit_stress_none: fault findings {none['findings']}")
+    slow = _scenario_gate("vit_stress_input_bound", runs["vit_stress_input_bound"], _primary_is("INPUT_BOUND"))
+    return {"none": none, "input_bound": slow}
+
+
+def scenario_lab_phase(scenarios: dict) -> dict:
+    """The demo scenarios under ``run`` on the card, each held by the
+    precision harness's detector of it; ``input_straggler`` also sees four
+    ranks, ``recompile`` runs under inductor with compile events after the
+    warm-up on at least ``RECOMPILE_MIN_STEPS`` stored steps."""
+    from traceml_tpu_torch.dev.precision_harness import SCENARIOS
+    from traceml_tpu_torch.diagnostics.step_time.policy import SUMMARY_POLICY
+    from traceml_tpu_torch.utils import timing as T
+
+    runs = scenarios["runs"]
+    out = {}
+    for scenario in ("healthy", "input_bound", "input_straggler", "recompile", "checkpoint_stall", "memory_creep"):
+        name = f"scenario_{scenario}"
+        out[scenario] = _scenario_gate(name, runs[name], SCENARIOS[scenario][2])
+    topo = runs["scenario_input_straggler"]["summary"]["meta"]["topology"]
+    check(topo["world_size"] == 4 and sorted(topo["ranks_seen"]) == [0, 1, 2, 3],
+          f"run scenario_input_straggler: topology {topo}")
+    recompile = runs["scenario_recompile"]
+    compiled = [step for step, _, events in recompile["rows"]
+                if T.COMPILE_TIME in json.loads(events) and step > SUMMARY_POLICY.compile_warmup_steps]
+    line = [ln for ln in recompile["stdout"].splitlines() if ln.startswith("scenario recompile:")]
+    out["recompile"].update({"compile_steps_after_warmup": compiled, "line": line})
+    log("scenario", f"recompile: compile events on steps {compiled} after the warm-up; {line}")
+    check(len(compiled) >= RECOMPILE_MIN_STEPS, f"run scenario_recompile: compile events on steps {compiled}")
+    check(line and "backend inductor" in line[0], f"run scenario_recompile: not under inductor: {line}")
+    ckpt = runs["scenario_checkpoint_stall"]["summary"]["sections"]["step_time"]["global"]["phases"]["checkpoint"]
+    growth = runs["scenario_memory_creep"]["summary"]["sections"]["step_memory"]["global"]["per_rank"]["0"]
+    out["checkpoint_stall"]["checkpoint_mean_ms"] = ckpt["mean_ms"]
+    out["memory_creep"]["growth_bytes"] = growth["growth_bytes"]
+    return out
 
 
 def build_native() -> dict:
@@ -3529,8 +3856,29 @@ def main() -> int:
     log("time", f"parallel workloads phase {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     moe_pipeline = moe_pipeline_run_phase()
+    kernel["launches"] += moe_pipeline["flash_launches"]
     kernel["launches_by_path"]["moe_pipeline_run"] = moe_pipeline["flash_launches"]
     log("time", f"moe pipeline run phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    vit = vit_train_phase()
+    straggler_span_phase()
+    torch.cuda.empty_cache()
+    scenario = ScenarioRuns()
+    scenario.start(SCENARIO_FIRST)
+    scenario.wait(SCENARIO_FIRST[:2])
+    scenario.start({job[0] for job in SCENARIO_RUNS} - set(SCENARIO_FIRST))
+    scenarios = scenario.finish()
+    vit_stress_run_phase(scenarios)
+    scenario_lab_phase(scenarios)
+    # 0 on each: the ViT's attention is the einsum reference, as in JAX
+    by_path = {"vit_train": vit["launches"],
+               "vit_stress_run": sum(r["flash_launches"] for n, r in scenarios["runs"].items()
+                                     if n.startswith("vit_stress")),
+               "scenario_lab_run": sum(r["flash_launches"] for n, r in scenarios["runs"].items()
+                                       if n.startswith("scenario_"))}
+    kernel["launches"] += sum(by_path.values())
+    kernel["launches_by_path"].update(by_path)
+    log("time", f"vit and scenario lab phases {time.perf_counter() - t0:.2f} s")
     log("time", f"total {time.perf_counter() - started:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)

@@ -9,7 +9,10 @@ as the reference, with its collectives skipped): the tiny DecoderLM's
 AdamW step (hidden 256, head_dim 64) tensor-parallel on {tensor: 1} at
 S = 1024 (the flash kernel,
 once a layer and a forward), the MoE block on {expert: 1}, the pipeline
-on {stage: 1} against the sequential stack."""
+on {stage: 1} against the sequential stack.  The ViT's traced AdamW
+step in bf16 (on the device clock, no compile phase, the loss falling)
+and the compile tracker under inductor (a compiled model's shapes as
+``compile_time`` events in their steps, a fixed shape compiling once)."""
 
 import dataclasses
 import socket
@@ -150,3 +153,70 @@ def test_pipeline_on_card(nccl_group):
     out = make_pipeline_fn(linear_stage_apply, mesh, 4)(shard_stage_params(stacked, mesh), micro)
     ref = linear_stage_apply({n: t[0] for n, t in stacked.items()}, micro)
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_vit_traced_train_step_on_card(cuda_device):
+    from traceml_tpu_torch.models.vit import ViT, ViTConfig, make_vit_train_step
+    from traceml_tpu_torch.samplers.step_time_sampler import _aggregate_step
+    from traceml_tpu_torch.sdk import initial
+    from traceml_tpu_torch.sdk.instrumentation import trace_step
+    from traceml_tpu_torch.sdk.state import reset_state_for_tests
+    from traceml_tpu_torch.sdk.step_fn import wrap_step_fn
+    from traceml_tpu_torch.utils import timing as T
+
+    reset_state_for_tests()
+    try:
+        initial.init(mode="auto")
+        model = ViT(ViTConfig.tiny())
+        init, train_step = make_vit_train_step(model, learning_rate=5e-3)
+        init(0)
+        rng = np.random.default_rng(0)
+        images = torch.from_numpy(rng.normal(size=(8, 32, 32, 3)).astype(np.float32)).cuda()
+        labels = torch.from_numpy(rng.integers(0, 10, 8)).cuda()
+        step = wrap_step_fn(train_step)
+        T.GLOBAL_STEP_QUEUE.drain()
+        losses = []
+        for _ in range(10):
+            with trace_step():
+                losses.append(step(images, labels)["loss"])
+        torch.cuda.synchronize()
+        batches = T.GLOBAL_STEP_QUEUE.drain()
+        for batch in batches:
+            for ev in batch.events:
+                ev.try_resolve(late=False)
+        rows = [_aggregate_step(b.events)[0] for b in batches]
+        assert len(rows) == 10 and all(r["clock"] == "device" for r in rows)
+        assert not any(T.COMPILE_TIME in r["events"] for r in rows)
+        assert losses[-1].item() < losses[0].item()
+    finally:
+        reset_state_for_tests()
+
+
+@pytest.mark.cuda
+def test_compile_tracker_under_inductor_on_card(cuda_device):
+    import torch._dynamo
+
+    from traceml_tpu_torch.models.mlp import TinyMLP
+    from traceml_tpu_torch.sdk import initial
+    from traceml_tpu_torch.sdk.instrumentation import trace_step
+    from traceml_tpu_torch.sdk.state import get_state, reset_state_for_tests
+    from traceml_tpu_torch.utils import timing as T
+
+    torch._dynamo.reset()
+    reset_state_for_tests()
+    try:
+        initial.init(mode="auto")
+        model = torch.compile(TinyMLP(hidden=64, depth=2), dynamic=False)  # inductor
+        T.GLOBAL_STEP_QUEUE.drain()
+        for rows in (17, 17, 17, 18):
+            with trace_step():
+                model(torch.randn(rows, 64, device="cuda"))
+        torch.cuda.synchronize()
+        compiles = [(b.step, e.meta["trigger"]) for b in T.GLOBAL_STEP_QUEUE.drain()
+                    for e in b.events if e.name == T.COMPILE_TIME]
+        assert compiles == [(1, "dynamo"), (4, "dynamo")]
+        assert get_state().compile_events_seen == 2
+    finally:
+        reset_state_for_tests()
+        torch._dynamo.reset()

@@ -2,7 +2,8 @@
 
 A fresh interpreter imports every module of ``traceml_tpu_torch`` (those
 of each slice named, the transport tier's, the collectives domain's and
-the parallel layer's too) and ``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
+the parallel layer's, the model families' and the scenario lab's too) and
+``chip_smoke``, then no ``jax``/``jax.*`` and no ``traceml_tpu``/
 ``traceml_tpu.*`` module may be loaded (names matched exactly, since
 ``traceml_tpu_torch`` starts with ``traceml_tpu``).  An AST scan of the
 same files finds no such import statement either, and the two C sources
@@ -102,6 +103,14 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "traceml_tpu_torch.dev.measure_seq_parallel",
     }
     assert parallel_layer <= set(out["imported"])
+    models_and_scenarios = {  # the ViT and MLP families, the scenario lab, compile and checkpoint tracking
+        "traceml_tpu_torch.models.vit", "traceml_tpu_torch.models.mlp", "traceml_tpu_torch.dev.demo.scenarios",
+        "traceml_tpu_torch.dev.precision_harness", "traceml_tpu_torch.dev.scenarios.vit_stress",
+        "traceml_tpu_torch.dev.scenarios.bert_stress", "traceml_tpu_torch.instrumentation.compile_tracker",
+        "traceml_tpu_torch.instrumentation.checkpoint_patch", "traceml_tpu_torch.instrumentation.post_import",
+        "traceml_tpu_torch.integrations.huggingface",
+    }
+    assert models_and_scenarios <= set(out["imported"])
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 

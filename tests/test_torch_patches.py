@@ -18,6 +18,7 @@
   h2d, compute and the envelope, no forward.
 """
 
+import sys
 from collections import Counter
 
 import pytest
@@ -176,7 +177,9 @@ def test_unpatch_restores_originals_and_removes_hooks():
     from traceml_tpu_torch.sdk.state import get_state
 
     assert get_state().patches == [
-        "torch_h2d", "torch_dataloader", "torch_forward", "torch_backward", "torch_optimizer"]
+        "torch_h2d", "torch_dataloader", "torch_forward", "torch_backward", "torch_optimizer", "torch_save",
+        "torch_dcp[deferred]" if "torch.distributed.checkpoint" not in sys.modules else "torch_dcp[patched]",
+        "compile_tracker"]
     assert nn.Module.__call__ is not call and torch.Tensor.backward is not t_bwd
     assert torch.autograd.backward is not a_bwd
     port_patches.unpatch_all_torch()
@@ -192,10 +195,10 @@ def test_init_modes_install_what_they_say():
 
     call = nn.Module.__call__
     initial.init(mode="manual", device="cpu")
-    assert get_state().patches == [] and nn.Module.__call__ is call
+    assert get_state().patches == ["compile_tracker"] and nn.Module.__call__ is call
     reset_state_for_tests(device="cpu")
-    initial.init(mode="auto", device="cpu", patch_forward=False, patch_dataloader=False)
-    assert get_state().patches == ["torch_h2d", "torch_backward", "torch_optimizer"]
+    initial.init(mode="auto", device="cpu", patch_forward=False, patch_dataloader=False, patch_checkpoint=False)
+    assert get_state().patches == ["torch_h2d", "torch_backward", "torch_optimizer", "compile_tracker"]
 
 
 def test_dataloader_patch_times_each_batch():

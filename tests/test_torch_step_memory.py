@@ -6,9 +6,11 @@ peak at step start — what ``CudaMemoryBackend`` does — ``step_peak_bytes``
 is the allocator's step peak and ``peak_bytes`` the largest one seen.
 """
 
+import pytest
+
 from traceml_tpu.utils.step_memory import FakeMemoryBackend as JaxFake
 from traceml_tpu.utils.step_memory import StepMemoryTracker as JaxTracker
-from traceml_tpu_torch.utils.step_memory import FakeMemoryBackend, NullMemoryBackend, StepMemoryTracker
+from traceml_tpu_torch.utils.step_memory import FakeMemoryBackend, StepMemoryTracker, detect_backend
 from traceml_tpu_torch.utils.timing import drain_step_memory_rows
 
 
@@ -61,4 +63,24 @@ def test_peak_reset_backend_gives_true_step_peaks():
 
 
 def test_null_backend_records_nothing():
-    assert _run(StepMemoryTracker(NullMemoryBackend(), min_sample_interval_s=0)) == []
+    """A backend that sees no device emits no rows."""
+    assert _run(StepMemoryTracker(FakeMemoryBackend(), min_sample_interval_s=0)) == []
+
+
+def test_cpu_backend_is_the_resident_set():
+    """On the CPU the tracker records the process's resident bytes, one
+    ``cpu`` row a step: an allocation kept across steps shows as growth."""
+    torch = pytest.importorskip("torch")
+    tracker = StepMemoryTracker(detect_backend(torch.device("cpu")), min_sample_interval_s=0)
+    assert tracker.backend_name == "host_rss"
+    tracker.reset(1)
+    first = tracker.record(1)
+    kept = torch.ones(32 << 20, dtype=torch.uint8)  # 32 MiB, touched
+    tracker.reset(2)
+    second = tracker.record(2)
+    drain_step_memory_rows()
+    assert [r["device_kind"] for r in first + second] == ["cpu", "cpu"]
+    assert second[0]["current_bytes"] - first[0]["current_bytes"] >= 30 << 20
+    assert second[0]["peak_bytes"] >= second[0]["current_bytes"] > 0
+    assert second[0]["limit_bytes"] >= second[0]["peak_bytes"]
+    del kept

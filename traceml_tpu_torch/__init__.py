@@ -6,8 +6,11 @@ compute phase, residual) timed against CUDA events, per-step memory
 comes from the CUDA caching allocator, and the rows turn into a
 step-time verdict (INPUT_BOUND, COMPUTE_BOUND, LOW_MFU, …).
 ``init(mode="auto")`` patches ``Tensor.to``/``.cuda`` (host→device
-copies), the DataLoader, ``nn.Module.__call__``, ``backward`` and
-``Optimizer.step``; ``wrap_step_fn``'s first in-step call,
+copies), the DataLoader, ``nn.Module.__call__``, ``backward``,
+``Optimizer.step``, and ``torch.save`` and DCP's ``save`` (the
+``checkpoint`` phase; ``wrap_checkpoint`` for another saver), and turns
+dynamo's compiles into ``compile_time`` events (COMPILE_BOUND);
+``wrap_step_fn``'s first in-step call,
 ``estimate_step_flops`` or ``set_step_flops`` gives the MFU numerator,
 ``set_step_tokens`` the tokens/s one.
 ``python -m traceml_tpu_torch run script.py`` runs a script under
@@ -45,6 +48,7 @@ _API_SYMBOLS = (
     "wrap_optimizer",
     "wrap_h2d",
     "wrap_collective",
+    "wrap_checkpoint",
     "instrument_collective",
     "patch_dist_collectives",
     "make_mesh",

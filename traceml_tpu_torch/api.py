@@ -16,6 +16,7 @@ from traceml_tpu_torch.sdk.step_fn import wrap_step_fn  # noqa: F401
 from traceml_tpu_torch.sdk.summary_client import final_summary, live_metrics, summary  # noqa: F401
 from traceml_tpu_torch.sdk.wrappers import (  # noqa: F401
     wrap_backward,
+    wrap_checkpoint,
     wrap_collective,
     wrap_forward,
     wrap_h2d,

@@ -20,6 +20,15 @@ Two things differ from the JAX package, whose timers are host-clock:
   step's accounted phases.  Nor is a module call made while
   ``backward()`` is timed: that is the recompute of a checkpointed block
   (``ModelConfig.remat``), part of the backward's work.
+
+Under ``torch.compile`` dynamo traces through the patched
+``nn.Module.__call__`` of every submodule of a compiled model (and
+through ``backward()`` called in a compiled function).  Reading the
+trace state there would put it in the graph's guards: a graph break, a
+recompile a step, or an error.  So both patches step aside first thing
+inside a compiled frame (``torch.compiler.is_compiling()``, a constant
+to dynamo) and call the original; the outermost call, made from eager
+code, stays timed.
 """
 
 from __future__ import annotations
@@ -80,14 +89,18 @@ def _records_forward(st: TraceState) -> bool:
 
 
 def patch_torch_forward() -> bool:
+    import torch
     import torch.nn as nn
 
     with _lock:
         if "forward" in _originals:
             return True
         original = nn.Module.__call__
+        is_compiling = torch.compiler.is_compiling
 
         def patched_call(self, *args, **kwargs):  # noqa: ANN001
+            if is_compiling():  # inside a compiled frame: dynamo's to trace
+                return original(self, *args, **kwargs)
             st = get_state()
             if not _records_forward(st) or not _is_target(self):
                 return original(self, *args, **kwargs)
@@ -106,8 +119,11 @@ def patch_torch_backward() -> bool:
             return True
         orig_tensor_bwd = torch.Tensor.backward
         orig_autograd_bwd = torch.autograd.backward
+        is_compiling = torch.compiler.is_compiling
 
         def _timed(fn: Callable, *args, **kwargs):  # noqa: ANN001
+            if is_compiling():
+                return fn(*args, **kwargs)
             st = get_state()
             if not _records(st, "backward_depth"):
                 return fn(*args, **kwargs)

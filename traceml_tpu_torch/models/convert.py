@@ -8,6 +8,9 @@ slice of a whole ``state_dict``.
   (``models/moe.py``); its einsum weights keep their layout.
 * :func:`stage_params_from_jax`: the stacked params of the pipeline's
   linear stages (``parallel/pipeline.py``).
+* :func:`vit_params_from_jax`: the flax ``ViT`` (``models/vit.py``); its
+  HWIO patch kernel becomes the (hidden, p·p·C) weight of ``PatchEmbed``.
+* :func:`mlp_params_from_jax`: the flax ``TinyMLP`` (``models/mlp.py``).
 * :func:`local_state_dict`: this rank's piece of a whole ``state_dict``
   under DTensor placements, cut on the mesh axes named (``tensor`` for
   the tensor-parallel DecoderLM, ``expert`` for the MoE block's experts).
@@ -101,6 +104,57 @@ def stage_params_from_jax(stacked: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     (S, W), a leading stage dim on each) → one tensor per leaf."""
     tree = _Reader(stacked)
     sd = {name: _tensor(tree.take(name)) for name in ("w", "b")}
+    tree.check()
+    return sd
+
+
+def _dense(tree: _Reader, sd: Dict[str, torch.Tensor], name: str, *path: str) -> None:
+    """A flax ``Dense`` at ``path``: its (in, out) kernel as the (out, in)
+    ``name.weight``, and its bias, when it has one, as ``name.bias``."""
+    node = tree.params
+    for key in path:
+        node = node[key]
+    sd[f"{name}.weight"] = _tensor(tree.take(*path, "kernel")).T.contiguous()
+    if "bias" in node:
+        sd[f"{name}.bias"] = _tensor(tree.take(*path, "bias"))
+
+
+def vit_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map every flax ``ViT`` leaf to its torch name.  The patch
+    embedding's ``Conv`` kernel (p, p, C, hidden) is read row-major as
+    (p·p·C, hidden), the order in which ``PatchEmbed`` flattens a patch,
+    then transposed."""
+    tree = _Reader(params)
+    take = tree.take
+    kernel = _tensor(take("patch_embed", "kernel"))
+    sd: Dict[str, torch.Tensor] = {
+        "patch_embed.weight": kernel.reshape(-1, kernel.shape[-1]).T.contiguous(),
+        "patch_embed.bias": _tensor(take("patch_embed", "bias")),
+        "pos_embed": _tensor(take("pos_embed")),
+    }
+    n_layers = sum(1 for name in params if name.startswith("layer_"))
+    for i in range(n_layers):
+        layer, prefix = f"layer_{i}", f"layers.{i}"
+        for norm in ("attn_norm", "mlp_norm"):
+            sd[f"{prefix}.{norm}.scale"] = _tensor(take(layer, norm, "scale"))
+        for name in _ATTN + ("w_up", "w_down"):
+            _dense(tree, sd, f"{prefix}.{name}", layer, name)
+    sd["final_norm.scale"] = _tensor(take("final_norm", "scale"))
+    _dense(tree, sd, "head", "head")
+    tree.check()
+    return sd
+
+
+def mlp_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map every flax ``TinyMLP`` leaf (``Dense_0`` … ``Dense_depth``) to
+    the port's names: ``layers.{i}`` for the hidden layers, ``head`` for
+    the last."""
+    tree = _Reader(params)
+    depth = sum(1 for name in params if name.startswith("Dense_")) - 1
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(depth):
+        _dense(tree, sd, f"layers.{i}", f"Dense_{i}")
+    _dense(tree, sd, "head", f"Dense_{depth}")
     tree.check()
     return sd
 

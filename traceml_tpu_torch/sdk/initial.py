@@ -5,17 +5,24 @@ Counterpart of ``traceml_tpu/sdk/initial.py``.  Modes:
 * ``auto``      — apply every patch: ``torch_h2d`` (``Tensor.to`` and
   ``Tensor.cuda``, host→device copies only), ``torch_dataloader``
   (``DataLoader.__iter__``), ``torch_forward`` (``nn.Module.__call__``),
-  ``torch_backward`` (``Tensor.backward``, ``torch.autograd.backward``)
-  and ``torch_optimizer`` (global ``Optimizer.step`` hooks);
-  ``patch_*=False`` narrows the set, ``traced_model=`` limits forward
-  timing to one model;
+  ``torch_backward`` (``Tensor.backward``, ``torch.autograd.backward``),
+  ``torch_optimizer`` (global ``Optimizer.step`` hooks) and
+  ``torch_save`` + ``torch_dcp[patched|deferred]`` (the checkpoint
+  phase: ``torch.save`` and ``torch.distributed.checkpoint.save``, the
+  latter now or at its first import); ``patch_*=False`` narrows the set,
+  ``traced_model=`` limits forward timing to one model;
 * ``manual``    — none; the user calls the wrappers,
 * ``selective`` — explicit per-patch booleans (as ``auto``, read the same
   way).
 
-``st.patches`` records what was installed.  The JAX package's other
-patches (orbax, torch-xla ``mark_step``, the compile tracker) have no
-counterpart here; its ``jax_h2d`` patch is ``torch_h2d``.  ``device``
+In every mode, as JAX installs its compile listener, ``init`` installs
+the compile tracker (``instrumentation/compile_tracker.py``: dynamo's
+compile callbacks, now when ``torch._dynamo`` is imported, else at its
+first import), listed last as ``compile_tracker``: compile visibility is core
+telemetry, not a patch.  ``st.patches`` records what was installed.
+The JAX package's orbax patch is ``torch_save`` + ``torch_dcp``, its
+``jax_h2d`` patch ``torch_h2d``; torch-xla's ``mark_step`` has no
+counterpart.  ``device``
 sets the trace's device: CUDA by default, raising without CUDA (before
 any patch is installed); ``device="cpu"`` runs on the CPU.
 
@@ -84,8 +91,25 @@ def init(mode: str = "auto", device: Any = None, **kwargs) -> TraceMLInitConfig:
         ):
             if flag and install():
                 applied.append(name)
+        if cfg.patch_checkpoint:
+            try:
+                from traceml_tpu_torch.instrumentation.checkpoint_patch import install_checkpoint_patch
+
+                outcome = install_checkpoint_patch()  # DCP now, or at its first import
+                applied.append("torch_save")
+                if outcome != "noop":
+                    applied.append(f"torch_dcp[{outcome}]")
+            except Exception as exc:
+                get_error_log().warning("checkpoint patch failed", exc)
         if cfg.traced_model is not None:
             set_traced_model(cfg.traced_model)
+    try:
+        from traceml_tpu_torch.instrumentation.compile_tracker import install_compile_tracker
+
+        if install_compile_tracker() != "noop":
+            applied.append("compile_tracker")
+    except Exception as exc:
+        get_error_log().warning("compile tracker failed", exc)
     st.patches = applied
     st.initialized = True
     st.patch_mode = mode
@@ -99,10 +123,14 @@ start = init
 
 def shutdown_patches() -> None:
     """Remove every auto-patch and forget the init (tests, clean embedding)."""
+    from traceml_tpu_torch.instrumentation.checkpoint_patch import unpatch_checkpoint
+    from traceml_tpu_torch.instrumentation.compile_tracker import uninstall_compile_tracker
     from traceml_tpu_torch.instrumentation.dataloader import unpatch_torch_dataloader
     from traceml_tpu_torch.instrumentation.patches.torch_h2d_patch import unpatch_torch_h2d
     from traceml_tpu_torch.instrumentation.patches.torch_patches import unpatch_all_torch
 
+    unpatch_checkpoint()
+    uninstall_compile_tracker()
     unpatch_torch_h2d()
     unpatch_torch_dataloader()
     unpatch_all_torch()

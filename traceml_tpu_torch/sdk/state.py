@@ -37,6 +37,7 @@ class _TLS(threading.local):
         self.compute_depth = 0
         self.h2d_depth = 0
         self.collective_depth = 0
+        self.checkpoint_depth = 0
         self.dataloader_depth = 0
 
 
@@ -53,6 +54,9 @@ class TraceState:
         self.patch_mode: Optional[str] = None
         self.patches: List[str] = []
         self.active_step_event: Optional[TimeEvent] = None
+        # dynamo compiles seen by the compile tracker
+        # (instrumentation/compile_tracker.py), all of them, in any step
+        self.compile_events_seen = 0
         self._device = None if device is None else resolve_device(device)
         # host time of the previous trace_step exit: successive steps tile
         # the wall clock, so inter-step host time (input fetch) is

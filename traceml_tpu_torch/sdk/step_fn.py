@@ -1,10 +1,15 @@
 """Step-function wrapper for a torch callable.
 
 Counterpart of ``traceml_tpu/sdk/step_fn.py``.  Each call of the wrapped
-function is a ``compute_time`` region.  PyTorch runs eagerly, so there is
-no jit, no compile tracker and no search of the outputs for a handle: the
-device marker is a CUDA event recorded on the device's current stream
-right after the call returns, when all of the call's work is enqueued.
+function is a ``compute_time`` region.  The function runs as the caller
+wrote it (eager, or ``torch.compile``d by the caller: the wrapper jits
+nothing), and there is no search of the outputs for a handle: the device
+marker is a CUDA event recorded on the device's current stream right
+after the call returns, when all of the call's work is enqueued.  As in
+JAX, the wrapper makes sure the process-wide compile tracker is
+installed (``instrumentation/compile_tracker.py``: dynamo's compiles as
+``compile_time`` events) and ``compile_count`` reads the compiles seen
+since it was built.
 
 The model FLOPs of a step, the MFU numerator: where the JAX wrapper asks
 XLA's cost analysis of the lowered program once, before the first
@@ -14,6 +19,13 @@ twice) and the count is declared with ``set_step_flops(source=
 "flop_counter")``.  A value declared before that call wins, and an
 out-of-step call (an eval loop) neither counts nor spends the estimate.
 ``estimate_flops=False`` turns the count off.
+
+The counted call runs under ``torch.compiler.set_stance("force_eager")``:
+``FlopCounterMode`` is a dispatch mode, and dynamo, asked to compile a
+frame under one, skips it and marks its code to be skipped for good, so
+a ``torch.compile``d model would never compile.  Forced eager, dynamo
+does not see the frame at all; the model's first compile moves to the
+second call, and the count is the same operations'.
 
 The counter's first op pays a one-off set-up (it imports DTensor, dynamo
 and sympy: 1.5 s on an idle CPU host, far more on a loaded one).  Inside
@@ -75,6 +87,18 @@ class WrappedStepFn:
         if estimate_flops:
             _prime_flop_counter()
         self.__wrapped__ = fn
+        from traceml_tpu_torch.instrumentation.compile_tracker import install_compile_tracker
+
+        install_compile_tracker()
+        # the tracker bumps the CURRENT global state: the snapshot and the
+        # later read both come from get_state()
+        self._compiles_at_start = get_state().compile_events_seen
+
+    @property
+    def compile_count(self) -> int:
+        """Process-wide compile events seen since this wrapper was built
+        (a superset of this function's own compiles)."""
+        return get_state().compile_events_seen - self._compiles_at_start
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         st = self._state
@@ -92,7 +116,9 @@ class WrappedStepFn:
         try:
             with region as tr:
                 if counter is not None:
-                    with counter:
+                    import torch
+
+                    with torch.compiler.set_stance("force_eager"), counter:
                         out = self._fn(*args, **kwargs)
                 else:
                     out = self._fn(*args, **kwargs)

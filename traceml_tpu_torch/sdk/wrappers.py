@@ -4,12 +4,14 @@ Counterpart of the parts of ``traceml_tpu/sdk/wrappers.py`` that the port
 has: ``publish_region_marker`` (the shared marker chokepoint),
 ``wrap_forward``, ``wrap_backward`` and ``wrap_optimizer`` (each a timed
 phase, duplicate-guarded against the auto-patches by the TLS depth
-gates), ``wrap_h2d`` (a timed, marked host→device copy) and
+gates), ``wrap_h2d`` (a timed, marked host→device copy),
 ``wrap_collective`` (an explicit collective timed as the ``collective``
-phase).  Each region
-closes with a CUDA marker after its work: on its output's device, or on
-the trace's device when it returns no tensor (``backward()``,
-``step()``).
+phase) and ``wrap_checkpoint`` (a save timed as the ``checkpoint``
+phase).  Each device-side region closes with a CUDA marker after its
+work: on its output's device, or on the trace's device when it returns
+no tensor (``backward()``, ``step()``).  A checkpoint save is host work
+that ends when its bytes are written, so it is timed on the host clock
+alone, as JAX times it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from traceml_tpu_torch.utils.device import resolve_device
 from traceml_tpu_torch.utils.marker_resolver import get_marker_resolver
 from traceml_tpu_torch.utils.timing import (
     BACKWARD_TIME,
+    CHECKPOINT_TIME,
     COLLECTIVE_TIME,
     FORWARD_TIME,
     H2D_TIME,
@@ -36,6 +39,17 @@ def timed_call(phase: str, depth_attr: str, fn: Callable, st: TraceState,
     """``fn(*args, **kwargs)`` as one timed, marked ``phase`` region, with
     the TLS gate ``depth_attr`` raised while it runs; untimed when an
     outer wrapper or patch of the phase is timing already."""
+    return _timed_call(phase, depth_attr, fn, st, True, args, kwargs)
+
+
+def host_timed_call(phase: str, depth_attr: str, fn: Callable, st: TraceState,
+                    *args: Any, **kwargs: Any) -> Any:
+    """:func:`timed_call` with no device marker: host work."""
+    return _timed_call(phase, depth_attr, fn, st, False, args, kwargs)
+
+
+def _timed_call(phase: str, depth_attr: str, fn: Callable, st: TraceState, mark: bool,
+                args: tuple, kwargs: dict) -> Any:
     tls = st.tls
     depth = getattr(tls, depth_attr)
     if depth > 0:
@@ -45,7 +59,7 @@ def timed_call(phase: str, depth_attr: str, fn: Callable, st: TraceState,
         region = timed_region(phase, st.current_step, sink=st.buffer.add)
         with region as tr:
             out = fn(*args, **kwargs)
-            if st.markers_enabled():
+            if mark and st.markers_enabled():
                 tr.mark(out, st.marker_device)
         publish_region_marker(region.event, st)
         return out
@@ -182,6 +196,24 @@ def wrap_collective(fn: Callable, state: Optional[TraceState] = None) -> Callabl
     @functools.wraps(fn)
     def wrapped(*args: Any, **kwargs: Any):
         return timed_call(COLLECTIVE_TIME, "collective_depth", fn, st, *args, **kwargs)
+
+    wrapped._traceml_wrapped = True  # type: ignore[attr-defined]
+    return wrapped
+
+
+def wrap_checkpoint(fn: Callable, state: Optional[TraceState] = None) -> Callable:
+    """Time a checkpoint save as the first-class ``checkpoint`` phase, on
+    the host clock.  A blocking save gates every synchronous step, and
+    without this phase its time lands in ``residual``.  The checkpoint
+    auto-patch (``instrumentation/checkpoint_patch.py``) applies it to
+    ``torch.save`` and ``torch.distributed.checkpoint.save``; wrap another
+    saver by hand.  Nested savers are timed once (the ``checkpoint_depth``
+    gate)."""
+    st = state or get_state()
+
+    @functools.wraps(fn)
+    def wrapped(*args: Any, **kwargs: Any):
+        return host_timed_call(CHECKPOINT_TIME, "checkpoint_depth", fn, st, *args, **kwargs)
 
     wrapped._traceml_wrapped = True  # type: ignore[attr-defined]
     return wrapped

@@ -12,8 +12,10 @@ per step and device:
 * ``limit_bytes``     — device capacity
 
 Backends are pluggable: ``CudaMemoryBackend`` reads the caching
-allocator's counters (``torch.cuda.memory_stats_as_nested_dict()``); on the CPU the null backend records
-nothing, and tests inject the scripted fake.
+allocator's counters (``torch.cuda.memory_stats_as_nested_dict()``); on
+the CPU ``HostMemoryBackend`` reads the process's resident bytes, the
+stand-in for JAX's count of live arrays there; tests inject the scripted
+fake.
 
 ``device_memory_rows`` forms the system and process samplers' per-device
 rows from the same backend.
@@ -90,19 +92,34 @@ class FakeMemoryBackend:
         return [dict(row) for row in sample]
 
 
-class NullMemoryBackend:
-    name = "null"
+class HostMemoryBackend:
+    """The process's resident set (``/proc/self/statm``) as device 0 of
+    kind ``cpu``: on the CPU, tensors live in the host's memory.  No peak
+    reset: its peak is the largest sample it has taken."""
+
+    name = "host_rss"
+
+    def __init__(self) -> None:
+        import os
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._limit = self._page * os.sysconf("SC_PHYS_PAGES")
+        self._peak = 0
 
     def sample(self) -> List[Dict[str, Any]]:
-        return []
+        with open("/proc/self/statm") as f:
+            current = int(f.read().split()[1]) * self._page
+        self._peak = max(self._peak, current)
+        return [{"device_id": 0, "device_kind": "cpu", "current_bytes": current,
+                 "peak_bytes": self._peak, "limit_bytes": self._limit}]
 
 
 def detect_backend(device: Any) -> MemoryBackend:
     """The backend for a resolved ``torch.device``: CUDA counters on a
-    CUDA device, the null backend on the CPU."""
+    CUDA device, the process's resident set on the CPU."""
     if getattr(device, "type", None) == "cuda":
         return CudaMemoryBackend(device)
-    return NullMemoryBackend()
+    return HostMemoryBackend()
 
 
 class StepMemoryTracker:
