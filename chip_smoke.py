@@ -318,6 +318,23 @@
    the precision harness's own detectors (``dev/precision_harness.py``),
    each with the HTML, transport and code-manifest gates of every
    ``run`` and 0 flash launches.
+18. The Lightning and Ray integrations and the profile capture, last.
+   ``lightning_callback_phase``: 30 full-width AdamW steps in process
+   through the port's ``TraceMLCallback``, its hooks called in Lightning
+   2.x's automatic-optimization order on a stand-in
+   ``lightning.pytorch.Callback`` (Lightning is not installed; the log
+   says so): every row on the device clock with one forward, backward and
+   optimizer region, their sum within the step, 12 launches a step.
+   ``ray_loop_phase``: ``traceml_train_loop`` on a stand-in ``ray`` whose
+   actors live in this process: rank 0's aggregator actor, the endpoint,
+   60 full-width steps (the summary's verdict needs 50), the actor
+   finalized and killed; ``final_summary.json`` with 60 device-clock
+   steps and the verdict of the MFU's band, 12 launches a step.  The
+   bounded run (above) is also the profile capture's target: while it
+   trains, ``python -m traceml_tpu_torch profile <session> --steps 5``
+   must exit 0 with an ``ok`` response and a Chrome trace for rank 0
+   whose CUDA kernel events hold the flash kernel 12 times a profiled
+   step; the bounded run's own gates stay as they were.
 
 Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -750,20 +767,6 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-_SEED_WEIGHTS = {}
-
-
-def seed_state_dict(cfg) -> dict:
-    """``params_from_jax(random_flax_params(cfg, SEED))`` (the weights
-    ``build_train_state`` loads), made once per model shape: every route
-    of the in-process comparisons starts from them."""
-    from traceml_tpu_torch.dev.workload import random_flax_params
-    from traceml_tpu_torch.models.convert import params_from_jax
-
-    key = (cfg.vocab_size, cfg.hidden, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden)
-    if key not in _SEED_WEIGHTS:
-        _SEED_WEIGHTS[key] = params_from_jax(random_flax_params(cfg, SEED))
-    return _SEED_WEIGHTS[key]
 
 
 def train_route(tokens, cfg, use_plain: bool, mesh=None, timed: bool = False) -> dict:
@@ -777,12 +780,12 @@ def train_route(tokens, cfg, use_plain: bool, mesh=None, timed: bool = False) ->
     (``cuda_ms``, 5 steps after 3 warm-ups)."""
     from contextlib import nullcontext
 
-    from traceml_tpu_torch.dev.workload import cuda_ms
-    from traceml_tpu_torch.models.transformer import init_train_state, loss_fn, make_train_step
+    from traceml_tpu_torch.dev.workload import build_train_state, cuda_ms
+    from traceml_tpu_torch.models.transformer import loss_fn, make_train_step
     from traceml_tpu_torch.ops import attention as attention_mod
     from traceml_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
-    model, optimizer = init_train_state(cfg, seed=SEED, mesh=mesh, state_dict=seed_state_dict(cfg))
+    model, optimizer = build_train_state(cfg, SEED, mesh=mesh)
     start = {n: _full(p.detach()).clone() for n, p in model.named_parameters()}
     plain = mock.patch.object(attention_mod, "flash_attention", flash_attention_plain)
     with plain if use_plain else nullcontext():
@@ -1085,11 +1088,14 @@ def launch_run(name: str, delay_ms: float, interval_s: float, script: str = "for
     manifest = read("manifest.json")
     code = check_code_manifest(name, REPO / "traceml_tpu_torch" / "dev" / script, read("code_manifest.json"),
                                manifest)
-    return {"summary": summary, "html": html_gate, "manifest": manifest, "code_manifest": code,
-            "ingest": ingest, "transport": check_transport(name, session, ingest, transport, codec),
-            "system_manifest": read("system_manifest.json", required=expect_ok),
-            "rows": rows, "tables": tables, "stdout": out, "stderr": err, "wall_s": wall_s, "steps": steps,
-            "mode": mode, "session": session, "interval_s": interval_s, "started_at": started_at}
+    got = {"summary": summary, "html": html_gate, "manifest": manifest, "code_manifest": code,
+           "ingest": ingest, "transport": check_transport(name, session, ingest, transport, codec),
+           "system_manifest": read("system_manifest.json", required=expect_ok),
+           "rows": rows, "tables": tables, "stdout": out, "stderr": err, "wall_s": wall_s, "steps": steps,
+           "mode": mode, "session": session, "interval_s": interval_s, "started_at": started_at}
+    if rows:
+        log("time", f"run {name}: " + json.dumps(run_timeline(got)))
+    return got
 
 
 def flash_launches(name: str, run: dict) -> int:
@@ -2609,6 +2615,8 @@ BOUNDED_CAP = 340  # --trace-max-steps: the 340 live step rows pass retention + 
 BOUNDED_WINDOW = 40  # --summary-window-rows: retention 60 raw rows, past the summary's 50 aligned steps
 BOUNDED_LATE_STEPS = 5  # steps the drain tick may ship past the cap (flushed before it ran)
 STDERR_MARKER = "train_script: stderr marker, loop ended at "
+PROFILE_STEPS = 5  # the steps `profile` asks the bounded run to trace
+PROFILE_TIMEOUT_S = 120
 
 
 class IngestProbe:
@@ -2635,6 +2643,94 @@ class IngestProbe:
                         self.finished_ts = stats["ts"]
         except Exception as exc:
             self.error = "".join(traceback.format_exception(type(exc), exc, exc.__traceback__))
+
+
+class ProbeGroup:
+    """Several probes beside one ``launch_run`` call, each on its own
+    thread, ended together (``launch_run`` takes one probe)."""
+
+    def __init__(self, *probes) -> None:
+        self.probes = probes
+        self.done = threading.Event()
+        self.run_ended_at = None
+
+    def run(self, logs: Path) -> None:
+        threads = [threading.Thread(target=p.run, args=(logs,), daemon=True) for p in self.probes]
+        for t in threads:
+            t.start()
+        self.done.wait()
+        for p in self.probes:
+            p.run_ended_at = self.run_ended_at
+            p.done.set()
+        for t in threads:
+            t.join(timeout=60)
+
+
+class ProfileProbe:
+    """``python -m traceml_tpu_torch profile <session> --steps
+    PROFILE_STEPS`` against a ``run`` while it trains, from a thread
+    beside ``launch_run``: it waits for the session's dir, then calls the
+    command as a user would (it writes the request and waits for the
+    response).  It keeps the command's exit code, output and wall time;
+    ``check_profile_capture`` gates them."""
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.run_ended_at = None
+        self.error = None
+        self.result = None
+
+    def run(self, logs: Path) -> None:
+        try:
+            deadline = time.monotonic() + 120
+            session = None
+            while session is None and time.monotonic() < deadline and not self.done.is_set():
+                found = [p for p in logs.glob("*/manifest.json")]
+                session = found[0].parent if found else None
+                if session is None:
+                    time.sleep(0.2)
+            check(session is not None, "profile probe: no session dir appeared")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "traceml_tpu_torch", "profile", str(session), "--steps", str(PROFILE_STEPS),
+                 "--timeout", str(PROFILE_TIMEOUT_S)],
+                cwd=REPO, capture_output=True, text=True, timeout=PROFILE_TIMEOUT_S + 60,
+                env=dict(os.environ, PYTHONPATH=str(REPO)))
+            self.result = {"session": session, "rc": proc.returncode, "stdout": proc.stdout,
+                           "stderr": proc.stderr, "wall_s": time.perf_counter() - t0}
+        except Exception as exc:
+            self.error = "".join(traceback.format_exception(type(exc), exc, exc.__traceback__))
+
+
+def check_profile_capture(name: str, probe: ProfileProbe, layers: int) -> dict:
+    """The ``profile`` command's gates: exit 0 with "trace captured", an
+    ``ok`` response of ``PROFILE_STEPS`` steps, not truncated, from rank 0,
+    and one Chrome trace for the run's one rank whose CUDA kernel events
+    hold the flash kernel ``layers`` times a profiled step.  Reported: the
+    command's wall time, the profiled steps' kernel time a step, the
+    trace's size and its kernels a step."""
+    check(probe.error is None, f"run {name}: the profile probe failed: {probe.error}")
+    got = probe.result
+    check(got is not None, f"run {name}: the profile command did not run")
+    check(got["rc"] == 0 and "trace captured" in got["stdout"],
+          f"run {name}: profile exited {got['rc']}: {got['stdout'][-500:]} {got['stderr'][-1500:]}")
+    resp = json.loads((got["session"] / "control" / "profile_response.json").read_text())
+    check(resp["ok"] and resp["steps"] == PROFILE_STEPS and not resp["truncated"] and resp["rank"] == 0,
+          f"run {name}: profile response {resp}")
+    traces = sorted(Path(resp["trace_dir"]).glob("rank_*/trace.json"))
+    check([t.parent.name for t in traces] == ["rank_0"], f"run {name}: traces {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash = [e for e in kernels if "flash_fwd" in e.get("name", "")]
+    check(len(flash) == layers * PROFILE_STEPS,
+          f"run {name}: the trace holds {len(flash)} flash kernel events, not {layers} x {PROFILE_STEPS}")
+    out = {"wall_s": got["wall_s"], "steps": resp["steps"], "trace_bytes": traces[0].stat().st_size,
+           "kernels_per_step": len(kernels) / PROFILE_STEPS, "flash_per_step": len(flash) / PROFILE_STEPS,
+           "kernel_ms_per_step": sum(e.get("dur", 0.0) for e in kernels) / 1e3 / PROFILE_STEPS,
+           "flash_ms_mean": statistics.fmean(e["dur"] for e in flash) / 1e3,
+           "trace_dir": resp["trace_dir"]}
+    log("profile", f"{name}: " + json.dumps(out))
+    return out
 
 
 def _walk_backup(path: Path) -> int:
@@ -2710,12 +2806,13 @@ def bounded_run_phase(cfg, train_healthy: dict) -> dict:
     from traceml_tpu_torch.utils import timing as T
 
     name, retention, interval = "train_bounded", int(BOUNDED_WINDOW * 1.5), 0.1
-    probe = IngestProbe()
+    probe, profile = IngestProbe(), ProfileProbe()
     run = launch_run(name, 0.0, interval, script="train_script.py", steps=BOUNDED_STEPS, mode="cli",
-                     script_args=("--stderr-marker",), probe=probe,
+                     script_args=("--stderr-marker",), probe=ProbeGroup(probe, profile),
                      launcher_args=("--trace-max-steps", str(BOUNDED_CAP), "--summary-window-rows",
                                     str(BOUNDED_WINDOW), "--disk-backup", "--no-capture-stderr"))
     check(probe.error is None, f"run {name}: the ingest probe failed: {probe.error}")
+    capture = check_profile_capture(name, profile, cfg.n_layers)
     session, summary, manifest, ingest = run["session"], run["summary"], run["manifest"], run["ingest"]
     check((manifest["status"], manifest["telemetry_status"]) == ("completed", "ok"),
           f"run {name}: manifest {manifest['status']}/{manifest['telemetry_status']}")
@@ -2845,7 +2942,7 @@ def bounded_run_phase(cfg, train_healthy: dict) -> dict:
         "view_s": view_s, "view_json_s": view_json_s, "inspect_s": inspect_s, "inspect_rollup_s": rollup_s,
         "wall_s": run["wall_s"], "finalize_s": manifest.get("finalize_sec"),
         "nvml_utilization_pct_recent_mean": telemetry["utilization_pct_recent_mean"],
-        "session": str(session),
+        "session": str(session), "profile_capture": capture,
     }
     log("bounded", f"{name} " + json.dumps(out))
     run_ms, ref_ms = out["step_device_ms"], train_healthy["step_device_ms"]
@@ -3560,6 +3657,7 @@ def straggler_span_phase() -> dict:
     import traceml_tpu_torch as tm
     from traceml_tpu_torch.models.mlp import TinyMLP, make_mlp_train_step
     from traceml_tpu_torch.utils import timing as T
+    from traceml_tpu_torch.utils.overhead_governor import get_governor, reset_governor_for_tests
 
     model = TinyMLP(hidden=256, depth=3)
     init, train_step = make_mlp_train_step(model)
@@ -3573,10 +3671,17 @@ def straggler_span_phase() -> dict:
         time.sleep(STRAGGLER_SLEEP_S)
         return loss
 
+    # the lab runs this scenario in a process of its own, so it starts from
+    # the overhead governor such a process has: the marker stride that the
+    # ViT's 10-20 ms steps left behind holds for up to 8 more steps, and a
+    # first step it does not sample carries no compute marker
+    left = {"stride": get_governor().marker_stride, "probe_us": get_governor().probe_cost_ema * 1e6}
+    reset_governor_for_tests()
     run = traced_loop(tm.wrap_step_fn(slow, estimate_flops=False), batches, STRAGGLER_STEPS, 0.0)
     compute = [r["events"][T.COMPUTE_TIME].get("device_ms") for r in run["rows"]]
     log("scenario", f"compute straggler span: compute device ms {compute}, clocks "
-                    f"{sorted({r['clock'] for r in run['rows']})}")
+                    f"{sorted({r['clock'] for r in run['rows']})}, late markers "
+                    f"{sum(r.get('late_markers', 0) for r in run['rows'])}; the governor left before it {left}")
     check(len(compute) == STRAGGLER_STEPS and all(r["clock"] == "device" for r in run["rows"]),
           "compute straggler: a row not on the device clock")
     check(all(v is not None and v >= STRAGGLER_SPAN_MIN * STRAGGLER_SLEEP_S * 1e3 for v in compute),
@@ -3707,6 +3812,264 @@ def scenario_lab_phase(scenarios: dict) -> dict:
     growth = runs["scenario_memory_creep"]["summary"]["sections"]["step_memory"]["global"]["per_rank"]["0"]
     out["checkpoint_stall"]["checkpoint_mean_ms"] = ckpt["mean_ms"]
     out["memory_creep"]["growth_bytes"] = growth["growth_bytes"]
+    return out
+
+
+LIGHTNING_STEPS = 30
+RAY_STEPS = 60  # the summary's step-time verdict needs 50 aligned steps
+
+
+@contextlib.contextmanager
+def stand_in_module(name: str, **attrs):
+    """``name`` (and its parents) in ``sys.modules`` as plain modules
+    holding ``attrs``, for the extent of the block, unless the real
+    package imports; yields whether a stand-in was used."""
+    import importlib
+    import types
+
+    try:
+        importlib.import_module(name)
+        yield False
+        return
+    except ImportError:
+        pass
+    parts = name.split(".")
+    added = []
+    for i in range(1, len(parts) + 1):
+        mod_name = ".".join(parts[:i])
+        if mod_name not in sys.modules:
+            sys.modules[mod_name] = types.ModuleType(mod_name)
+            added.append(mod_name)
+        if i > 1:
+            setattr(sys.modules[".".join(parts[:i - 1])], parts[i - 1], sys.modules[mod_name])
+    for key, value in attrs.items():
+        setattr(sys.modules[name], key, value)
+    try:
+        yield True
+    finally:
+        for mod_name in added:
+            sys.modules.pop(mod_name, None)
+
+
+def lightning_callback_phase(cfg) -> dict:
+    """``LIGHTNING_STEPS`` steps of the full-width AdamW step ((8, 1025)
+    tokens) in process through the port's ``TraceMLCallback``, driven by a
+    minimal loop that calls the hooks in Lightning 2.x's
+    automatic-optimization order (``on_before_zero_grad`` before the
+    backward) on a stand-in ``lightning.pytorch.Callback`` when Lightning
+    is not installed; the callback's ``setup`` inits in manual mode and a
+    runtime ships the rows.  Gates: one row a step, every row on the
+    device clock with one forward, one backward and one optimizer region,
+    each with a device time, their sum no more than the step's; 12 flash
+    launches a step; the loss falling."""
+    import types
+
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS, build_train_state, host_batches
+    from traceml_tpu_torch.models.transformer import loss_fn
+    from traceml_tpu_torch.ops.flash_attention import flash_attention
+    from traceml_tpu_torch.runtime.lifecycle import get_active_runtime
+    from traceml_tpu_torch.runtime.settings import TraceMLSettings
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+    from traceml_tpu_torch.sdk.state import get_state
+    from traceml_tpu_torch.utils import timing as T
+
+    class Callback:  # the base's hooks, as no-ops
+        def setup(self, trainer, pl_module, stage=None):
+            pass
+
+    batches = host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)
+    model, optimizer = build_train_state(cfg, SEED)
+    with stand_in_module("lightning.pytorch", Callback=Callback) as stand_in:
+        from traceml_tpu_torch.integrations import lightning as L
+
+        L._cached_callback_cls = None
+        log("lightning", "Lightning is not installed: a stand-in lightning.pytorch.Callback base"
+            if stand_in else "the installed lightning.pytorch.Callback base")
+        shutdown_patches()
+        cb = L.TraceMLCallback()
+        L._cached_callback_cls = None
+    trainer = types.SimpleNamespace(sanity_checking=False)
+    cb.setup(trainer, model, stage="fit")
+    check(get_state().patch_mode == "manual", f"lightning: setup left patch mode {get_state().patch_mode}")
+    tokens = batches[0].cuda()
+    loss_fn(model, tokens).backward()  # the warm-up step, outside the trace
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    tm.start_runtime(TraceMLSettings(sampler_interval_sec=0.5))
+    rt = get_active_runtime()
+    get_state().last_step_exit = None
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(LIGHTNING_STEPS):
+        tokens = batches[i % len(batches)].cuda(non_blocking=True)
+        cb.on_train_batch_start(trainer, model, tokens, i)
+        loss = loss_fn(model, tokens)  # training_step
+        cb.on_before_zero_grad(trainer, model, optimizer)
+        optimizer.zero_grad(set_to_none=True)
+        cb.on_before_backward(trainer, model, loss)
+        loss.backward()
+        cb.on_after_backward(trainer, model)
+        cb.on_before_optimizer_step(trainer, model, optimizer)
+        optimizer.step()
+        cb.on_train_batch_end(trainer, model, loss.detach(), tokens, i)
+        losses.append(loss.detach())
+    cb.on_train_end(trainer, model)
+    cb.teardown(trainer, model, stage="fit")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    time.sleep(1.0)  # one tick samples the finished steps
+    rows = rt.sampler("step_time").db.tail("step_time")
+    tm.stop_runtime()
+    shutdown_patches()
+    first, last = losses[0].item(), losses[-1].item()
+    phases = {name: phase_medians(rows, name) for name in ("STEP_TIME", "FORWARD_TIME", "BACKWARD_TIME",
+                                                           "OPTIMIZER_STEP")}
+    over = []
+    for r in rows:
+        ev = r["events"]
+        parts = [ev.get(k, {}).get("device_ms") for k in (T.FORWARD_TIME, T.BACKWARD_TIME, T.OPTIMIZER_STEP)]
+        if None not in parts and sum(parts) > ev[T.STEP_TIME]["device_ms"] * (1 + 1e-9) + 1e-6:
+            over.append((r["step"], sum(parts), ev[T.STEP_TIME]["device_ms"]))
+    out = {"steps": LIGHTNING_STEPS, "launches": launches, "wall_s": wall_s, "loss_first": first,
+           "loss_last": last, "stand_in_base": stand_in, "phases": phases}
+    log("lightning", json.dumps(out))
+    check(launches == cfg.n_layers * LIGHTNING_STEPS,
+          f"lightning: {launches} flash launches, not {cfg.n_layers} x {LIGHTNING_STEPS}")
+    check(len(rows) == LIGHTNING_STEPS, f"lightning: {len(rows)} step rows for {LIGHTNING_STEPS} steps")
+    for r in rows:
+        ev = r["events"]
+        check(r["clock"] == "device", f"lightning: step {r['step']} on the {r['clock']} clock")
+        for key in (T.STEP_TIME, T.FORWARD_TIME, T.BACKWARD_TIME, T.OPTIMIZER_STEP):
+            check(key in ev and ev[key]["count"] == 1 and (ev[key].get("device_ms") or 0) > 0,
+                  f"lightning: step {r['step']} {key}: {ev.get(key)}")
+        check(T.COMPUTE_TIME not in ev, f"lightning: step {r['step']} has a compute phase")
+    check(not over, f"lightning: the regions sum past the step: {over[:3]}")
+    check(math.isfinite(last) and last < first, f"lightning: loss did not fall: first {first}, last {last}")
+    del model, optimizer
+    return out
+
+
+def ray_loop_phase(cfg) -> dict:
+    """The port's ``traceml_train_loop`` on a stand-in ``ray`` module
+    (Ray is not installed) whose actors live in this process: as rank 0
+    it makes the aggregator actor, resolves its endpoint, starts the
+    runtime, inits the patches and runs ``RAY_STEPS`` full-width AdamW
+    steps on the card under ``trace_step`` with the step's FLOPs
+    declared; then it stops the runtime and has the actor finalize, and
+    kills it.  Gates: the loop's result; the actor made, finalized and
+    killed once; ``final_summary.json`` with ``RAY_STEPS`` steps, every
+    stored row on the device clock, the verdict of the MFU's band; 12
+    flash launches a step."""
+    import types
+
+    import traceml_tpu_torch as tm
+    from traceml_tpu_torch.dev.workload import TRAIN_TOKENS, build_train_state, host_batches
+    from traceml_tpu_torch.models.transformer import make_train_step
+    from traceml_tpu_torch.ops.flash_attention import flash_attention
+    from traceml_tpu_torch.runtime.settings import TraceMLSettings
+    from traceml_tpu_torch.sdk.initial import shutdown_patches
+
+    registry, killed = {}, []
+
+    class Ref:
+        def __init__(self, value):
+            self.value = value
+
+    class Handle:  # an actor: each method's .remote() runs it here
+        def __init__(self, impl):
+            self._impl = impl
+
+        def __getattr__(self, attr):
+            fn = getattr(self._impl, attr)
+            return types.SimpleNamespace(remote=lambda *a, **k: Ref(fn(*a, **k)))
+
+    class Remote:
+        def __init__(self, cls):
+            self._cls, self._name = cls, None
+
+        def options(self, name=None, **kw):
+            self._name = name
+            return self
+
+        def remote(self, *args, **kwargs):
+            handle = registry[self._name] = Handle(self._cls(*args, **kwargs))
+            return handle
+
+    def get_actor(name):
+        if name not in registry:
+            raise ValueError(f"no actor {name}")
+        return registry[name]
+
+    def kill(handle):
+        killed.append(handle)
+        for k in [k for k, v in registry.items() if v is handle]:
+            del registry[k]
+
+    stub = dict(remote=Remote, get=lambda ref, timeout=None: ref.value, get_actor=get_actor, kill=kill,
+                util=types.SimpleNamespace(get_node_ip_address=lambda: "127.0.0.1"),
+                get_runtime_context=lambda: types.SimpleNamespace(get_job_id=lambda: "chip_smoke"))
+    logs = RUN_DIR / "ray_loop"
+    shutil.rmtree(logs, ignore_errors=True)
+    settings = TraceMLSettings(session_id="ray_loop", logs_dir=logs, mode="summary", expected_world_size=1,
+                               sampler_interval_sec=0.5, finalize_timeout_sec=60.0, run_name="ray_loop")
+    batches = host_batches(cfg, SEED + 1, seq=TRAIN_TOKENS)
+    model, optimizer = build_train_state(cfg, SEED)
+    step = make_train_step(model, optimizer)
+    analytic = analytic_train_flops(cfg, BATCH, TRAIN_TOKENS - 1)
+
+    def user_loop(config):
+        tm.set_step_flops(analytic)
+        tm.set_step_tokens(BATCH * (TRAIN_TOKENS - 1))
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        first = last = None
+        for i in range(config["steps"]):
+            tokens = batches[i % len(batches)].cuda(non_blocking=True)
+            with tm.trace_step():
+                last = step(tokens)["loss"]
+            first = last if first is None else first
+        torch.cuda.synchronize()
+        return {"launches": flash_attention.launches, "loss_first": first.item(), "loss_last": last.item()}
+
+    step(batches[0].cuda())  # the warm-up step, outside the trace
+    shutdown_patches()
+    with stand_in_module("ray", **stub) as stand_in:
+        from traceml_tpu_torch.integrations.ray import actor_name_for, traceml_train_loop
+
+        log("ray", "Ray is not installed: a stand-in ray module, its actors in this process" if stand_in
+            else "the installed ray module")
+        check(stand_in, "ray: the phase drives the stand-in module; an installed ray would start a cluster")
+        t0 = time.perf_counter()
+        result = traceml_train_loop(user_loop, settings=settings, device="cuda")({"steps": RAY_STEPS})
+        wall_s = time.perf_counter() - t0
+        name = actor_name_for(settings)
+    shutdown_patches()
+    summary = json.loads((logs / "ray_loop" / "final_summary.json").read_text())
+    conn = sqlite3.connect(logs / "ray_loop" / "telemetry.sqlite")
+    try:
+        clocks = [c for (c,) in conn.execute("SELECT clock FROM step_time_samples ORDER BY step")]
+    finally:
+        conn.close()
+    st = summary["sections"]["step_time"]
+    kind = summary["primary_diagnosis"]["kind"]
+    out = {"steps": RAY_STEPS, "launches": result["launches"], "wall_s": wall_s, "actor": name,
+           "loss_first": result["loss_first"], "loss_last": result["loss_last"], "verdict": kind,
+           "n_steps": st["global"]["n_steps"], "mfu_median": st["global"]["efficiency"]["mfu_median"],
+           "steady_step_ms": st["global"]["steady_state"]["median_ms"]}
+    log("ray", json.dumps(out))
+    check(len(killed) == 1 and not registry, f"ray: actor {name}: {len(killed)} kills, left {list(registry)}")
+    check(result["launches"] == cfg.n_layers * RAY_STEPS,
+          f"ray: {result['launches']} flash launches, not {cfg.n_layers} x {RAY_STEPS}")
+    check(st["global"]["n_steps"] == RAY_STEPS and clocks == ["device"] * RAY_STEPS,
+          f"ray: {st['global']['n_steps']} steps in the summary, {len(clocks)} rows on clocks {sorted(set(clocks))}")
+    check(kind == mfu_verdict(summary), f"ray: verdict {kind}, not {mfu_verdict(summary)}")
+    check(result["loss_last"] < result["loss_first"], f"ray: loss first {result['loss_first']} "
+                                                      f"last {result['loss_last']}")
+    del model, optimizer, step
     return out
 
 
@@ -3879,6 +4242,14 @@ def main() -> int:
     kernel["launches"] += sum(by_path.values())
     kernel["launches_by_path"].update(by_path)
     log("time", f"vit and scenario lab phases {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    by_path = {"lightning_callback": lightning_callback_phase(cfg)["launches"]}
+    torch.cuda.empty_cache()
+    by_path["ray_loop"] = ray_loop_phase(cfg)["launches"]
+    torch.cuda.empty_cache()
+    kernel["launches"] += sum(by_path.values())
+    kernel["launches_by_path"].update(by_path)
+    log("time", f"lightning and ray phases {time.perf_counter() - t0:.2f} s")
     log("time", f"total {time.perf_counter() - started:.2f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [kernel]}), flush=True)

@@ -60,6 +60,110 @@ CASES = [
 
 
 @pytest.mark.cuda
+def test_tensor_map_cache_fresh_on_new_pointer_shape_or_strides(cuda_device):
+    """The bf16 kernel encodes its TMA maps once per (pointer, shape,
+    strides): the same tensors again find all three maps; a new buffer, a
+    new shape or new strides encode fresh maps, and every result agrees
+    with the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def qkv(shape):
+        return [torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16) for _ in range(3)]
+
+    def check(out, q, k, v):
+        ref = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+        tol = TOLERANCES[torch.bfloat16]
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol["atol"], rtol=tol["atol"])
+
+    def delta(fn):
+        before = fa.tensor_map_cache_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        after = fa.tensor_map_cache_stats()
+        return out, after["hits"] - before["hits"], after["misses"] - before["misses"]
+
+    fa.clear_tensor_map_cache()
+    assert fa.tensor_map_cache_stats() == {"hits": 0, "misses": 0}
+    q, k, v = qkv((2, 1024, 2, 64))
+    out, hits, misses = delta(lambda: fa.flash_attention(q, k, v))
+    assert (hits, misses) == (0, 3)
+    check(out, q, k, v)
+    out, hits, misses = delta(lambda: fa.flash_attention(q, k, v))
+    assert (hits, misses) == (3, 0)
+    check(out, q, k, v)
+    # a new buffer for q alone: its map is new, k's and v's are found
+    q2 = q.clone() * 2
+    out, hits, misses = delta(lambda: fa.flash_attention(q2, k, v))
+    assert (hits, misses) == (2, 1)
+    check(out, q2, k, v)
+    # the same buffers read as another shape: (2, 512, 4, 64) over the same bytes
+    qs, ks, vs = (t.view(2, 512, 4, 64) for t in (q, k, v))
+    out, hits, misses = delta(lambda: fa.flash_attention(qs, ks, vs))
+    assert (hits, misses) == (0, 3)
+    check(out, qs, ks, vs)
+    # the same first pointers and shape with other strides: views of (2, 1024, 4, 64),
+    # which the wrapper passes through with their strides
+    wide = qkv((2, 1024, 4, 64))
+    packed = [t.view(-1)[:2 * 1024 * 2 * 64].view(2, 1024, 2, 64) for t in wide]
+    narrow = [t[:, :, :2] for t in wide]
+    assert [t.data_ptr() for t in packed] == [t.data_ptr() for t in narrow]
+    out, hits, misses = delta(lambda: fa.flash_attention(*packed))
+    assert (hits, misses) == (0, 3)
+    check(out, *packed)
+    out, hits, misses = delta(lambda: fa.flash_attention(*narrow))
+    assert (hits, misses) == (0, 3)
+    check(out, *narrow)
+    out, hits, misses = delta(lambda: fa.flash_attention(*narrow))
+    assert (hits, misses) == (3, 0)
+    check(out, *narrow)
+
+
+@pytest.mark.cuda
+def test_rms_norm_and_cached_cast_on_card(cuda_device):
+    """RMSNorm's ``F.rms_norm`` route against the written-out eight-op
+    form on the card, at the main path's (8, 1024, 1024) bf16: torch's
+    fused CUDA norm sums in another order, so a few outputs and input
+    gradients move by one bf16 ulp; held to a relative Frobenius error of
+    1e-4 and, in the bf16 output and input gradient, at most one element
+    in 10^4 off (the f32 scale gradient, a sum over 8M products, moves in
+    most elements within the 1e-4).  Dense's cached cast is
+    bit-equal to ``.to`` in the forward and the gradients."""
+    from traceml_tpu_torch.models.transformer import Dense, RMSNorm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((8, 1024, 1024), generator=gen, device=cuda_device).to(torch.bfloat16)
+    g = torch.randn((8, 1024, 1024), generator=gen, device=cuda_device).to(torch.bfloat16)
+    norm = RMSNorm(1024, dtype=torch.bfloat16, device=cuda_device)
+    with torch.no_grad():
+        norm.scale.mul_(1.0 + 0.1 * torch.randn((1024,), generator=gen, device=cuda_device))
+    xa = x.clone().requires_grad_()
+    out = norm(xa)
+    out.backward(g)
+    xb = x.clone().requires_grad_()
+    scale = norm.scale.detach().clone().requires_grad_()
+    x32 = xb.float()
+    ref = (x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + 1e-6) * scale).to(torch.bfloat16)
+    ref.backward(g)
+    for got, want in ((out.detach(), ref.detach()), (xa.grad, xb.grad), (norm.scale.grad, scale.grad)):
+        diff = (got.float() - want.float())
+        assert (diff.norm() / want.float().norm()).item() <= 1e-4
+    for got, want in ((out.detach(), ref.detach()), (xa.grad, xb.grad)):  # bf16: a few ulps moved
+        assert (got != want).sum().item() <= max(1, got.numel() // 10_000)
+
+    dense = Dense(1024, 1024, torch.bfloat16, torch.float32, cuda_device)
+    with torch.no_grad():
+        dense(x[:1])  # fills the cache
+    xs = x[:1].clone().requires_grad_()
+    y = dense(xs)
+    y.backward(g[:1])
+    w = dense.weight.detach().clone().requires_grad_()
+    xr = x[:1].clone().requires_grad_()
+    yr = torch.nn.functional.linear(xr, w.to(torch.bfloat16))
+    yr.backward(g[:1])
+    assert torch.equal(y, yr) and torch.equal(xs.grad, xr.grad) and torch.equal(dense.weight.grad, w.grad)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,B,S,H,D,q_scale", CASES)
 def test_kernel_matches_plain_on_card(cuda_device, dtype, B, S, H, D, q_scale):
     rng = np.random.default_rng(0)

@@ -111,6 +111,11 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "traceml_tpu_torch.integrations.huggingface",
     }
     assert models_and_scenarios <= set(out["imported"])
+    integrations_and_capture = {  # Lightning, Ray, on-demand torch.profiler capture, the on-card measurements
+        "traceml_tpu_torch.integrations.lightning", "traceml_tpu_torch.integrations.ray",
+        "traceml_tpu_torch.sdk.profile_capture", "traceml_tpu_torch.dev.measure_main_path",
+    }
+    assert integrations_and_capture <= set(out["imported"])
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 

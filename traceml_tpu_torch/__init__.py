@@ -28,7 +28,9 @@ the ``collective`` phase and records it in the collectives domain
 ``patch_dist_collectives`` does the same for the eager
 ``torch.distributed`` collectives; ``enable_ici_stats`` all-gathers each
 rank's step stats over the mesh every N steps for a cross-rank verdict
-without the aggregator.
+without the aggregator.  ``request_profile(session_dir)`` (or
+``python -m traceml_tpu_torch profile``) has a running job record a
+``torch.profiler`` trace of its next steps.
 
 The JAX package ``traceml_tpu`` is the reference; this package imports
 neither it nor JAX.  The public API is a lazy facade, so importing the
@@ -59,6 +61,7 @@ _API_SYMBOLS = (
     "final_summary",
     "summary",
     "live_metrics",
+    "request_profile",
     "start_runtime",
     "stop_runtime",
 )

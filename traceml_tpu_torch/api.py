@@ -12,6 +12,9 @@ from traceml_tpu_torch.runtime.lifecycle import start_runtime, stop_runtime  # n
 from traceml_tpu_torch.sdk.flops import estimate_step_flops, set_step_flops  # noqa: F401
 from traceml_tpu_torch.sdk.initial import init  # noqa: F401
 from traceml_tpu_torch.sdk.instrumentation import trace_step, trace_time  # noqa: F401
+from traceml_tpu_torch.sdk.profile_capture import (  # noqa: F401
+    request_profile_and_wait as request_profile,
+)
 from traceml_tpu_torch.sdk.step_fn import wrap_step_fn  # noqa: F401
 from traceml_tpu_torch.sdk.summary_client import final_summary, live_metrics, summary  # noqa: F401
 from traceml_tpu_torch.sdk.wrappers import (  # noqa: F401

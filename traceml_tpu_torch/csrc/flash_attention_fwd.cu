@@ -45,6 +45,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <mutex>
 
 #include "hopper.cuh"
 
@@ -348,6 +349,60 @@ bool make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int B, in
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The tensor maps of recent calls.  A map is a function of the pointer, the
+// (B, S, H, D) shape and the strides alone (the box, swizzle and element
+// type are fixed), so a map found under the same key is the map
+// make_map would encode: the cache can be stale only if the key is wrong.
+// The caching allocator hands a training or inference loop the same few
+// buffers step after step, so 64 slots hold a forward's q, k and v with
+// room to spare; a full table overwrites its slots in turn.
+struct MapKey {
+  const void* ptr;
+  int B, S, H, D;
+  Strides st;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && B == o.B && S == o.S && H == o.H && D == o.D && st.b == o.st.b &&
+           st.s == o.st.s && st.h == o.st.h;
+  }
+};
+
+constexpr int kMapSlots = 64;
+struct MapCache {
+  std::mutex mu;
+  MapKey keys[kMapSlots];
+  CUtensorMap maps[kMapSlots];
+  bool used[kMapSlots] = {};
+  int next = 0;
+  long long hits = 0, misses = 0;
+};
+
+MapCache& map_cache() {
+  static MapCache cache;
+  return cache;
+}
+
+bool cached_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int B, int S, int H,
+                int D, Strides st) {
+  const MapKey key{ptr, B, S, H, D, st};
+  MapCache& c = map_cache();
+  std::lock_guard<std::mutex> lock(c.mu);
+  for (int i = 0; i < kMapSlots; ++i) {
+    if (c.used[i] && c.keys[i] == key) {
+      *map = c.maps[i];
+      ++c.hits;
+      return true;
+    }
+  }
+  ++c.misses;
+  if (!make_map(encode, map, ptr, B, S, H, D, st)) return false;
+  const int slot = c.next;
+  c.next = (c.next + 1) % kMapSlots;
+  c.keys[slot] = key;
+  c.maps[slot] = *map;
+  c.used[slot] = true;
+  return true;
+}
+
 // Above 48 KB of dynamic shared memory a kernel must opt in, once on each
 // device; `done` holds one bit per device on which `kernel` has.
 template <typename Kernel>
@@ -372,8 +427,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!make_map(encode, &mq, q, B, S, H, D, qs) || !make_map(encode, &mk, k, B, S, H, D, ks) ||
-      !make_map(encode, &mv, v, B, S, H, D, vs))
+  if (!cached_map(encode, &mq, q, B, S, H, D, qs) || !cached_map(encode, &mk, k, B, S, H, D, ks) ||
+      !cached_map(encode, &mv, v, B, S, H, D, vs))
     return cudaErrorInvalidValue;
   constexpr int kSmem = Layout<D>::kBytes;
   static std::atomic<unsigned long long> smem_allowed{0};
@@ -545,23 +600,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
-// dimension must be contiguous, and S a multiple of 64.  Returns the
-// launch's cudaError_t (a tensor map that cuTensorMapEncodeTiled refuses
-// is cudaErrorInvalidValue).
-extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-    int D, int dtype, long long qsb, long long qss, long long qsh,
-    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, long long osb, long long oss, long long osh, float scale,
-    void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || S % kSimtBlock != 0) return cudaErrorInvalidValue;
-  if (S / kSimtBlock > 65535) return cudaErrorInvalidValue;
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      os{osb, oss, osh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                   int D, int dtype, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                   cudaStream_t st) {
   if (dtype == 0 && D == 64)
     return launch_f32<64>(q, k, v, o, B, S, H, qs, ks, vs, os, scale, st);
   if (dtype == 0 && D == 128)
@@ -571,6 +612,52 @@ extern "C" int flash_attention_fwd(
   if (dtype == 1 && D == 128)
     return launch_bf16<128>(q, k, v, o, B, S, H, qs, ks, vs, os, scale, st);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
+// dimension must be contiguous, and S a multiple of 64.  The kernel runs on
+// `device` (the tensors' card), which is made current for the launch when
+// it is not, and on `stream`, a stream of that card.  Returns the launch's
+// cudaError_t (a tensor map that cuTensorMapEncodeTiled refuses is
+// cudaErrorInvalidValue).
+extern "C" int flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+    int D, int dtype, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long osb, long long oss, long long osh, float scale,
+    void* stream, int device) {
+  if (B <= 0 || H <= 0 || S <= 0 || S % kSimtBlock != 0) return cudaErrorInvalidValue;
+  if (S / kSimtBlock > 65535) return cudaErrorInvalidValue;
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
+      os{osb, oss, osh};
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return err;
+  err = launch(q, k, v, o, B, S, H, D, dtype, qs, ks, vs, os, scale,
+               static_cast<cudaStream_t>(stream));
+  if (current != device) cudaSetDevice(current);
+  return err;
+}
+
+// The tensor-map cache's counts since the library was loaded or last
+// cleared: out[0] maps found, out[1] maps encoded.
+extern "C" void flash_attention_map_cache_stats(long long* out) {
+  MapCache& c = map_cache();
+  std::lock_guard<std::mutex> lock(c.mu);
+  out[0] = c.hits;
+  out[1] = c.misses;
+}
+
+// Empty the tensor-map cache and zero its counts.
+extern "C" void flash_attention_map_cache_clear() {
+  MapCache& c = map_cache();
+  std::lock_guard<std::mutex> lock(c.mu);
+  for (bool& u : c.used) u = false;
+  c.next = 0;
+  c.hits = c.misses = 0;
 }
 
 // Dynamic shared memory of one block of the kernel for (dtype, D), in

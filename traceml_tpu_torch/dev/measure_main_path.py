@@ -56,6 +56,20 @@
    times a second), in turns A B C C B A; each run's step device median
    and mean from its stored rows, its wall time and the bytes the
    launcher printed.
+9. The forward's host margin (``--only host_margin``): the kernels a
+   forward of the forward loop launches, and a forward, a backward and an
+   optimizer step of the train step (``torch.profiler``, CUDA kernel
+   events, each attributed to the innermost module, to RoPE or, in the
+   backward, to the autograd node that launched it), each phase's host
+   enqueue on an idle card beside its kernel time; the untraced train
+   step's device and wall ms; the flash wrapper's host µs a call, its
+   device ms beside ``scaled_dot_product_attention``'s and the TMA map
+   cache's counts; and the plain-op routes against their older forms on
+   the card (RMSNorm as ``F.rms_norm`` against the eight-op form, RoPE
+   against negate-and-concatenate, ``Dense``'s kept cast against
+   ``.to``).  Run it against another checkout of the package by putting
+   that checkout first on ``PYTHONPATH`` and this file by its path: the
+   ``[env]`` line names the package measured.
 
 Each untraced run first removes the auto-patches, each traced run
 installs them, so the untraced runs pay nothing of the tracer.
@@ -65,8 +79,10 @@ Prints one JSON line per measurement.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -555,6 +571,262 @@ def _cli_display_cost(steps: int = 300) -> dict:
     return out
 
 
+# -- 9. the forward's host margin -------------------------------------------
+
+HOST_REPEATS = 20
+
+
+def rms_norm_eight_ops(x, scale, eps: float, dtype):
+    """RMSNorm written out, as the model ran it before ``F.rms_norm``."""
+    x32 = x.float()
+    return (x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps) * scale).to(dtype)
+
+
+def rope_negate_concat(x, cos, sin_full):
+    """The rotation as the model ran it before the roll: [-x2, x1]
+    concatenated, and a sin table repeated over both halves."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    return (xf * cos + torch.cat([-xf[..., half:], xf[..., :half]], dim=-1) * sin_full).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _labelled(model):
+    """Each module's forward and each RoPE call as a profiler range."""
+    from torch.autograd.profiler import record_function
+
+    from traceml_tpu_torch.models import transformer
+
+    stack = []
+
+    def pre(module, args):  # noqa: ANN001
+        stack.append(record_function(f"mod:{type(module).__name__}"))
+        stack[-1].__enter__()
+
+    def post(module, args, out):  # noqa: ANN001
+        stack.pop().__exit__(None, None, None)
+
+    handles = [h for m in model.modules()
+               for h in (m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
+    original = transformer._apply_rope
+
+    def rope(*args, **kwargs):  # noqa: ANN001
+        with record_function("fn:_apply_rope"):
+            return original(*args, **kwargs)
+
+    transformer._apply_rope = rope
+    try:
+        yield
+    finally:
+        transformer._apply_rope = original
+        for h in handles:
+            h.remove()
+
+
+def _owner(event) -> str:
+    """The innermost labelled range or autograd node above ``event``."""
+    while event is not None:
+        if event.name.startswith(("mod:", "fn:")):
+            return event.name
+        if event.name.startswith("autograd::engine::evaluate_function: "):
+            return "bwd:" + event.name.split(": ", 1)[1]
+        event = event.cpu_parent
+    return "other"
+
+
+def _census(fn, repeats: int, sync) -> dict:
+    """Kernels a call of ``fn``, in all and by owner, and their device
+    ms a call; on the CPU (no CUDA activity) the leaf ``aten::`` ops
+    stand in for kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    sync()
+    with profile(activities=activities) as prof:
+        for _ in range(repeats):
+            fn()
+        sync()
+    events = prof.events()
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    by_owner = {}
+    if cuda:
+        total, device_ms = len(cuda), sum(e.device_time_total for e in cuda) / 1e3 / repeats
+        for e in events:
+            if e.device_type == torch.autograd.DeviceType.CPU and e.kernels:
+                by_owner[_owner(e)] = by_owner.get(_owner(e), 0) + len(e.kernels)
+    else:
+        leaves = [e for e in events if not e.cpu_children and e.name.startswith("aten::")]
+        total, device_ms = len(leaves), None
+        for e in leaves:
+            by_owner[_owner(e)] = by_owner.get(_owner(e), 0) + 1
+    return {"kernels": total / repeats, "device_ms": device_ms,
+            "by_owner": {k: v / repeats for k, v in sorted(by_owner.items(), key=lambda kv: -kv[1])}}
+
+
+def _idle_host_ms(fn, sync) -> float:
+    """Host ms of one call of ``fn`` on an idle device."""
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    sync()
+    return ms
+
+
+def _summary(vals) -> dict:
+    s = sorted(vals)
+    return {"median": statistics.median(s), "min": s[0], "p90": s[min(len(s) - 1, int(0.9 * len(s)))]}
+
+
+def _pace(path: str, census: dict, host: list, **extra) -> None:
+    pace = {"path": path, "kernels": census["kernels"], "kernel_ms": census["device_ms"],
+            "host_enqueue_ms": _summary(host), **extra}
+    if census["device_ms"]:
+        pace["host_over_kernel"] = statistics.median(host) / census["device_ms"]
+    print("[launches] " + json.dumps({"path": path, **census}), flush=True)
+    print("[pace] " + json.dumps(pace), flush=True)
+
+
+def _diff(a, b) -> dict:
+    d = a.float() - b.float()
+    ref = b.float().norm().item()
+    return {"bit_equal": bool(torch.equal(a, b)), "max_abs": d.abs().max().item(),
+            "rel_fro": d.norm().item() / ref if ref else 0.0, "mismatched": int((a != b).sum().item()),
+            "of": a.numel()}
+
+
+def _routes(cfg, device, B: int, S: int) -> None:
+    """The plain-op routes against their older forms, forward and backward."""
+    import torch.nn.functional as F
+
+    from traceml_tpu_torch.models import transformer as T
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    def run(fn, g, *inputs):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    x, grad = randn(B, S, cfg.hidden), randn(B, S, cfg.hidden)
+    scale = 1.0 + 0.1 * torch.randn((cfg.hidden,), generator=gen, device=device)
+    old = run(lambda a, s: rms_norm_eight_ops(a, s, 1e-6, torch.bfloat16), grad, x, scale)
+    new = run(lambda a, s: F.rms_norm(a.float(), (cfg.hidden,), s, 1e-6).to(torch.bfloat16), grad, x, scale)
+    print("[route] " + json.dumps({"route": "rms_norm", "shape": [B, S, cfg.hidden], **{
+        k: _diff(a, b) for k, a, b in zip(("out", "dx", "dscale"), new, old)}}), flush=True)
+    hd, half = cfg.head_dim, cfg.head_dim // 2
+    positions = torch.arange(S, device=device).expand(B, S)
+    freqs = torch.exp(-math.log(cfg.rope_theta) * (2.0 * torch.arange(half, dtype=torch.float32, device=device) / hd))
+    angles = positions[..., None].float() * freqs
+    cos_full = torch.cat([torch.cos(angles)] * 2, dim=-1)[..., None, :]
+    sin_full = torch.cat([torch.sin(angles)] * 2, dim=-1)[..., None, :]
+    q, gq = randn(B, S, cfg.n_heads, hd), randn(B, S, cfg.n_heads, hd)
+    tables = T._rope_tables(positions, hd, cfg.rope_theta)
+    old = run(lambda a: rope_negate_concat(a, cos_full, sin_full), gq, q)
+    new = run(lambda a: T._apply_rope(a, *tables), gq, q)
+    print("[route] " + json.dumps({"route": "rope", "shape": list(q.shape), "out": _diff(new[0], old[0]),
+                                   "dq": _diff(new[1], old[1])}), flush=True)
+    dense = T.Dense(cfg.hidden, cfg.hidden, torch.bfloat16, torch.float32, device)
+    w = dense.weight.detach().clone().requires_grad_()
+    old = run(lambda a, v: F.linear(a, v.to(torch.bfloat16)), grad[:1], x[:1], w)
+    with torch.no_grad():
+        dense(x[:1])  # keeps the cast
+    xs = x[:1].clone().requires_grad_()
+    out = dense(xs)
+    out.backward(grad[:1])
+    print("[route] " + json.dumps({"route": "dense_kept_cast", **{
+        k: _diff(a, b) for k, a, b in zip(("out", "dx", "dw"), (out.detach(), xs.grad, dense.weight.grad), old)}}),
+        flush=True)
+
+
+def _host_margin(cfg, device, batch: int, seq: int) -> None:
+    """Item 9 at ``batch`` × ``seq`` tokens (full width on the card)."""
+    import torch.nn.functional as F
+
+    from traceml_tpu_torch.dev.workload import build_model, build_train_state, cuda_ms, host_batches
+    from traceml_tpu_torch.models.transformer import loss_fn, make_train_step
+    from traceml_tpu_torch.ops import flash_attention as fa
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    pin = device.type == "cuda"
+    model = build_model(cfg, SEED, device=device)
+    tokens = host_batches(cfg, SEED + 1, n=1, batch=batch, seq=seq, pin=pin)[0].to(device)
+
+    def forward():
+        with torch.inference_mode():
+            model(tokens)
+
+    for _ in range(3):
+        forward()
+    with _labelled(model):
+        census = _census(forward, 3, sync)
+    _pace("forward_loop", census, [_idle_host_ms(forward, sync) for _ in range(HOST_REPEATS)])
+    del model
+    model, optimizer = build_train_state(cfg, SEED, device=device)
+    tokens = host_batches(cfg, SEED + 1, n=1, batch=batch, seq=seq + 1, pin=pin)[0].to(device)
+    step = make_train_step(model, optimizer)
+    for _ in range(2):
+        step(tokens)
+    held = {}
+    phases = {
+        "forward": lambda: held.update(loss=loss_fn(model, tokens)),
+        "backward": lambda: held.pop("loss").backward(),
+        "optimizer": lambda: (optimizer.step(), optimizer.zero_grad(set_to_none=True)),
+    }
+    with _labelled(model):
+        censuses = {name: _census(fn, 1, sync) for name, fn in phases.items()}
+    host = {name: [] for name in phases}
+    for _ in range(HOST_REPEATS // 2):
+        for name, fn in phases.items():
+            host[name].append(_idle_host_ms(fn, sync))
+    for name in phases:
+        _pace(f"train_{name}", censuses[name], host[name])
+    steps = []
+    if device.type == "cuda":
+        for _ in range(STEPS // 2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(tokens)
+            end.record()
+            end.synchronize()
+            steps.append(start.elapsed_time(end))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(STEPS // 2):
+        step(tokens)
+    sync()
+    print("[train_step] " + json.dumps({"device_ms": _summary(steps) if steps else None,
+                                        "loop_wall_ms_per_step": (time.perf_counter() - t0) / (STEPS // 2) * 1e3}),
+          flush=True)
+    del model, optimizer, step
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    shape = (8, 1024, 16, 64) if device.type == "cuda" else (1, 128, 2, 64)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+    with torch.inference_mode():
+        for _ in range(20):
+            fa.flash_attention(q, k, v)
+        sync()
+        per_call = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            fa.flash_attention(q, k, v)
+            per_call.append((time.perf_counter() - t0) * 1e6)
+        sync()
+    wrapper = {"shape": list(shape), "host_us_per_call": _summary(per_call)}
+    if device.type == "cuda":
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        wrapper["kernel_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+        wrapper["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+        wrapper["tensor_map_cache"] = fa.tensor_map_cache_stats()
+    print("[flash_wrapper] " + json.dumps(wrapper), flush=True)
+    _routes(cfg, device, batch, seq)
+
+
 def kernel_group(kernel_name: str) -> str:
     """The group of a CUDA kernel's profiler name; unmatched names are "other"."""
     return next((name for name, rx in _GROUPS if rx.search(kernel_name)), "other")
@@ -587,7 +859,8 @@ def _kernel_breakdown(prof) -> dict:
 
 def main(argv=None) -> int:
     """``--only h2d`` stops after the forward's overhead and ``torch_h2d``
-    measurements; ``--only cli`` runs item 8 alone."""
+    measurements; ``--only cli`` runs item 8 alone, ``--only host_margin``
+    item 9."""
     args = sys.argv[1:] if argv is None else argv
     only = args[args.index("--only") + 1] if "--only" in args else None
     if not torch.cuda.is_available():
@@ -610,12 +883,17 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(f"[env] {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[env] {card}; torch {torch.__version__} cuda {torch.version.cuda}; package {tm.__file__}", flush=True)
     if only == "cli":
         print("[cli_display] " + json.dumps(_cli_display_cost()), flush=True)
         return 0
 
     cfg = full_width_config()
+    if only == "host_margin":
+        from traceml_tpu_torch.dev.workload import BATCH, SEQ
+
+        _host_margin(cfg, torch.device("cuda"), BATCH, SEQ)
+        return 0
     model = build_model(cfg, SEED)
     batches = host_batches(cfg, SEED + 1)
     _untraced_ms(model, batches, 5)  # warm-up: cuBLAS handles, the kernel build

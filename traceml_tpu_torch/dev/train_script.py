@@ -44,8 +44,8 @@ N``.  Test scaffolding, not features:
   ``--no-capture-stderr`` must keep out of the live display);
 * ``--mesh`` joins the default process group (NCCL on CUDA, gloo on the
   CPU; ``MASTER_ADDR`` and ``MASTER_PORT`` from the caller's environment,
-  ``RANK`` and ``WORLD_SIZE`` from the launcher's) and builds
-  ``make_mesh()``, whose placement the rank ships once;
+  ``RANK`` and ``WORLD_SIZE`` from the launcher's), torn down at exit,
+  and builds ``make_mesh()``, whose placement the rank ships once;
 * ``--grad-sync all_reduce`` syncs the gradients after each backward
   through ``dev/workload.gradient_sync`` (one ``dist.all_reduce`` of the
   flat f32 gradients, recorded by ``instrument_collective``), ``local``
@@ -71,6 +71,7 @@ N``.  Test scaffolding, not features:
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
@@ -151,6 +152,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             torch.cuda.set_device(torch.device(args.device).index or int(os.environ.get("LOCAL_RANK", 0)))
         dist.init_process_group("nccl" if on_cuda else "gloo", init_method="env://",
                                 rank=rank, world_size=int(os.environ.get("WORLD_SIZE", 1)))
+        # torn down at exit, after `run` has stopped this rank's runtime: a
+        # NCCL shutdown waits up to a second on its watchdog thread, and the
+        # idle card the samplers would read meanwhile is not the training's
+        atexit.register(dist.destroy_process_group)
         # the first collective sets the communicator up: outside the trace
         dist.all_reduce(torch.zeros(1, device=args.device))
     mesh = None
@@ -228,8 +233,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             "wait_ms": hook.wait_ms, "gather_ms": hook.gather_ms,
             "diagnosis": [i.kind for i in hook.diagnose(mode="summary").issues],
         }), flush=True)
-    if distributed:
-        dist.destroy_process_group()
     if args.final_summary:
         got = tm.final_summary(timeout=120.0) or {}
         step_time = (got.get("sections") or {}).get("step_time") or {}

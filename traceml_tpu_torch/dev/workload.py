@@ -73,9 +73,46 @@ def random_flax_params(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     return params
 
 
+def seeded_state_dict(cfg: ModelConfig, seed: int) -> Dict[str, torch.Tensor]:
+    """``params_from_jax(random_flax_params(cfg, seed))``, kept on disk in
+    the kernels' build directory (``ops/_build.py``) once made: every
+    ``run`` of a ``dev/`` script starts a process that would draw the
+    same 175M normals again (seconds at full width).  The file is named
+    by the widths, the seed and the source of the code that makes the
+    weights (``random_flax_params`` and ``models/convert.py``), so a
+    change to either makes a new file; it is written atomically and read
+    back memory-mapped, so ranks and runs at once share it."""
+    import hashlib
+    import inspect
+    import os
+    import pickle
+
+    from traceml_tpu_torch.models import convert
+    from traceml_tpu_torch.ops._build import BUILD_DIR
+
+    widths = (cfg.vocab_size, cfg.hidden, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden)
+    makers = inspect.getsource(random_flax_params) + inspect.getsource(convert)
+    tag = hashlib.sha256(repr((makers, widths, seed)).encode()).hexdigest()[:16]
+    path = BUILD_DIR / f"weights-{tag}.pt"
+    if path.exists():
+        try:
+            return torch.load(path, mmap=True, weights_only=True)
+        except (RuntimeError, EOFError, pickle.UnpicklingError):
+            pass  # an unreadable file (torn by a full disk): make it again
+    state = params_from_jax(random_flax_params(cfg, seed))
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # an unwritable build dir: the weights are made each time
+    return state
+
+
 def build_model(cfg: ModelConfig, seed: int, device: Any = "cuda") -> DecoderLM:
     model = DecoderLM(cfg, device=device)
-    model.load_state_dict(params_from_jax(random_flax_params(cfg, seed)))
+    model.load_state_dict(seeded_state_dict(cfg, seed))
     return model.eval()
 
 
@@ -85,7 +122,7 @@ def build_train_state(cfg: ModelConfig, seed: int, device: Any = "cuda",
     :func:`build_model` for the same seed (loaded before a ``mesh``'s
     FSDP2 sharding)."""
     return init_train_state(cfg, device=device, learning_rate=learning_rate, seed=seed, mesh=mesh,
-                            state_dict=params_from_jax(random_flax_params(cfg, seed)))
+                            state_dict=seeded_state_dict(cfg, seed))
 
 
 def host_batches(cfg: ModelConfig, seed: int, n: int = 4, batch: int = BATCH,

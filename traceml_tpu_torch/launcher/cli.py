@@ -1,8 +1,8 @@
 """``python -m traceml_tpu_torch`` command line.
 
 Counterpart of ``traceml_tpu/launcher/cli.py`` with the ``run``, ``view``,
-``compare`` and ``inspect`` subcommands (``watch``, ``fleet-router``,
-``lint`` and ``profile`` come later).  ``run``'s ``--mode`` takes the
+``compare``, ``inspect`` and ``profile`` subcommands (``watch``,
+``fleet-router`` and ``lint`` come later).  ``run``'s ``--mode`` takes the
 three JAX modes: ``cli`` (the live display, the default), ``summary``
 (the verdict on stdout at the end) and ``dashboard`` (the browser
 dashboard, its URL on stdout).  A long run stays bounded with
@@ -15,7 +15,10 @@ out of the live display).  ``view`` prints a finished run's summary,
 ``compare`` judges a candidate run against a baseline run (a verdict
 from INSUFFICIENT_DATA to EQUIVALENT, ranked findings; ``--output P``
 writes the payload to P and the text beside it), ``inspect`` decodes the disk backups (``--domain rollup``: the stitched
-history of the tiers).
+history of the tiers), ``profile`` has a RUNNING session record a
+``torch.profiler`` trace of its next ``--steps`` steps on every rank (or
+``--ranks``) and prints where it went (exit 1 when the job does not
+answer within ``--timeout`` or answers with an error).
 
 A multi-node run starts one ``run`` per node, each with ``--nnodes N
 --node-rank I --aggregator-port P`` and the same ``TRACEML_SESSION_ID``:
@@ -28,11 +31,13 @@ over TCP.
     python -m traceml_tpu_torch view <session dir | final_summary.json> [--format text|json]
     python -m traceml_tpu_torch compare <baseline> <candidate> [--output P]
     python -m traceml_tpu_torch inspect <rank data dir | .msgpack | session dir> [--limit N] [--domain D]
+    python -m traceml_tpu_torch profile <session dir> [--steps 5] [--timeout 60] [--ranks 0,1]
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 from typing import List, Optional
 
@@ -93,7 +98,36 @@ def _build_parser() -> argparse.ArgumentParser:
         help="only rows of this table (e.g. step_time); 'rollup' prints the stitched "
              "history of the session's rollup tiers, 'topology' its captured mesh",
     )
+
+    prof = sub.add_parser("profile", help="capture a torch.profiler trace from a RUNNING session")
+    prof.add_argument("session_dir", help="path to <logs>/<session>")
+    prof.add_argument("--steps", type=int, default=5, help="steps to trace")
+    prof.add_argument("--timeout", type=float, default=60.0)
+    prof.add_argument("--ranks", default=None, help="comma-separated global ranks (default: all)")
     return p
+
+
+def _profile(args: argparse.Namespace) -> int:
+    from traceml_tpu_torch.sdk.profile_capture import request_profile_and_wait
+
+    try:
+        ranks = [int(r) for r in args.ranks.split(",")] if args.ranks else None
+    except ValueError:
+        print(f"traceml profile: --ranks must be comma-separated integers, got {args.ranks!r}",
+              file=sys.stderr)
+        return 2
+    resp = request_profile_and_wait(Path(args.session_dir), steps=args.steps, timeout=args.timeout,
+                                    ranks=ranks)
+    if resp is None:
+        print("[TraceML] no response — is the job stepping? (capture engages at step boundaries)",
+              file=sys.stderr)
+        return 1
+    if not resp.get("ok"):
+        print(f"[TraceML] profile failed: {resp.get('error')}", file=sys.stderr)
+        return 1
+    print(f"[TraceML] trace captured: {resp.get('trace_dir')}")
+    print("  open rank_<r>/trace.json with chrome://tracing or the Perfetto UI")
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -111,6 +145,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         from traceml_tpu_torch.launcher.inspect_cmd import run_inspect
 
         return run_inspect(Path(args.path), limit=args.limit, domain=args.domain)
+    if args.command == "profile":
+        return _profile(args)
     from traceml_tpu_torch.launcher.commands import launch_process
 
     cli = {

@@ -9,13 +9,18 @@ RMSNorm and an f32 ``lm_head``.  Numerics follow the flax module:
   param_dtype=f32)`` does.  Storing them in bf16 would give the same
   forward products but not the same training: AdamW's update of
   ``lr·m̂/√v̂`` (~3e-4) is below half a bf16 ulp of most weights, so a
-  bf16 parameter would lose most of it;
-* RMSNorm scales are f32 and the norm computes in f32, then casts;
+  bf16 parameter would lose most of it.  A linear layer keeps its cast
+  weight while the weight is unchanged (``Dense.cast_weight``): the
+  forward loop casts once, the train step once a step, in its optimizer
+  step;
+* RMSNorm scales are f32 and the norm computes in f32 (``F.rms_norm``),
+  then casts;
 * RoPE is the half-split rotation, computed in f32, cast back; its cos
   and sin tables are computed once a forward from the positions and
-  shared by every layer, and the rotation runs as x·cos + [−x2, x1]·sin:
-  the same IEEE operations on the same values in fewer kernels (the
-  train step's host time sets its pace once FSDP2 adds its own);
+  shared by every layer, and the rotation runs as x·cos + [x2, x1]·[−sin,
+  sin]: the same IEEE operations on the same values in fewer kernels.
+  The forward loop is paced by the host's enqueue of its kernels, so
+  each kernel a layer saves is host time;
 * GQA repeats each kv head in place (``repeat_interleave``), as
   ``jnp.repeat(k, group, axis=2)`` does;
 * ``lm_head`` promotes the activations to f32: the logits are f32.  The
@@ -86,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import weakref
 from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import torch
@@ -143,15 +149,16 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        normed = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + self.eps)
-        return (normed * self.scale).to(self.dtype)
+        # x·rsqrt(mean(x²) + eps)·scale in f32, as three kernels on CUDA
+        # (upcast, torch's fused norm, cast) where the written-out form
+        # took eight; on the CPU the same IEEE operations
+        return F.rms_norm(x.float(), self.scale.shape, self.scale, self.eps).to(self.dtype)
 
 
 def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RoPE's cos and sin of ``positions`` (..., seq), f32, each repeated
-    over both halves and shaped to broadcast over heads: (..., seq, 1,
-    head_dim)."""
+    """RoPE's tables for ``positions`` (..., seq), f32, shaped to
+    broadcast over heads, (..., seq, 1, head_dim): cos repeated over both
+    halves, and sin with its first half negated, [−sin, sin]."""
     half = head_dim // 2
     freqs = torch.exp(
         -math.log(theta)
@@ -159,19 +166,19 @@ def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> Tuple[
     )
     angles = positions[..., None].float() * freqs  # (..., seq, half)
     cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
-    return torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
+    return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
 
 
 def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """The half-split rotation of x (..., seq, heads, head_dim) by the
     tables of :func:`_rope_tables`, in f32, cast back: [x1·cos − x2·sin,
-    x2·cos + x1·sin] computed as x·cos + [−x2, x1]·sin, the same IEEE
-    operations on the same values (a − b is a + (−b) exactly) in fewer
-    kernels."""
-    half = x.shape[-1] // 2
+    x2·cos + x1·sin] computed as x·cos + [x2, x1]·[−sin, sin].  These are
+    the same IEEE operations on the same values (a − b is a + (−b), and
+    x2·(−s) is −(x2·s), exactly), forward and backward, in fewer kernels:
+    the halves swap in one ``roll`` and the sign rides in the table,
+    made once a forward."""
     xf = x.float()
-    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
-    return (xf * cos + rotated * sin).to(x.dtype)
+    return (xf * cos + xf.roll(x.shape[-1] // 2, -1) * sin).to(x.dtype)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -235,13 +242,52 @@ def _sequence_parallel(cfg: "ModelConfig") -> bool:
     return cfg.attention_impl in ("ring", "ulysses") and cfg.mesh is not None
 
 
+#: the Dense layers that keep a cast weight, by the weight's id: an
+#: optimizer step casts anew those whose weights it stepped
+_cast_owners: "weakref.WeakValueDictionary[int, Dense]" = weakref.WeakValueDictionary()
+_refresh_hook: Any = None
+
+
+def _refresh_casts(optimizer: Any, args: Any, kwargs: Any) -> None:
+    """A global optimizer step post-hook: each kept cast of a weight the
+    step wrote is made anew, outside the next forward (a fused optimizer
+    writes without bumping the weights' version counters)."""
+    if not _cast_owners:
+        return
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            owner = _cast_owners.get(id(p))
+            if owner is not None and owner.weight is p and owner.cache_cast:
+                owner.keep_cast()
+
+
 class Dense(nn.Module):
     """A bias-free linear layer with its weight, (out, in) as in
     ``nn.Linear``, stored in ``param_dtype``; input and weight are cast
     to ``dtype`` at each call.  ``fan_in`` (default ``d_in``) sets the
-    init's std, ``fan_in ** -0.5``."""
+    init's std, ``fan_in ** -0.5``.
+
+    The cast weight is kept between calls while the weight is unchanged:
+    keyed on the weight's storage, its version counter (which every
+    in-place write through the parameter bumps: ``copy_``,
+    ``load_state_dict``, most optimizers), whether it requires grad, and
+    inference mode.  Where the weight requires grad, the kept cast is
+    made with grad on and carries the cast's own autograd edge, so a
+    forward with grad on uses it as it is: the gradients are those of
+    ``.to``, and two backwards through one kept cast accumulate as
+    through two casts.  After each optimizer step a global step
+    post-hook casts anew the kept weights that step wrote, outside the
+    forward: the forward loop casts once, the train step's forward not
+    at all (its casts run in the optimizer step).  One cast copy of each
+    weight stays allocated, the copy the step's backward holds anyway.
+    Writes through ``weight.data`` bypass the version counter, as they
+    bypass autograd's checks, and are not seen.  ``cache_cast = False``
+    (set by :func:`shard_model`: FSDP2 refills its gathered weights in
+    place and keeps their version) and a weight that is no plain
+    ``nn.Parameter`` (a DTensor) take the plain ``.to``."""
 
     _linear = staticmethod(F.linear)
+    cache_cast = True
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
                  param_dtype: torch.dtype, device: Any, fan_in: Optional[int] = None) -> None:
@@ -249,9 +295,42 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty((d_out, d_in), dtype=param_dtype, device=device))
         nn.init.normal_(self.weight, std=(fan_in or d_in) ** -0.5)
+        self._cast: Optional[torch.Tensor] = None
+        self._cast_key: Optional[tuple] = None
+
+    @staticmethod
+    def _key(w: torch.Tensor) -> tuple:
+        return (w.data_ptr(), w._version, w.requires_grad, torch.is_inference_mode_enabled())
+
+    def cast_weight(self) -> torch.Tensor:
+        """The weight in ``dtype``, the kept cast where it is fresh."""
+        w = self.weight
+        if w.dtype == self.dtype:
+            return w
+        if not self.cache_cast or type(w) is not nn.Parameter or w.is_inference():
+            return w.to(self.dtype)
+        if self._cast_key == self._key(w):
+            return self._cast
+        return self.keep_cast()
+
+    def keep_cast(self) -> torch.Tensor:
+        """Cast the weight anew and keep the cast (see the class)."""
+        global _refresh_hook
+        w = self.weight
+        with torch.enable_grad():
+            cast = w.to(self.dtype)
+        self._cast, self._cast_key = cast, self._key(w)
+        _cast_owners[id(w)] = self
+        if _refresh_hook is None:
+            from torch.optim.optimizer import register_optimizer_step_post_hook
+
+            _refresh_hook = register_optimizer_step_post_hook(_refresh_casts)
+        return cast
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if x.dtype != self.dtype:
+            x = x.to(self.dtype)
+        return self._linear(x, self.cast_weight())
 
 
 @contextlib.contextmanager
@@ -441,9 +520,13 @@ class Attention(nn.Module):
         q = self.wq(x).view(B, S, self.n_heads, hd)
         k = self.wk(x).view(B, S, self.n_kv_heads, hd)
         v = self.wv(x).view(B, S, self.n_kv_heads, hd)
-        q = _apply_rope(q, *rope)
-        k = _apply_rope(k, *rope)
-        # GQA: each kv head repeats in place up to n_heads
+        # one RoPE pass over q's and k's heads side by side: the same
+        # elementwise operations on the same values, in 7 kernels, not 12
+        qk = _apply_rope(torch.cat([q, k], dim=2), *rope)
+        q, k = qk[:, :, :self.n_heads], qk[:, :, self.n_heads:]
+        # GQA: each kv head repeats in place up to n_heads (a copy, so
+        # contiguous like v; q stays a view of qk, which the kernel reads
+        # through its strides)
         group = self.n_heads // self.n_kv_heads
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
@@ -539,6 +622,20 @@ class DecoderLM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, dtype, dev, tp) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.hidden, dtype=dtype, device=dev)
         self.lm_head = ColumnParallelTF32Dense(cfg.hidden, cfg.vocab_size, torch.float32, pd, dev, tp)
+        self._rope_key: Optional[tuple] = None
+        self._rope_cached: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def rope_tables(self, offset: int, S: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """RoPE's tables for positions ``offset .. offset + S``, (S, 1,
+        head_dim), broadcast over the batch and the heads: made once, not
+        in each layer, and kept for the next forward of the same positions
+        (they depend on nothing else; inference mode keeps its own)."""
+        key = (offset, S, device, torch.is_inference_mode_enabled())
+        if key != self._rope_key:
+            positions = torch.arange(offset, offset + S, device=device)
+            self._rope_cached = _rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+            self._rope_key = key
+        return self._rope_cached
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Logits of ``tokens`` (B, S); under ring or Ulysses attention
@@ -551,9 +648,7 @@ class DecoderLM(nn.Module):
         offset = 0
         if _sequence_parallel(self.cfg):
             offset = self.cfg.mesh.get_local_rank(self.cfg.context_axis) * S
-        positions = torch.arange(offset, offset + S, device=tokens.device).expand(B, S)
-        # the tables depend on the positions alone: made once, not in each layer
-        rope = _rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        rope = self.rope_tables(offset, S, tokens.device)
         for layer in self.layers:
             if self.cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, rope, use_reentrant=False)
@@ -704,6 +799,9 @@ def shard_model(model: "DecoderLM", mesh) -> "DecoderLM":
 
     for module in (*model.layers, model):
         fully_shard(module, mesh=fsdp_mesh, shard_placement_fn=placement, reshard_after_forward=not whole)
+    for module in model.modules():
+        if isinstance(module, Dense):
+            module.cache_cast = False  # FSDP2 refills the gathered weights in place, version kept
     return model
 
 

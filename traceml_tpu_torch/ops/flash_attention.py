@@ -7,7 +7,13 @@ softmax(Q Kᵀ / √D) V under a causal mask in the same layout.
 * On CUDA tensors it launches ``csrc/flash_attention_fwd.cu`` (built by
   ``ops/_build.py`` at first use) or raises: there is no other path.
   bf16 runs on the tensor cores (``wgmma``, K/V streamed by TMA through
-  an ``mbarrier`` ring); f32 runs on the CUDA cores.
+  an ``mbarrier`` ring); f32 runs on the CUDA cores.  The host side is
+  kept short, since the forward loop is paced by the host: the C entry
+  makes the tensors' card current itself and keeps the TMA maps of
+  recent (pointer, shape, strides) keys (``tensor_map_cache_stats``), and
+  the wrapper passes the raw current stream.  q, k and v may be strided
+  views (the last dim contiguous): the kernel reads them through their
+  strides, so the caller makes no copy.
 * On CPU tensors it runs :func:`flash_attention_plain`, the same blocked
   online softmax written in plain PyTorch with f32 math.
 
@@ -101,12 +107,16 @@ def _load_kernel() -> ctypes.CDLL:
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, ptr, i32]
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
+        lib.flash_attention_map_cache_stats.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.flash_attention_map_cache_stats.restype = None
+        lib.flash_attention_map_cache_clear.argtypes = []
+        lib.flash_attention_map_cache_clear.restype = None
     return lib
 
 
@@ -116,18 +126,32 @@ def kernel_smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
     return _load_kernel().flash_attention_smem_bytes(_DTYPE_CODES[dtype], head_dim)
 
 
+def tensor_map_cache_stats() -> dict:
+    """The bf16 kernel's tensor-map cache: maps found (``hits``) and
+    encoded (``misses``) since it was loaded or last cleared."""
+    out = (ctypes.c_longlong * 2)()
+    _load_kernel().flash_attention_map_cache_stats(out)
+    return {"hits": out[0], "misses": out[1]}
+
+
+def clear_tensor_map_cache() -> None:
+    _load_kernel().flash_attention_map_cache_clear()
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     B, S, H, D = q.shape
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(
-                f"{name} must match q in shape, dtype and device: "
-                f"{tuple(t.shape)} {t.dtype} {t.device} vs "
-                f"{tuple(q.shape)} {q.dtype} {q.device}"
-            )
-    if not all(t.is_cuda for t in (q, k, v)):
+    if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype \
+            or k.device != q.device or v.device != q.device:
+        name, t = ("k", k) if (k.shape, k.dtype, k.device) != (q.shape, q.dtype, q.device) else ("v", v)
+        raise ValueError(
+            f"{name} must match q in shape, dtype and device: "
+            f"{tuple(t.shape)} {t.dtype} {t.device} vs "
+            f"{tuple(q.shape)} {q.dtype} {q.device}"
+        )
+    if not q.is_cuda:
         raise ValueError("flash_attention kernel needs CUDA tensors")
-    if q.dtype not in _DTYPE_CODES:
+    code = _DTYPE_CODES.get(q.dtype)
+    if code is None:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16, not {q.dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, not {D}")
@@ -135,20 +159,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"flash_attention kernel needs S divisible by {KERNEL_SEQ_MULTIPLE}, got {S}"
         )
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention kernel needs contiguous q, k, v")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention kernel needs q, k, v contiguous in the last dim")
     lib = _load_kernel()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        strides = []
-        for t in (q, k, v, out):
-            strides.extend(t.stride()[:3])
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, D, _DTYPE_CODES[q.dtype], *strides,
-            1.0 / math.sqrt(D), stream,
-        )
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    device = q.device.index
+    # out is contiguous; q, k and v are read through their own strides
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, H, D, code, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        S * H * D, H * D, D, 1.0 / math.sqrt(D), torch._C._cuda_getCurrentRawStream(device), device,
+    )
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd launch failed: {msg} ({err})")

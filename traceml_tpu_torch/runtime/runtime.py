@@ -78,6 +78,7 @@ class TraceMLRuntime:
         self._started = False
         self._finished_sent = False
         self._mesh_sent = False
+        self._profile_service = None
         self._lock = threading.Lock()
 
     def start(self) -> None:
@@ -99,6 +100,18 @@ class TraceMLRuntime:
                 transport_info=transport_info,
             )
         get_state().on_step_flushed.append(self.recording.on_step_flushed)
+        # on-demand torch.profiler capture (the control-file protocol)
+        try:
+            from traceml_tpu_torch.sdk.profile_capture import ProfileCaptureService
+
+            self._profile_service = ProfileCaptureService(
+                self.settings.session_dir, rank=self.identity.global_rank,
+                world_size=self.runtime_identity.world_size,
+            )
+            get_state().on_step_flushed.append(self._profile_service.on_step_flushed)
+        except Exception as exc:
+            get_error_log().warning("profile capture unavailable", exc)
+            self._profile_service = None
         self._stop_evt.clear()
         self._thread = threading.Thread(target=self._sampler_loop, name="traceml-runtime", daemon=True)
         self._thread.start()
@@ -128,6 +141,13 @@ class TraceMLRuntime:
             get_state().on_step_flushed.remove(self.recording.on_step_flushed)
         except ValueError:
             pass
+        service, self._profile_service = self._profile_service, None
+        if service is not None:
+            try:
+                get_state().on_step_flushed.remove(service.on_step_flushed)
+            except ValueError:
+                pass
+            service.close()
         from traceml_tpu_torch.utils.marker_resolver import get_marker_resolver
 
         get_marker_resolver().stop()

@@ -104,6 +104,24 @@ class TraceMLSettings:
     def rank_dir(self, global_rank: int) -> Path:
         return self.session_dir / f"rank_{global_rank}"
 
+    def to_dict(self) -> Dict[str, object]:
+        """JSON-safe dict (the hand-off to a Ray actor or a subprocess)."""
+        d = dataclasses.asdict(self)
+        d["logs_dir"] = str(self.logs_dir)
+        return d
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, object]) -> "TraceMLSettings":
+        """The settings of :meth:`to_dict`; unknown keys are dropped."""
+        data = dict(data)
+        agg = data.get("aggregator")
+        if isinstance(agg, dict):
+            data["aggregator"] = AggregatorEndpoint(**agg)
+        if "logs_dir" in data:
+            data["logs_dir"] = Path(str(data["logs_dir"]))
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in data.items() if k in known})
+
 
 def _float(raw: Optional[str], fallback: float) -> float:
     try:
